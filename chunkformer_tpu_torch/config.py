@@ -1,0 +1,109 @@
+"""Configuration dataclasses for the PyTorch port.
+
+A copy of the inference-relevant part of ``chunkformer_tpu/config.py``: the
+reference ``config.yaml`` schema (encoder_conf, ctc_conf, output_dim,
+cmvn_conf, dataset_conf) loads unmodified. Unknown keys are ignored, so
+configs that also describe a decoder or a transducer still load; those heads
+are not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+
+def _filter_kwargs(cls, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in kwargs.items() if k in names}
+
+
+@dataclass
+class EncoderConfig:
+    """ChunkFormer encoder hyperparameters (reference: modules/encoder.py:36-92)."""
+
+    input_size: int = 80
+    output_size: int = 256
+    attention_heads: int = 4
+    linear_units: int = 2048
+    num_blocks: int = 12
+    dropout_rate: float = 0.1
+    positional_dropout_rate: float = 0.1
+    attention_dropout_rate: float = 0.0
+    input_layer: str = "dw_striding"
+    pos_enc_layer_type: str = "chunk_rel_pos"
+    normalize_before: bool = True
+    final_norm: bool = True
+    norm_eps: float = 1e-5
+    layer_norm_type: str = "layer_norm"
+    macaron_style: bool = True
+    activation_type: str = "swish"
+    use_cnn_module: bool = True
+    cnn_module_kernel: int = 15
+    cnn_module_norm: str = "batch_norm"
+    causal: bool = False
+    dynamic_conv: bool = False
+    selfattention_layer_type: str = "chunk_rel_seflattn"
+    dynamic_chunk_sizes: Optional[List[int]] = None
+    dynamic_left_context_sizes: Optional[List[int]] = None
+    dynamic_right_context_sizes: Optional[List[int]] = None
+    streaming: bool = False
+    subsampling_rate: int = 8
+    max_pos_len: int = 5000
+
+    @property
+    def head_dim(self) -> int:
+        return self.output_size // self.attention_heads
+
+    @property
+    def conv_lorder(self) -> int:
+        return self.cnn_module_kernel // 2
+
+
+@dataclass
+class CTCConfig:
+    ctc_blank_id: int = 0
+
+
+@dataclass
+class ChunkFormerConfig:
+    """Top-level config = parsed config.yaml."""
+
+    model: str = "asr_model"
+    encoder: str = "chunkformer"
+    encoder_conf: EncoderConfig = field(default_factory=EncoderConfig)
+    ctc_conf: CTCConfig = field(default_factory=CTCConfig)
+    vocab_size: int = 0
+    cmvn: Optional[str] = None
+    cmvn_conf: Dict[str, Any] = field(default_factory=dict)
+    tokenizer: str = "char"
+    tokenizer_conf: Dict[str, Any] = field(default_factory=dict)
+    dataset_conf: Dict[str, Any] = field(default_factory=dict)
+    raw: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ChunkFormerConfig":
+        enc = EncoderConfig(**_filter_kwargs(EncoderConfig, d.get("encoder_conf", {}) or {}))
+        if "input_dim" in d:
+            enc.input_size = d["input_dim"]
+        return cls(
+            model=d.get("model", "asr_model"),
+            encoder=d.get("encoder", "chunkformer"),
+            encoder_conf=enc,
+            ctc_conf=CTCConfig(**_filter_kwargs(CTCConfig, d.get("ctc_conf", {}) or {})),
+            vocab_size=d.get("output_dim", d.get("vocab_size", 0)),
+            cmvn=d.get("cmvn"),
+            cmvn_conf=d.get("cmvn_conf", {}) or {},
+            tokenizer=d.get("tokenizer", "char"),
+            tokenizer_conf=d.get("tokenizer_conf", {}) or {},
+            dataset_conf=d.get("dataset_conf", {}) or {},
+            raw=d,
+        )
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ChunkFormerConfig":
+        import yaml  # only this path needs PyYAML
+
+        with open(path, "r") as f:
+            return cls.from_dict(yaml.safe_load(f))

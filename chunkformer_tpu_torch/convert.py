@@ -1,0 +1,98 @@
+"""Weights in and out of the port's state dict.
+
+- ``load_state_dict``: read a reference ``pytorch_model.bin``.
+- ``state_dict_from_jax_params``: the JAX package's parameter tree (as numpy
+  arrays; layers stacked on axis 0) -> the port's state dict, with the
+  reference names of ``chunkformer_tpu/export.py:51 params_to_torch_state_dict``
+  (linear weights back to [out, in], conv weights as they are). It carries
+  weights between the two packages without going through a file.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .config import ChunkFormerConfig
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Read a torch .bin/.pt checkpoint (tensors only) onto the CPU."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def state_dict_from_jax_params(params: Dict[str, Any],
+                               cfg: ChunkFormerConfig) -> Dict[str, torch.Tensor]:
+    """Encoder + CTC parameters of a JAX ASR model -> reference-named tensors."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def linear(prefix, p):
+        sd[f"{prefix}.weight"] = _t(p["w"]).T.contiguous()
+        if "b" in p:
+            sd[f"{prefix}.bias"] = _t(p["b"])
+
+    def conv(prefix, p):
+        sd[f"{prefix}.weight"] = _t(p["w"])
+        if "b" in p:
+            sd[f"{prefix}.bias"] = _t(p["b"])
+
+    def norm(prefix, p):
+        sd[f"{prefix}.weight"] = _t(p["scale"])
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _t(p["bias"])
+        if "mean" in p:
+            sd[f"{prefix}.running_mean"] = _t(p["mean"])
+            sd[f"{prefix}.running_var"] = _t(p["var"])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    ep = params["encoder"]
+    if "cmvn" in ep:
+        sd["encoder.global_cmvn.mean"] = _t(ep["cmvn"]["mean"])
+        sd["encoder.global_cmvn.istd"] = _t(ep["cmvn"]["istd"])
+    conv("encoder.embed.conv.0", ep["embed"]["conv0"])
+    for i, base in enumerate((2, 5), start=1):
+        conv(f"encoder.embed.conv.{base}", ep["embed"][f"dw{i}"])
+        conv(f"encoder.embed.conv.{base + 1}", ep["embed"][f"pw{i}"])
+    linear("encoder.embed.out", ep["embed"]["out"])
+
+    def layer_slice(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer_slice(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    for i in range(cfg.encoder_conf.num_blocks):
+        layer = layer_slice(ep["layers"], i)
+        lp = f"encoder.encoders.{i}."
+        sa = layer["self_attn"]
+        for name, key in (("linear_q", "q"), ("linear_k", "k"), ("linear_v", "v"),
+                          ("linear_out", "out"), ("linear_pos", "pos")):
+            linear(f"{lp}self_attn.{name}", sa[key])
+        sd[f"{lp}self_attn.pos_bias_u"] = _t(sa["pos_bias_u"])
+        sd[f"{lp}self_attn.pos_bias_v"] = _t(sa["pos_bias_v"])
+        linear(f"{lp}feed_forward.w_1", layer["ff"]["w1"])
+        linear(f"{lp}feed_forward.w_2", layer["ff"]["w2"])
+        norm(f"{lp}norm_ff", layer["norm_ff"])
+        norm(f"{lp}norm_mha", layer["norm_mha"])
+        if "ff_macaron" in layer:
+            linear(f"{lp}feed_forward_macaron.w_1", layer["ff_macaron"]["w1"])
+            linear(f"{lp}feed_forward_macaron.w_2", layer["ff_macaron"]["w2"])
+            norm(f"{lp}norm_ff_macaron", layer["norm_ff_macaron"])
+        if "conv" in layer:
+            conv(f"{lp}conv_module.pointwise_conv1", layer["conv"]["pw1"])
+            conv(f"{lp}conv_module.depthwise_conv", layer["conv"]["dw"])
+            norm(f"{lp}conv_module.norm", layer["conv"]["norm"])
+            conv(f"{lp}conv_module.pointwise_conv2", layer["conv"]["pw2"])
+            norm(f"{lp}norm_conv", layer["norm_conv"])
+            norm(f"{lp}norm_final", layer["norm_final"])
+    norm("encoder.after_norm", ep["after_norm"])
+    linear("ctc.ctc_lo", params["ctc"]["lo"])
+    return sd

@@ -1,0 +1,73 @@
+"""ChunkFormer encoder layer (Conformer block), counterpart of
+``chunkformer_tpu/nn/encoder_layer.py:41 encoder_layer_apply``.
+
+Macaron-FFN(1/2) -> MHA -> Conv -> FFN(1/2) -> final norm
+(reference: chunkformer/modules/encoder_layer.py:9-248).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from .attention import RelPositionMultiHeadedAttention
+from .convolution import ConvolutionModule
+from .layers import PositionwiseFeedForward
+
+
+class ChunkFormerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, heads: int, linear_units: int, cnn_kernel: int = 15,
+                 cnn_norm: str = "batch_norm", macaron: bool = True, use_cnn: bool = True,
+                 act: str = "swish", normalize_before: bool = True, norm_eps: float = 1e-5):
+        super().__init__()
+        self.normalize_before = normalize_before
+        self.self_attn = RelPositionMultiHeadedAttention(d_model, heads)
+        self.feed_forward = PositionwiseFeedForward(d_model, linear_units, act)
+        self.norm_ff = nn.LayerNorm(d_model, eps=norm_eps)
+        self.norm_mha = nn.LayerNorm(d_model, eps=norm_eps)
+        self.feed_forward_macaron = None
+        if macaron:
+            self.feed_forward_macaron = PositionwiseFeedForward(d_model, linear_units, act)
+            self.norm_ff_macaron = nn.LayerNorm(d_model, eps=norm_eps)
+        self.conv_module = None
+        if use_cnn:
+            self.conv_module = ConvolutionModule(d_model, cnn_kernel, cnn_norm)
+            self.norm_conv = nn.LayerNorm(d_model, eps=norm_eps)
+            self.norm_final = nn.LayerNorm(d_model, eps=norm_eps)
+
+    def _residual(self, x, norm, fn, scale=1.0):
+        """Pre-norm x + scale*y with (y, extra) = fn(norm(x)), or post-norm
+        norm(x + scale*y) with fn(x). Returns (x, extra)."""
+        y, extra = fn(norm(x) if self.normalize_before else x)
+        x = x + scale * y
+        return (x if self.normalize_before else norm(x)), extra
+
+    def parallel_chunk(
+        self, x: torch.Tensor, pos_emb: torch.Tensor, chunk_idx: torch.Tensor,
+        offsets: torch.Tensor, max_lens: torch.Tensor, conv_mask: torch.Tensor,
+        att_cache: torch.Tensor, cnn_cache: torch.Tensor, left: int, right: int,
+        truncated_context_size: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One block over chunk rows x [N, c, D]; returns (x, new_att_cache, new_cnn_cache)."""
+        ff_scale = 0.5 if self.feed_forward_macaron is not None else 1.0
+        if self.feed_forward_macaron is not None:
+            x, _ = self._residual(x, self.norm_ff_macaron,
+                                  lambda h: (self.feed_forward_macaron(h), None), ff_scale)
+
+        x, new_att = self._residual(
+            x, self.norm_mha, lambda h: self.self_attn.parallel_chunk(
+                h, pos_emb, chunk_idx, offsets, max_lens, att_cache, left, right,
+                truncated_context_size))
+
+        new_cnn = cnn_cache
+        if self.conv_module is not None:
+            x, new_cnn = self._residual(
+                x, self.norm_conv, lambda h: self.conv_module.parallel_chunk(
+                    h, conv_mask, cnn_cache, truncated_context_size))
+
+        x, _ = self._residual(x, self.norm_ff, lambda h: (self.feed_forward(h), None), ff_scale)
+        if self.conv_module is not None:
+            x = self.norm_final(x)
+        return x, new_att, new_cnn

@@ -1,0 +1,114 @@
+"""Masked-batch relative-position chunk attention: CUDA kernel and plain version.
+
+Counterpart of ``chunkformer_tpu/ops/pallas/chunk_attention.py``: one function
+covers the union/head-major kernel (:335), its row-major wrapper (:306) and
+the per-chunk and G-batched kernels (:32, :158). For chunk row i the keys are
+the KV stream rows ``[i*c, i*c + L + c + R)`` (the stream carries the L-row
+cache prefix and R zero rows at the end):
+
+    scores = ((q + u) K^T + relshift((q + v) P^T)) / sqrt(dk)
+    relshift: out[r, j] = bd[r, c - 1 - r + j]
+    valid iff -offset <= chunk_idx*c - L + j < max_len;  softmax;  . V
+
+Shapes are given row-major — q [N, c, H, dk], kv [L + N*c + R, H, 2dk],
+p [2c - 1 + L + R, H, dk], u and v [H, dk] — but any strides with a
+contiguous last axis are taken, so the head-major tensors of the TPU
+contract (q [N, H, c, dk], kv [H, T, 2dk], p [H, P, dk]) are passed as
+``transpose`` views without a copy. The result is [N, c, H, dk].
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import kernels
+from .chunk import parallel_chunk_att_mask
+from .relshift import rel_shift
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis with a boolean validity mask (True = valid);
+    fully-masked rows give all-zero weights (reference attention.py:129-136)."""
+    s = scores.float().masked_fill(~mask, -1e30)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~mask, 0.0)
+    return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def chunk_attention_plain(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
+                          chunk: int, left: int, right: int) -> torch.Tensor:
+    """Plain PyTorch version, in f32 with the exact post-product 1/sqrt(dk)."""
+    n, c, heads, d_k = q.shape
+    w = left + c + right
+    f = torch.float32
+    win = kv.float().unfold(0, w, c)[:n]                # [N, H, 2dk, W]
+    k, vals = win[:, :, :d_k], win[:, :, d_k:]
+    qf = q.float()
+    ac = torch.einsum("nchd,nhdw->nhcw", qf + u.to(f), k)
+    bd = torch.einsum("nchd,phd->nhcp", qf + v.to(f), p.float())
+    scores = (ac + rel_shift(bd, left, right)) / math.sqrt(d_k)
+    mask = parallel_chunk_att_mask(chunk_idx.long(), offsets.long(), max_lens.long(),
+                                   c, left, right)
+    attn = masked_softmax(scores, mask[:, :, None, :])  # [N, H, c, W]
+    return torch.einsum("nhcw,nhdw->nchd", attn, vals).to(q.dtype)
+
+
+def _check(q, kv, p, u, v, meta, chunk, left, right):
+    n, c, heads, d_k = q.shape
+    if c != chunk:
+        raise ValueError(f"q has {c} rows per chunk, expected {chunk}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"chunk_attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("kv", kv), ("p", p), ("u", u), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is {q.dtype} on {q.device}")
+    for name, t in (("chunk_idx", meta[0]), ("offsets", meta[1]), ("max_lens", meta[2])):
+        if t.dtype != torch.int32 or t.shape != (n,) or not t.is_contiguous() \
+                or t.device != q.device:
+            raise TypeError(f"{name} must be a contiguous int32 [N] tensor on {q.device}")
+    if kv.shape != (left + n * c + right, heads, 2 * d_k):
+        raise ValueError(f"kv shape {tuple(kv.shape)} != {(left + n * c + right, heads, 2 * d_k)}")
+    if p.shape != (2 * c - 1 + left + right, heads, d_k):
+        raise ValueError(f"p shape {tuple(p.shape)} != {(2 * c - 1 + left + right, heads, d_k)}")
+    if u.shape != (heads, d_k) or v.shape != (heads, d_k) or not (
+            u.is_contiguous() and v.is_contiguous()):
+        raise ValueError("u and v must be contiguous [H, dk]")
+    if q.stride(-1) != 1 or kv.stride(-1) != 1 or p.stride(-1) != 1:
+        raise ValueError("q, kv and p need a contiguous last axis")
+    if c * d_k > 4096:
+        raise ValueError(f"chunk * head_dim = {c * d_k} exceeds the kernel's 4096")
+
+
+def chunk_attention(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
+                    chunk: int, left: int, right: int) -> torch.Tensor:
+    """Chunk attention context [N, c, H, dk] (see the module docstring).
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    the kernel of ``csrc/chunk_attention.cu`` or raises.
+    """
+    if q.device.type == "cpu":
+        return chunk_attention_plain(q, kv, p, u, v, chunk_idx, offsets, max_lens,
+                                     chunk=chunk, left=left, right=right)
+    if q.device.type != "cuda":
+        raise ValueError(f"chunk_attention runs on cpu or cuda, not {q.device}")
+    _check(q, kv, p, u, v, (chunk_idx, offsets, max_lens), chunk, left, right)
+    n, c, heads, d_k = q.shape
+    out = torch.empty((n, c, heads, d_k), dtype=q.dtype, device=q.device)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        err = lib.cf_chunk_attention(
+            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            v.data_ptr(), chunk_idx.data_ptr(), offsets.data_ptr(), max_lens.data_ptr(),
+            out.data_ptr(), n, heads, c, d_k, left, right,
+            q.stride(0), q.stride(1), q.stride(2), kv.stride(0), kv.stride(1),
+            p.stride(0), p.stride(1), out.stride(0), out.stride(1), out.stride(2),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "chunk_attention")
+    chunk_attention.launches += 1
+    return out
+
+
+chunk_attention.launches = 0  # kernel launches since the last reset

@@ -1,0 +1,89 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
+one ``nvcc`` call builds them all into one shared library in seconds, which
+is then loaded with ``ctypes``. The build runs at first use into
+``build/chunkformer_tpu_torch/`` beside the package (a directory git
+ignores), under a name keyed by the sources' hash, and is written to a
+temporary file first so concurrent processes never load a half-written
+library. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "chunkformer_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libcf_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the shared library unless it exists; return its path."""
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    with open(path + ".log", "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+def build_log() -> str:
+    """The compiler's report (ptxas registers and shared memory per kernel)."""
+    with open(build() + ".log") as f:
+        return f.read()
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    lib.cf_chunk_attention.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
+    lib.cf_chunk_attention.restype = _I
+    lib.cf_fbank.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+    lib.cf_fbank.restype = _I
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch was refused (err is the cudaError_t it returned)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
