@@ -19,7 +19,17 @@ non-zero exit code and no result line:
    kernel's launch count read around that run; then in f32 the
    endless-vs-single-shot token mismatch, and the card's encoder against the
    CPU's on a small input;
-5. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+5. the training attention kernels (forward and backward) against their plain
+   versions at the flagship train shape (B = 32, 199 subsampled frames,
+   c = 64, L = R = 128, H = 8, dk = 64), in f32 and bf16, at dropout 0 and
+   0.1 (identical keep masks);
+6. the train path: three bf16 steps of the hybrid CTC/AED configuration of
+   bench.py:149-177 (ChunkFormer-large encoder with gradient checkpointing,
+   bitransformer decoder 3 + 3, vocab 6992, adamw) on 32 seeded synthetic
+   utterances of 16 s, with the training attention's launch counts read
+   around them; then one f32 step through the kernels against the same step
+   through the plain attention;
+7. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -53,6 +63,22 @@ LARGE = {  # ChunkFormer-large, as bench.py:220-227
 C, LEFT, RIGHT, BUDGET = 64, 128, 128, 1800
 LONG_SECONDS = 2040.0     # 3 macro-segments of the 1800 s budget
 BATCH_SECONDS = (17.3, 48.1, 95.7)
+
+TRAIN = {  # the flagship hybrid CTC/AED train step of bench.py:149-177
+    "model": "asr_model",
+    "encoder_conf": {"output_size": 512, "attention_heads": 8, "linear_units": 2048,
+                     "num_blocks": 17, "cnn_module_kernel": 15,
+                     "cnn_module_norm": "layer_norm", "dynamic_conv": True,
+                     "gradient_checkpointing": True, "remat_policy": "dots"},
+    "decoder": "bitransformer",
+    "decoder_conf": {"attention_heads": 8, "linear_units": 2048, "num_blocks": 3,
+                     "r_num_blocks": 3},
+    "model_conf": {"ctc_weight": 0.3, "reverse_weight": 0.3, "lsm_weight": 0.1},
+    "output_dim": 6992,
+}
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_LABELS = 32, 1600, 48   # 32 x 16 s = 512 audio-s a step
+TRAIN_STEPS = 3
+GRAD_CLIP = 5.0
 
 
 class PhaseFailed(Exception):
@@ -349,6 +375,319 @@ def phase_main_path(tmp, card, device):
     return main_counts, capacity
 
 
+def train_attention_inputs(dtype, gen, dev):
+    """Operands of the training attention at the flagship train shape: B = 32
+    utterances of 1600 frames (199 subsampled), n = 4 chunks of 64, L = R =
+    128, H = 8, dk = 64; the stream's pad rows are zero as in the encoder."""
+    from chunkformer_tpu_torch.nn.encoder import subsampled_lengths
+
+    h, dk = TRAIN["encoder_conf"]["attention_heads"], 64
+    lens = subsampled_lengths(torch.full((TRAIN_BATCH,), TRAIN_FRAMES, device=dev))
+    n = -(-int(lens.max()) // C)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    kv = rnd(TRAIN_BATCH, LEFT + n * C + RIGHT, h, 2 * dk)
+    kv[:, :LEFT] = 0
+    kv[:, LEFT + n * C:] = 0
+    return [rnd(TRAIN_BATCH, n * C, h, dk), kv, rnd(2 * C - 1 + LEFT + RIGHT, h, dk),
+            rnd(h, dk), rnd(h, dk), lens]
+
+
+def train_attention_bounds(args, backward: bool):
+    """Least time on an H100 SXM. Bytes: each input read once, each output
+    written once (forward: q, kv, p, u, v, lens -> ctx, m, den; backward:
+    q, kv, p, u, v, lens, ctx, m, den, dctx -> dq, dkv, dp, du, dv, the
+    gradients in the input dtype). Operations over
+    this data's valid (query, key) pairs, 2 per multiply-add: the forward's
+    three dk-long products (content, position, context), the backward's
+    eight (recomputed content and position scores, dA, dq from both
+    branches, dK, dV, dP)."""
+    q, kv, p, u, v, lens = args
+    b, tp, h, dk = q.shape
+    item = q.element_size()
+    stats = b * h * tp * 4
+    operands = (q.numel() + kv.numel() + p.numel() + u.numel() + v.numel()) * item
+    ctx_m_den = q.numel() * item + 2 * stats
+    nbytes = operands + b * 4 + ctx_m_den          # forward: operands, lens in; ctx, m, den out
+    if backward:                                   # + dctx in; their gradients out
+        nbytes += q.numel() * item + operands
+    pairs = 0
+    for ln in lens.tolist():
+        for ci in range(tp // C):
+            rows = min(C, max(0, ln - ci * C))
+            keys = max(0, min(LEFT + C + RIGHT, ln - ci * C + LEFT) - max(0, LEFT - ci * C))
+            pairs += rows * keys
+    ops = pairs * h * dk * 2 * (8 if backward else 3)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_PEAK[q.dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_train_kernels(device):
+    """B4 (forward) and B5 (backward) against their plain versions at the
+    flagship train shape: f32 and bf16 at p = 0, f32 and bf16 at p = 0.1.
+    Forward: ctx f32 atol 1e-5 (bf16 atol 1e-2 + one bf16 ulp relative), m
+    and den rtol 1e-5 (bf16 1e-2). Backward: the gradients of q, kv, p, u and
+    v through the kernels against autograd through the plain forward, f32
+    atol 1e-4 rtol 1e-5, bf16 relative L2 1e-2. At p = 0.1 a single keep-mask
+    difference would move a context row by a whole weight, far above these
+    bounds, so agreement means identical masks."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    results = {}
+    seed = 20260
+    for dtype, drop in ((torch.float32, 0.0), (torch.bfloat16, 0.0), (torch.float32, 0.1),
+                        (torch.bfloat16, 0.1)):
+        label = f"train attention {'bf16' if dtype == torch.bfloat16 else 'f32'} p={drop}"
+        bf16 = dtype == torch.bfloat16
+        args = train_attention_inputs(dtype, gen, device)
+        st = (seed, C, LEFT, RIGHT, drop)
+        ctx, m, den = cat.forward_kernel(*args, *st)
+        torch.cuda.synchronize()
+        want = cat.forward_plain(*args, *st)
+        fwd_err = float((ctx.float() - want[0].float()).abs().max())
+        require(all(bool(torch.isfinite(t).all()) for t in (ctx, m, den)),
+                f"{label}: non-finite forward output")
+        tol = (1e-2 + 2.0 ** -7 * want[0].float().abs()) if bf16 else 1e-5
+        require(bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
+                f"{label}: forward max |kernel - plain| {fwd_err:.3g}")
+        for name, got_s, want_s in (("m", m, want[1]), ("den", den, want[2])):
+            rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
+            require(rel <= (1e-2 if bf16 else 1e-5), f"{label}: {name} relative error {rel:.3g}")
+
+        dctx = torch.randn(ctx.shape, generator=gen, device=device).to(dtype)
+        leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+        out = cat.chunk_train_attention(*leaves, args[5], seed, chunk=C, left=LEFT, right=RIGHT,
+                                        drop_rate=drop)
+        got_g = torch.autograd.grad(out, leaves, dctx)
+        torch.cuda.synchronize()
+        leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+        want_g = torch.autograd.grad(cat.forward_plain(*leaves, args[5], *st)[0], leaves, dctx)
+        bwd_err = 0.0
+        for name, a, e in zip(("q", "kv", "p", "u", "v"), got_g, want_g):
+            require(bool(torch.isfinite(a).all()), f"{label}: non-finite d{name}")
+            err = (a.float() - e.float()).abs()
+            bwd_err = max(bwd_err, float(err.max()))
+            if bf16:
+                rel = float((a.float() - e.float()).norm() / e.float().norm())
+                require(rel <= 1e-2, f"{label}: d{name} relative L2 error {rel:.3g}")
+            else:
+                require(bool((err <= 1e-4 + 1e-5 * e.float().abs()).all()),
+                        f"{label}: d{name} max |kernel - plain| {float(err.max()):.3g}")
+        kept = (float(cat.window_keep_mask(seed, args[5], args[0].shape[1] // C, 8, C,
+                                           LEFT + C + RIGHT, drop).float().mean())
+                if drop else 1.0)
+
+        fwd_ms = cuda_ms(lambda: cat.forward_kernel(*args, *st), iters=10)
+        bwd_ms = cuda_ms(lambda: cat.backward_kernel(*args, ctx, m, den, dctx, *st), iters=10)
+        plain_fwd_ms = cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3, warmup=1)
+        plain_bwd_ms = cuda_ms(lambda: cat.backward_plain(*args, m, den, dctx, *st), iters=3,
+                               warmup=1)
+        fb, fb_by = train_attention_bounds(args, backward=False)
+        bb, bb_by = train_attention_bounds(args, backward=True)
+        results[label] = {
+            "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fb,
+                        bound_by=fb_by),
+            "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bb,
+                        bound_by=bb_by)}
+        log(f"{label}: B={TRAIN_BATCH} T'={args[0].shape[1]} H=8 c={C} dk=64 L=R={LEFT}, "
+            f"keep share {kept:.4f}: forward max|kernel-plain| {fwd_err:.3g}, kernel "
+            f"{fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, bound {fb:.4f} ms by {fb_by}; "
+            f"backward max|kernel-plain| {bwd_err:.3g}, kernel {bwd_ms:.4f} ms, plain "
+            f"{plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bb_by}")
+        del args, ctx, m, den, want, dctx, got_g, want_g, leaves, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def train_batch(cfg, device, seed):
+    """Seeded synthetic features [B, 1600, 80] and targets [B, 48] on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn(TRAIN_BATCH, TRAIN_FRAMES, 80, generator=gen, device=device)
+    lens = torch.full((TRAIN_BATCH,), TRAIN_FRAMES, dtype=torch.int32, device=device)
+    targets = torch.randint(1, cfg.vocab_size - 2, (TRAIN_BATCH, TRAIN_LABELS), generator=gen,
+                            device=device)
+    tlens = torch.full((TRAIN_BATCH,), TRAIN_LABELS, dtype=torch.int32, device=device)
+    return feats, lens, targets, tlens
+
+
+def reset_train_counts():
+    from chunkformer_tpu_torch.ops.chunk_attention_train import chunk_train_attention
+
+    chunk_train_attention.fwd_launches = 0
+    chunk_train_attention.bwd_launches = 0
+
+
+def read_train_counts():
+    from chunkformer_tpu_torch.ops.chunk_attention_train import chunk_train_attention
+
+    return {"fwd": chunk_train_attention.fwd_launches, "bwd": chunk_train_attention.bwd_launches}
+
+
+def new_trainer(train_dict, device, autocast):
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
+    from chunkformer_tpu_torch.train.optim import build_optimizer
+    from chunkformer_tpu_torch.train.train_step import make_train_step
+
+    cfg = ChunkFormerConfig.from_dict(train_dict)
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED)).to(device)
+    opt, sched = build_optimizer(list(model.parameters()), "adamw", {"lr": 1e-3}, "warmuplr",
+                                 {"warmup_steps": 25000})
+    step = make_train_step(model, cfg, opt, sched, (C, LEFT, RIGHT), autocast=autocast,
+                           grad_clip=GRAD_CLIP)
+    return cfg, model, step
+
+
+def phase_train(card, device, train_dict=TRAIN):
+    """The train path: TRAIN_STEPS bf16 steps of the flagship configuration
+    (dropout on, from a seeded generator), with the training attention's
+    launch counts read around them; then one f32 step (TF32 off, dropout 0)
+    through the kernels against the same step through the plain attention."""
+    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention
+    from chunkformer_tpu_torch.ops.fbank import fbank
+
+    cfg, model, step = new_trainer(train_dict, device, torch.bfloat16)
+    n_layers = cfg.encoder_conf.num_blocks
+    recompute = 2 if cfg.encoder_conf.remat_policy == "nothing" else 1
+    before = [p.detach().clone() for p in model.parameters()]
+    batch = train_batch(cfg, device, SEED + 2)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    decode_counts = (chunk_attention.launches, fbank.launches)
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.time()
+        m = step(*batch, gen)
+        m = {k: float(v) for k, v in m.items()}
+        times.append(time.time() - t0)
+        metrics.append(m)
+    counts = read_train_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30 if device.type == "cuda" else 0.0
+    audio_s = TRAIN_BATCH * TRAIN_FRAMES / 100.0
+    warm = times[1:] if len(times) > 1 else times
+    step_s = sum(warm) / len(warm)
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        log(f"train step {i + 1} bf16: {1e3 * t:.1f} ms, " + ", ".join(
+            f"{k} {v:.5g}" for k, v in m.items()))
+    log(f"train bf16 (B={TRAIN_BATCH} x {TRAIN_FRAMES} frames, U={TRAIN_LABELS}, "
+        f"{n_layers} blocks, remat {cfg.encoder_conf.remat_policy}): {1e3 * step_s:.1f} ms a "
+        f"step over steps 2-{TRAIN_STEPS}, {audio_s / step_s:.1f} train audio-s/s (first step "
+        f"{1e3 * times[0]:.1f} ms); peak device memory {peak_gib:.2f} GiB; launches {counts}; "
+        f"card {card}")
+    for m in metrics:
+        require(all(np.isfinite(m[k]) for k in ("loss", "loss_ctc", "loss_att", "grad_norm")),
+                f"non-finite train metrics {m}")
+    # adamw decays every parameter, so a move alone does not show a gradient
+    no_grad = [name for name, p in model.named_parameters()
+               if p.grad is None or not float(p.grad.float().norm()) > 0.0]
+    require(not no_grad, f"parameters with no or zero gradient: {no_grad[:5]}")
+    still = [name for (name, p), b in zip(model.named_parameters(), before)
+             if torch.equal(p.detach(), b)]
+    require(not still, f"parameters that did not move: {still[:5]}")
+    if device.type == "cuda":
+        want = {"fwd": n_layers * TRAIN_STEPS * recompute, "bwd": n_layers * TRAIN_STEPS}
+        require(counts == want, f"train launches {counts}, expected {want}")
+        require((chunk_attention.launches, fbank.launches) == decode_counts,
+                "the train path launched a decode kernel")
+    del model, step, before
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # f32, TF32 off, dropout 0: kernels against the plain attention, and a
+    # sensitivity baseline: the plain route with its encoder output scaled by
+    # (1 + eps * z), z ~ N(0, 1) from a seed and eps the kernels' measured
+    # relative difference at the encoder output
+    f32_dict = {**train_dict, "encoder_conf": {**train_dict["encoder_conf"], "dropout_rate": 0.0,
+                                               "positional_dropout_rate": 0.0,
+                                               "attention_dropout_rate": 0.0},
+                "decoder_conf": {**train_dict["decoder_conf"], "dropout_rate": 0.0,
+                                 "positional_dropout_rate": 0.0}}
+    runs, enc_out = {}, {}
+    for route in ("kernel", "plain", "plain, perturbed encoder output"):
+        cfg, model, step = new_trainer(f32_dict, device, None)
+        if route != "kernel":
+            for layer in model.encoder.encoders:
+                layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
+        forward_train = model.encoder.forward_train
+
+        def watched(*a, route=route, forward_train=forward_train, **k):
+            out, mask = forward_train(*a, **k)
+            if route.endswith("perturbed encoder output"):
+                z = torch.randn(out.shape, generator=torch.Generator(device=out.device)
+                                .manual_seed(SEED + 4), device=out.device)
+                out = out * (1 + eps * z)
+            enc_out[route] = out.detach().clone()
+            return out, mask
+
+        if route != "kernel":
+            eps = float((enc_out["kernel"] - enc_out["plain"]).norm() / enc_out["plain"].norm()) \
+                if "plain" in enc_out else 0.0
+        model.encoder.forward_train = watched
+        reset_train_counts()
+        m = step(*batch)
+        unclip = max(1.0, float(m["grad_norm"]) / GRAD_CLIP)   # .grad is clipped in place
+        grads = {n: p.grad.detach() * unclip for n, p in model.named_parameters()}
+        runs[route] = (float(m["loss"]), grads, read_train_counts())
+        del model, step
+    (loss_k, g_k, counts_k), (loss_p, g_p, counts_p) = runs["kernel"], runs["plain"]
+    g_n = runs["plain, perturbed encoder output"][1]
+    eps = float((enc_out["kernel"] - enc_out["plain"]).norm() / enc_out["plain"].norm())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+
+    def rel_l2(a, b, names):
+        num = torch.sqrt(sum((a[n] - b[n]).square().sum() for n in names))
+        return float(num / torch.sqrt(sum(b[n].square().sum() for n in names)))
+
+    groups = {g: [n for n in g_p if n.startswith(g + ".")] for g in ("encoder", "ctc", "decoder")}
+    group_rel = {g: rel_l2(g_k, g_p, names) for g, names in groups.items()}
+    whole_rel = rel_l2(g_k, g_p, list(g_p))
+    # per parameter, relative to its own gradient norm floored at 1e-6 of the
+    # whole gradient's: the key biases' gradients are zero in exact arithmetic
+    # (a shift shared by all keys of a softmax row), float noise on any route
+    floor = 1e-6 * float(torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+
+    def per_param(a):
+        return sorted(((float((a[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), floor), n)
+                       for n in g_p), reverse=True)
+
+    worst_k, worst_n = per_param(g_k), per_param(g_n)
+    # each parameter within 1e-4, or, where the f32 sensitivity of the step
+    # is larger, within 3x its own perturbed-route difference + 1e-5; never
+    # above 1e-2
+    base = {n: r for r, n in worst_n}
+    over = [(r, n) for r, n in worst_k if r > 1e-4]
+    unexplained = [(r, n, base[n]) for r, n in over if r > 3 * base[n] + 1e-5 or r > 1e-2]
+    log(f"train f32 step, kernels vs plain attention: loss {loss_k:.8g} vs {loss_p:.8g}, relative "
+        f"difference {loss_rel:.3g} (limit 1e-5); encoder output relative L2 difference "
+        f"{eps:.3g}; gradient relative L2 difference: whole {whole_rel:.3g}, "
+        + ", ".join(f"{g} {v:.3g}" for g, v in group_rel.items())
+        + f" (limit 1e-4 each); per parameter worst {worst_k[0][0]:.3g} at {worst_k[0][1]}, "
+        f"{len(over)} of {len(worst_k)} above 1e-4, each within 3x its baseline + 1e-5 and "
+        f"1e-2; launches {counts_k} vs {counts_p}")
+    log(f"  sensitivity baseline, plain route with its encoder output perturbed by relative "
+        f"{eps:.3g}: gradient relative L2 difference whole {rel_l2(g_n, g_p, list(g_p)):.3g}, "
+        f"per parameter worst {worst_n[0][0]:.3g} at {worst_n[0][1]}, "
+        f"{sum(1 for r, _ in worst_n if r > 1e-4)} of {len(worst_n)} above 1e-4")
+    for r, n in worst_k[:5]:
+        log(f"  kernels vs plain {r:.3g} (baseline {base[n]:.3g}) {n}")
+    require(np.isfinite(loss_k) and loss_rel <= 1e-5, f"f32 loss differs by {loss_rel}")
+    require(whole_rel <= 1e-4 and max(group_rel.values()) <= 1e-4,
+            f"f32 gradients differ: whole {whole_rel}, groups {group_rel}")
+    require(not unexplained, "f32 gradients differ beyond 1e-4 and their baselines "
+            "(difference, name, baseline): " + ", ".join(f"{r:.3g} {n} {b:.3g}"
+                                                        for r, n, b in unexplained[:5]))
+    if device.type == "cuda":
+        require(counts_p == {"fwd": 0, "bwd": 0} and counts_k["bwd"] == n_layers,
+                f"f32 launches {counts_k} (kernel), {counts_p} (plain)")
+    return counts, step_s, peak_gib
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -380,6 +719,14 @@ def main() -> int:
         t = time.time()
         launches, capacity = phase_main_path(tmp, card, torch.device("cuda"))
         log(f"[phase main path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        train_results = phase_train_kernels(torch.device("cuda"))
+        log(f"[phase train kernels] {time.time() - t:.1f} s")
+
+        t = time.time()
+        train_launches, _, _ = phase_train(card, torch.device("cuda"))
+        log(f"[phase train path] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -395,8 +742,19 @@ def main() -> int:
         {"name": "fbank", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": launches["fbank"], **results["fbank"], "library_ms": None},
+        {"name": "chunk_train_attention_fwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": train_launches["fwd"], **train_results["train attention bf16 p=0.0"]["fwd"],
+         "library_ms": None},
+        {"name": "chunk_train_attention_bwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
+         "launches": train_launches["bwd"], **train_results["train attention bf16 p=0.0"]["bwd"],
+         "library_ms": None},
     ]
-    log(f"kernels at the main path's shapes (attention: bf16, N={capacity}); card {card}")
+    log(f"kernels at the main paths' shapes (attention: bf16, N={capacity}; train attention: "
+        f"bf16, B={TRAIN_BATCH}, p=0); card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

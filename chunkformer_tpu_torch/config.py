@@ -1,10 +1,10 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the inference-relevant part of ``chunkformer_tpu/config.py``: the
-reference ``config.yaml`` schema (encoder_conf, ctc_conf, output_dim,
-cmvn_conf, dataset_conf) loads unmodified. Unknown keys are ignored, so
-configs that also describe a decoder or a transducer still load; those heads
-are not part of this package yet.
+A copy of the CTC/AED part of ``chunkformer_tpu/config.py``: the reference
+``config.yaml`` / ``train.yaml`` schema (encoder_conf, decoder_conf,
+ctc_conf, model_conf, output_dim, cmvn_conf, dataset_conf) loads unmodified.
+Unknown keys are ignored, so configs that also describe a transducer still
+load; that head is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -45,6 +45,11 @@ class EncoderConfig:
     causal: bool = False
     dynamic_conv: bool = False
     selfattention_layer_type: str = "chunk_rel_seflattn"
+    gradient_checkpointing: bool = False
+    # under gradient_checkpointing: "nothing" recomputes each layer in the
+    # backward; "dots" keeps the matrix products' and the training attention
+    # kernel's outputs and recomputes the rest
+    remat_policy: str = "nothing"
     dynamic_chunk_sizes: Optional[List[int]] = None
     dynamic_left_context_sizes: Optional[List[int]] = None
     dynamic_right_context_sizes: Optional[List[int]] = None
@@ -62,8 +67,38 @@ class EncoderConfig:
 
 
 @dataclass
+class DecoderConfig:
+    """AED decoder hyperparameters (reference: modules/decoder.py:35-172)."""
+
+    decoder_type: str = "bitransformer"  # "transformer" | "bitransformer"
+    attention_heads: int = 4
+    linear_units: int = 2048
+    num_blocks: int = 3
+    r_num_blocks: int = 3
+    dropout_rate: float = 0.1
+    positional_dropout_rate: float = 0.1
+    self_attention_dropout_rate: float = 0.0
+    src_attention_dropout_rate: float = 0.0
+    input_layer: str = "embed"
+    use_output_layer: bool = True
+    normalize_before: bool = True
+    src_attention: bool = True
+    tie_word_embedding: bool = False
+
+
+@dataclass
 class CTCConfig:
     ctc_blank_id: int = 0
+
+
+@dataclass
+class ModelConfig:
+    """Hybrid loss weights (reference: modules/asr_model.py:28-76)."""
+
+    ctc_weight: float = 0.3
+    lsm_weight: float = 0.1
+    length_normalized_loss: bool = False
+    reverse_weight: float = 0.0
 
 
 @dataclass
@@ -73,7 +108,10 @@ class ChunkFormerConfig:
     model: str = "asr_model"
     encoder: str = "chunkformer"
     encoder_conf: EncoderConfig = field(default_factory=EncoderConfig)
+    decoder: Optional[str] = None
+    decoder_conf: Optional[DecoderConfig] = None
     ctc_conf: CTCConfig = field(default_factory=CTCConfig)
+    model_conf: ModelConfig = field(default_factory=ModelConfig)
     vocab_size: int = 0
     cmvn: Optional[str] = None
     cmvn_conf: Dict[str, Any] = field(default_factory=dict)
@@ -87,11 +125,19 @@ class ChunkFormerConfig:
         enc = EncoderConfig(**_filter_kwargs(EncoderConfig, d.get("encoder_conf", {}) or {}))
         if "input_dim" in d:
             enc.input_size = d["input_dim"]
+        dec = None
+        if d.get("decoder"):
+            dc = dict(d.get("decoder_conf", {}) or {})
+            dc["decoder_type"] = d["decoder"]
+            dec = DecoderConfig(**_filter_kwargs(DecoderConfig, dc))
         return cls(
             model=d.get("model", "asr_model"),
             encoder=d.get("encoder", "chunkformer"),
             encoder_conf=enc,
+            decoder=d.get("decoder"),
+            decoder_conf=dec,
             ctc_conf=CTCConfig(**_filter_kwargs(CTCConfig, d.get("ctc_conf", {}) or {})),
+            model_conf=ModelConfig(**_filter_kwargs(ModelConfig, d.get("model_conf", {}) or {})),
             vocab_size=d.get("output_dim", d.get("vocab_size", 0)),
             cmvn=d.get("cmvn"),
             cmvn_conf=d.get("cmvn_conf", {}) or {},

@@ -4,8 +4,10 @@
 - ``state_dict_from_jax_params``: the JAX package's parameter tree (as numpy
   arrays; layers stacked on axis 0) -> the port's state dict, with the
   reference names of ``chunkformer_tpu/export.py:51 params_to_torch_state_dict``
-  (linear weights back to [out, in], conv weights as they are). It carries
-  weights between the two packages without going through a file.
+  (linear weights back to [out, in], conv weights as they are), the decoder
+  included. It carries weights between the two packages without going
+  through a file; being a map of names and layouts, it also carries a JAX
+  gradient tree onto the port's parameter names.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def _t(x) -> torch.Tensor:
 
 def state_dict_from_jax_params(params: Dict[str, Any],
                                cfg: ChunkFormerConfig) -> Dict[str, torch.Tensor]:
-    """Encoder + CTC parameters of a JAX ASR model -> reference-named tensors."""
+    """Encoder, CTC and decoder parameters of a JAX ASR model -> reference-named tensors."""
     sd: Dict[str, torch.Tensor] = {}
 
     def linear(prefix, p):
@@ -69,6 +71,11 @@ def state_dict_from_jax_params(params: Dict[str, Any],
             return {k: layer_slice(v, i) for k, v in tree.items()}
         return np.asarray(tree)[i]
 
+    def n_layers(tree):
+        while isinstance(tree, dict):
+            tree = next(iter(tree.values()))
+        return np.asarray(tree).shape[0]
+
     for i in range(cfg.encoder_conf.num_blocks):
         layer = layer_slice(ep["layers"], i)
         lp = f"encoder.encoders.{i}."
@@ -95,4 +102,25 @@ def state_dict_from_jax_params(params: Dict[str, Any],
             norm(f"{lp}norm_final", layer["norm_final"])
     norm("encoder.after_norm", ep["after_norm"])
     linear("ctc.ctc_lo", params["ctc"]["lo"])
+
+    for side, name in (("left", "left_decoder"), ("right", "right_decoder")):
+        if side not in params.get("decoder", {}):
+            continue
+        dp = params["decoder"][side]
+        sp = f"decoder.{name}."
+        sd[f"{sp}embed.0.weight"] = _t(dp["embed"]["w"])
+        for i in range(n_layers(dp["layers"])):
+            layer = layer_slice(dp["layers"], i)
+            lp = f"{sp}decoders.{i}."
+            for attn in ("self_attn", "src_attn"):
+                for lin, key in (("linear_q", "q"), ("linear_k", "k"), ("linear_v", "v"),
+                                 ("linear_out", "out")):
+                    linear(f"{lp}{attn}.{lin}", layer[attn][key])
+            linear(f"{lp}feed_forward.w_1", layer["ff"]["w1"])
+            linear(f"{lp}feed_forward.w_2", layer["ff"]["w2"])
+            for norm_name in ("norm1", "norm2", "norm3"):
+                norm(f"{lp}{norm_name}", layer[norm_name])
+        norm(f"{sp}after_norm", dp["after_norm"])
+        if "output_layer" in dp:
+            linear(f"{sp}output_layer", dp["output_layer"])
     return sd

@@ -1,6 +1,8 @@
-"""CTC ASR model: encoder + CTC head (counterpart of ``chunkformer_tpu/models/asr.py``).
+"""Hybrid CTC/AED ASR model: encoder, CTC head and, when the config names
+one, the attention decoder (counterpart of ``chunkformer_tpu/models/asr.py``).
 
-Parameter names are the reference state-dict names (``encoder.*``, ``ctc.ctc_lo.*``;
+Parameter names are the reference state-dict names (``encoder.*``,
+``ctc.ctc_lo.*``, ``decoder.left_decoder.*``, ``decoder.right_decoder.*``;
 ``chunkformer_tpu/export.py:51`` lists them), so an exported
 ``pytorch_model.bin`` loads with ``strict=True``.
 """
@@ -14,6 +16,7 @@ from torch import nn
 
 from ..config import ChunkFormerConfig
 from ..nn.attention import RelPositionMultiHeadedAttention
+from ..nn.decoder import BiTransformerDecoder
 from ..nn.encoder import ChunkFormerEncoder
 
 
@@ -34,19 +37,26 @@ class ASRModel(nn.Module):
         super().__init__()
         self.encoder = ChunkFormerEncoder(config.encoder_conf, cmvn)
         self.ctc = CTC(config.encoder_conf.output_size, config.vocab_size)
+        self.decoder = None
+        if config.decoder:
+            self.decoder = BiTransformerDecoder(config.decoder_conf, config.vocab_size,
+                                                config.encoder_conf.output_size)
 
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every weight from ``generator`` with PyTorch's default bounds:
     U(+-1/sqrt(fan_in)) for linear and conv layers, Xavier-uniform for the
-    positional biases; norms and CMVN keep their identity values."""
+    positional biases, N(0, 1) for token embeddings (as the JAX package);
+    norms and CMVN keep their identity values."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(generator=generator)
         elif isinstance(m, RelPositionMultiHeadedAttention):
             bound = math.sqrt(6.0 / (m.heads + m.d_k))
             m.pos_bias_u.uniform_(-bound, bound, generator=generator)

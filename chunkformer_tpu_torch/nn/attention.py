@@ -1,22 +1,35 @@
-"""Chunked relative-position multi-head attention, parallel-chunk mode
-(counterpart of ``chunkformer_tpu/nn/attention.py:235 attention_parallel_chunk``
-and ``:269 attention_parallel_chunk_pallas``).
+"""Chunked relative-position multi-head attention (counterpart of
+``chunkformer_tpu/nn/attention.py``), in three modes:
 
-Reference: chunkformer/modules/attention.py:420-505. The K/V projections of
-all chunk rows form one flat stream behind the L-row cache and ahead of R
-zero rows; chunk row i attends over stream rows [i*c, i*c + L + c + R),
-which ``ops.chunk_attention`` reads in place (no unfold).
+- ``parallel_chunk`` (:235, :269): masked-batch inference over packed chunk
+  rows (reference attention.py:420-505). The K/V projections of all chunk
+  rows form one flat stream behind the L-row cache and ahead of R zero rows;
+  chunk row i attends over stream rows [i*c, i*c + L + c + R), which
+  ``ops.chunk_attention`` reads in place (no unfold).
+- ``full`` (:93): full-context training and evaluation.
+- limited-context training: ``chunked_train`` (:142) builds the operands of
+  the training kernels (``ops.chunk_attention_train``) per utterance, and
+  ``attention_chunked_train`` (:103, unfold + rel_shift + masked softmax) is
+  their plain oracle.
+
+Attention-weight dropout in the chunked modes is the counter-based mask of
+``ops.chunk_attention_train`` (seeded per layer), so the kernel and the
+oracle drop the same weights; in full mode it draws from a generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.chunk_attention import chunk_attention
+from ..ops.chunk_attention import chunk_attention, masked_softmax
+from ..ops.chunk_attention_train import chunk_train_attention, window_keep_mask
+from ..ops.relshift import rel_shift
+from .layers import dropout
 
 
 class RelPositionMultiHeadedAttention(nn.Module):
@@ -57,3 +70,89 @@ class RelPositionMultiHeadedAttention(nn.Module):
         ctx = chunk_attention(q, stream, p, self.pos_bias_u, self.pos_bias_v,
                               chunk_idx, offsets, max_lens, chunk=c, left=left, right=right)
         return self.linear_out(ctx.reshape(n, c, d)), new_cache
+
+    def _heads(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        y = linear(x)
+        return y.view(*y.shape[:-1], self.heads, self.d_k)
+
+    def rel_attention_core(self, q, k, v, pos_emb, mask, left: int, right: int,
+                           drop=None) -> torch.Tensor:
+        """Transformer-XL scores over head-split q [N, T1, H, dk], k and v
+        [N, T2, H, dk] (T2 = T1 + L + R), pos_emb [2*T1 - 1 + L + R, D], mask
+        [N, 1 | T1, T2] (True = valid); ``drop`` maps the weights
+        [N, H, T1, T2] to their dropped version. Returns [N, T1, D]
+        (``chunkformer_tpu/nn/attention.py:56``)."""
+        n, t1, h, d_k = q.shape
+        p = self.linear_pos(pos_emb.to(q.dtype)).view(-1, h, d_k)
+        q_u = q + self.pos_bias_u.to(q.dtype)
+        q_v = q + self.pos_bias_v.to(q.dtype)
+        ac = torch.einsum("nthd,nshd->nhts", q_u, k).float()
+        bd = torch.einsum("nthd,phd->nhtp", q_v, p).float()
+        scores = (ac + rel_shift(bd, left, right)) / math.sqrt(d_k)
+        attn = masked_softmax(scores, mask[:, None])
+        if drop is not None:
+            attn = drop(attn)
+        out = torch.einsum("nhts,nshd->nthd", attn.to(v.dtype), v)
+        return self.linear_out(out.reshape(n, t1, h * d_k))
+
+    def full(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: torch.Tensor,
+             drop_rate: float = 0.0, generator: Optional[torch.Generator] = None
+             ) -> torch.Tensor:
+        """Full-context self attention: x [B, T, D], pos_emb [2T - 1, D], mask [B, 1, T]."""
+        q, k, v = (self._heads(lin, x) for lin in (self.linear_q, self.linear_k, self.linear_v))
+        return self.rel_attention_core(q, k, v, pos_emb, mask, 0, 0,
+                                       lambda a: dropout(a, drop_rate, generator))
+
+    def attention_chunked_train(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                                lens: torch.Tensor, chunk: int, left: int, right: int,
+                                drop_seed: int = 0, drop_rate: float = 0.0) -> torch.Tensor:
+        """Plain limited-context training attention (reference
+        attention.py:334-386): queries in chunks of c, each over an unfolded
+        window of L + c + R keys. x [B, T, D]; lens [B] valid frames;
+        pos_emb [2c - 1 + L + R, D]. The gradient oracle of ``chunked_train``."""
+        b, t, d = x.shape
+        c, h = chunk, self.heads
+        n = -(-t // c)
+        w = left + c + right
+        pad_t = n * c - t
+        q = F.pad(self._heads(self.linear_q, x), (0, 0, 0, 0, 0, pad_t)).view(b * n, c, h, -1)
+        kv = torch.cat([self._heads(self.linear_k, x), self._heads(self.linear_v, x)], -1)
+        kv = F.pad(kv, (0, 0, 0, 0, left, pad_t + right)).unfold(1, w, c)  # [B, n, H, 2dk, W]
+        kv = kv.permute(0, 1, 4, 2, 3).reshape(b * n, w, h, -1)
+        k, v = kv.split(self.d_k, dim=-1)
+        pad_mask = torch.arange(t, device=x.device)[None] < lens[:, None]
+        mask_q = F.pad(pad_mask, (0, pad_t)).view(b * n, c)
+        mask_kv = F.pad(pad_mask, (left, pad_t + right)).unfold(1, w, c).reshape(b * n, w)
+        mask = mask_q[:, :, None] & mask_kv[:, None, :]
+        drop = None
+        if drop_rate > 0.0:
+            keep = window_keep_mask(drop_seed, lens, n, h, c, w, drop_rate).view(b * n, h, c, w)
+            drop = lambda a: a * keep / (1.0 - drop_rate)  # noqa: E731
+        out = self.rel_attention_core(q, k, v, pos_emb, mask, left, right, drop)
+        return out.reshape(b, n * c, d)[:, :t]
+
+    def chunked_train(self, x: torch.Tensor, pos_emb: torch.Tensor, lens: torch.Tensor,
+                      chunk: int, left: int, right: int, drop_seed: int = 0,
+                      drop_rate: float = 0.0) -> torch.Tensor:
+        """Limited-context training attention through the training kernels
+        (``attention_chunked_train_pallas``, ``nn/attention.py:142``): the
+        padded queries [B, n*c, H, dk], one fused K|V projection into a flat
+        stream per utterance behind L zero rows and ahead of R zero rows, the
+        per-head positional projection, and ``lens`` in subsampled frames."""
+        b, t, d = x.shape
+        c, h, d_k = chunk, self.heads, self.d_k
+        n = -(-t // c)
+        x_pad = F.pad(x, (0, 0, 0, n * c - t))
+        q = self._heads(self.linear_q, x_pad)
+        w_kv = torch.stack([self.linear_k.weight.view(h, d_k, d),
+                            self.linear_v.weight.view(h, d_k, d)], 1).reshape(2 * d, d)
+        b_kv = torch.stack([self.linear_k.bias.view(h, d_k),
+                            self.linear_v.bias.view(h, d_k)], 1).reshape(2 * d)
+        kv = F.linear(x_pad, w_kv, b_kv).view(b, n * c, h, 2 * d_k)
+        kv = F.pad(kv, (0, 0, 0, 0, left, right))
+        p = self.linear_pos(pos_emb.to(q.dtype)).view(-1, h, d_k)
+        ctx = chunk_train_attention(
+            q, kv, p, self.pos_bias_u.to(q.dtype), self.pos_bias_v.to(q.dtype),
+            lens.to(torch.int32), drop_seed, chunk=c, left=left, right=right,
+            drop_rate=drop_rate)
+        return self.linear_out(ctx.reshape(b, n * c, d))[:, :t]

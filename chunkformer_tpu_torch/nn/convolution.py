@@ -1,19 +1,26 @@
-"""Chunk-aware Conformer convolution module, parallel-chunk mode
-(counterpart of ``chunkformer_tpu/nn/convolution.py:128 conv_parallel_chunk``).
+"""Chunk-aware Conformer convolution module (counterpart of
+``chunkformer_tpu/nn/convolution.py``): pointwise-GLU -> depthwise conv ->
+norm -> swish -> pointwise, in two modes:
 
-Reference: chunkformer/modules/convolution.py:194-255. Pointwise-GLU ->
-depthwise conv over overlapping windows of the flat stream (cache prefix,
-lorder zero columns at the end) -> norm -> swish -> pointwise, with the conv
-mask applied before the depthwise conv and to the output.
+- ``parallel_chunk`` (:128, reference convolution.py:194-255): depthwise conv
+  over overlapping windows of the flat stream (cache prefix, lorder zero
+  columns at the end), with the conv mask applied before the depthwise conv
+  and to the output.
+- ``full`` (``conv_full`` :86): full context, or with ``chunk_size > 0``
+  (dynamic_conv training, reference convolution.py:150-180) each chunk sees
+  real left context and zero right padding. In training the batch norm uses
+  batch statistics.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import batch_norm_train
 
 
 class ConvolutionModule(nn.Module):
@@ -49,10 +56,48 @@ class ConvolutionModule(nn.Module):
         win = win.masked_fill(~conv_mask, 0.0)
         y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias,
                      groups=d)                                             # [N, D, c]
-        if self.use_layer_norm:
-            y = self.norm(y.transpose(1, 2))
-        else:
-            y = self.norm(y).transpose(1, 2)
-        y = F.linear(F.silu(y), self.pointwise_conv2.weight[:, :, 0], self.pointwise_conv2.bias)
+        y, _ = self._post(y, train=False)
         y = y.masked_fill(~conv_mask[:, 0, lo:-lo, None], 0.0)
         return y, new_cache
+
+    def _post(self, y: torch.Tensor, train: bool):
+        """norm -> swish -> pointwise2 over y [N, C, T]; returns ([N, T, C], new BN stats)."""
+        stats = None
+        if self.use_layer_norm:
+            y = self.norm(y.transpose(1, 2))
+        elif train:
+            y, stats = batch_norm_train(self.norm, y)
+            y = y.transpose(1, 2)
+        else:
+            n = self.norm
+            y = F.batch_norm(y, n.running_mean, n.running_var, n.weight, n.bias, False, 0.0,
+                             n.eps).transpose(1, 2)
+        y = F.linear(F.silu(y), self.pointwise_conv2.weight[:, :, 0], self.pointwise_conv2.bias)
+        return y, stats
+
+    def full(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor], chunk_size: int = 0,
+             causal: bool = False, train: bool = False
+             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """x [B, T, D]; pad_mask [B, T] (True = valid). Returns (y [B, T, D],
+        new batch-norm running statistics, or None)."""
+        b, t, d = x.shape
+        k = self.depthwise_conv.kernel_size[0]
+        lorder = k - 1 if causal else (k - 1) // 2
+        if pad_mask is not None:
+            x = x.masked_fill(~pad_mask[:, :, None], 0.0)
+        h = F.glu(F.linear(x, self.pointwise_conv1.weight[:, :, 0],
+                           self.pointwise_conv1.bias), dim=-1).transpose(1, 2)  # [B, C, T]
+        if chunk_size > 0:
+            c = chunk_size
+            n = -(-t // c)
+            win = F.pad(h, (lorder, n * c - t)).unfold(2, lorder + c, c)     # [B, C, n, l+c]
+            win = F.pad(win.permute(0, 2, 1, 3).reshape(b * n, d, lorder + c), (0, lorder))
+            y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)
+            y = y.view(b, n, d, c).permute(0, 2, 1, 3).reshape(b, d, n * c)[:, :, :t]
+        else:
+            h = F.pad(h, (lorder, 0) if causal else (lorder, lorder))
+            y = F.conv1d(h, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)
+        y, stats = self._post(y, train)
+        if pad_mask is not None:
+            y = y.masked_fill(~pad_mask[:, :, None], 0.0)
+        return y, stats

@@ -1,4 +1,4 @@
-"""Relative positional encodings (copy of ``chunkformer_tpu/nn/embedding.py:22, :34``).
+"""Positional encodings (copy of ``chunkformer_tpu/nn/embedding.py:22, :34, :49``).
 
 ``rel_pos_table`` is the symmetric relative-position sinusoid table of the
 reference (modules/embedding.py:99-174, RelPositionalEncodingWithRightContext):
@@ -39,3 +39,14 @@ def rel_pos_slice(d_model: int, chunk_size: int, left_context: int, right_contex
         raise ValueError(f"chunk {chunk_size} with contexts {left_context}/{right_context} "
                          f"exceeds max_pos_len {max_len}")
     return table[start:end]
+
+
+@functools.lru_cache(maxsize=4)
+def abs_pos_table(d_model: int, max_len: int = 5000) -> np.ndarray:
+    """[max_len, d_model] absolute positional encodings (the decoder's)."""
+    pos = np.arange(max_len, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * -(math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe.astype(np.float32)

@@ -1,26 +1,71 @@
-"""ChunkFormer encoder, masked-batch parallel-chunk mode (counterpart of
-``chunkformer_tpu/nn/encoder.py``: ``_embed`` :85-107, ``init_caches`` :218,
-``encoder_parallel_chunk`` :234).
+"""ChunkFormer encoder (counterpart of ``chunkformer_tpu/nn/encoder.py``):
+``_embed`` :85-107, ``init_caches`` :218, ``encoder_parallel_chunk`` :234
+(masked-batch inference, reference encoder.py:503-681) and ``encoder_forward``
+:114 (full and limited-context batch forward for training and evaluation,
+reference encoder.py:220-308,461-501).
 
-Reference: chunkformer/modules/encoder.py:503-681. A Python loop over the
-layers takes the place of ``lax.scan``; the per-layer KV and conv caches are
-stacked as [n_layers, L, H, 2dk] and [n_layers, D, lorder].
+A Python loop over the layers takes the place of ``lax.scan``; the per-layer
+KV and conv caches are stacked as [n_layers, L, H, 2dk] and
+[n_layers, D, lorder]. Under ``gradient_checkpointing`` each layer is wrapped
+in ``torch.utils.checkpoint`` (non-reentrant); its dropout masks come from
+seeds drawn before the layer loop, so a recompute draws the same masks.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+import random
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import EncoderConfig
 from ..ops.chunk import parallel_chunk_conv_mask
+from ..ops.chunk_attention_train import FORWARD_OP
+from ..ops.masks import make_non_pad_mask
 from .embedding import rel_pos_slice
 from .encoder_layer import ChunkFormerEncoderLayer
-from .layers import make_norm
+from .layers import dropout, make_norm
 from .subsampling import DepthwiseConvSubsampling
+
+# "dots": keep the outputs of matrix products without batch dimensions (the
+# linear layers; JAX's dots_with_no_batch_dims_saveable) and of the training
+# attention kernel (ctx, m, den); recompute everything else
+_DOTS_SAVED = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, FORWARD_OP}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def subsampled_lengths(lengths: torch.Tensor, sampling_num: int = 3) -> torch.Tensor:
+    """Frames after the stride-2 conv stack, in f32 as ``calc_length_jax``."""
+    x = lengths.float()
+    for _ in range(sampling_num):
+        x = torch.floor((x - 3) / 2 + 1.0)
+    return x.to(torch.int32)
+
+
+def limited_context_selection(cfg: EncoderConfig, rng: random.Random = random
+                              ) -> Tuple[int, int, int]:
+    """Sample (chunk, L, R) for dynamic-chunk training (encoder.py:198-218)."""
+    if not (cfg.dynamic_chunk_sizes and cfg.dynamic_left_context_sizes
+            and cfg.dynamic_right_context_sizes):
+        return 0, 0, 0
+    c = rng.choice(cfg.dynamic_chunk_sizes)
+    left = rng.choice(cfg.dynamic_left_context_sizes)
+    if cfg.streaming:
+        right = rng.choice([r for r in cfg.dynamic_right_context_sizes if r < c])
+    else:
+        right = rng.choice(cfg.dynamic_right_context_sizes)
+    if c <= 0:
+        return 0, 0, 0
+    return c, left, right
 
 
 class GlobalCMVN(nn.Module):
@@ -94,3 +139,79 @@ class ChunkFormerEncoder(nn.Module):
         if cfg.normalize_before and cfg.final_norm:
             x = self.after_norm(x)
         return x, torch.stack(new_att), torch.stack(new_cnn)
+
+    def _layer_train(self, layer: ChunkFormerEncoderLayer, pos_emb: torch.Tensor,
+                     lens: torch.Tensor, pad_mask: torch.Tensor, chunk_size: int, left: int,
+                     right: int, train: bool, seeds: Optional[Tuple[int, int]],
+                     x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        c = chunk_size
+        gen = None
+        if seeds is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seeds[0])
+        att_rate = cfg.attention_dropout_rate if gen is not None else 0.0
+        att_seed = seeds[1] if seeds is not None else 0
+
+        def attn_fn(h):
+            if c > 0:
+                return layer.self_attn.chunked_train(h, pos_emb, lens, c, left, right,
+                                                     att_seed, att_rate)
+            return layer.self_attn.full(h, pos_emb, pad_mask[:, None, :], att_rate, gen)
+
+        def conv_fn(h):
+            return layer.conv_module.full(h, pad_mask, c if cfg.dynamic_conv and c > 0 else 0,
+                                          cfg.causal, train)
+
+        return layer.forward_train(x, attn_fn, conv_fn if layer.conv_module is not None
+                                   else None, cfg.dropout_rate if gen is not None else 0.0,
+                                   gen)
+
+    def forward_train(
+        self, xs: torch.Tensor, xs_lens: torch.Tensor, chunk_size: int = 0,
+        left_context_size: int = 0, right_context_size: int = 0, train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batch forward (``encoder_forward``): xs [B, T, feat], xs_lens [B].
+
+        chunk_size > 0 runs limited-context attention over (c, L, R) through
+        the training kernels; 0 runs full context. Dropout is on when
+        ``train`` and a (CPU) ``generator`` are given; the batch norm uses
+        batch statistics when ``train``. Returns (out [B, T', D], pad_mask
+        [B, T'] True = valid).
+        """
+        cfg = self.cfg
+        c, L, R = chunk_size, left_context_size, right_context_size
+        x = self.embed_features(xs)
+        t2 = x.shape[1]
+        out_lens = subsampled_lengths(xs_lens)
+        pad_mask = make_non_pad_mask(out_lens, t2)
+        pos_emb = torch.from_numpy(rel_pos_slice(cfg.output_size, c if c > 0 else t2, L, R,
+                                                 cfg.max_pos_len))
+        pos_emb = pos_emb.to(device=x.device, dtype=x.dtype)
+        seeds = [None] * cfg.num_blocks
+        if train and generator is not None:
+            draws = torch.randint(0, 2 ** 62, (1 + 2 * cfg.num_blocks,), generator=generator)
+            draws = draws.tolist()
+            gen = torch.Generator(device=x.device).manual_seed(draws[0])
+            x = dropout(x, cfg.positional_dropout_rate, gen)
+            pos_emb = dropout(pos_emb, cfg.positional_dropout_rate, gen)
+            seeds = [(draws[1 + 2 * i], draws[2 + 2 * i] & 0xFFFFFFFF)
+                     for i in range(cfg.num_blocks)]
+
+        remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
+        context_fn = None
+        if remat and cfg.remat_policy == "dots":
+            context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+        elif remat and cfg.remat_policy != "nothing":
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        for layer, sd in zip(self.encoders, seeds):
+            fn = functools.partial(self._layer_train, layer, pos_emb, out_lens, pad_mask,
+                                   c, L, R, train, sd)
+            if remat:
+                kw = {"context_fn": context_fn} if context_fn is not None else {}
+                x = checkpoint(fn, x, use_reentrant=False, **kw)
+            else:
+                x = fn(x)
+        if cfg.normalize_before and cfg.final_norm:
+            x = self.after_norm(x)
+        return x, pad_mask

@@ -2,19 +2,21 @@
 ``chunkformer_tpu/nn/encoder_layer.py:41 encoder_layer_apply``.
 
 Macaron-FFN(1/2) -> MHA -> Conv -> FFN(1/2) -> final norm
-(reference: chunkformer/modules/encoder_layer.py:9-248).
+(reference: chunkformer/modules/encoder_layer.py:9-248). ``parallel_chunk``
+serves masked-batch inference; ``forward_train`` the full and
+limited-context forward, with its dropouts.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .attention import RelPositionMultiHeadedAttention
 from .convolution import ConvolutionModule
-from .layers import PositionwiseFeedForward
+from .layers import PositionwiseFeedForward, dropout
 
 
 class ChunkFormerEncoderLayer(nn.Module):
@@ -71,3 +73,28 @@ class ChunkFormerEncoderLayer(nn.Module):
         if self.conv_module is not None:
             x = self.norm_final(x)
         return x, new_att, new_cnn
+
+    def forward_train(
+        self, x: torch.Tensor, attn_fn: Callable[[torch.Tensor], torch.Tensor],
+        conv_fn: Optional[Callable[[torch.Tensor], Tuple[torch.Tensor, object]]],
+        drop_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """One block over x [B, T, D] (``encoder_layer_apply`` with train=True):
+        attn_fn(h) -> out, conv_fn(h) -> (out, new BN stats). Dropout masks
+        come from ``generator`` in a fixed order (none when it is None)."""
+        ff_scale = 0.5 if self.feed_forward_macaron is not None else 1.0
+
+        def drop(y):
+            return dropout(y, drop_rate, generator)
+
+        if self.feed_forward_macaron is not None:
+            x, _ = self._residual(x, self.norm_ff_macaron, lambda h: (drop(
+                self.feed_forward_macaron(h, drop_rate, generator)), None), ff_scale)
+        x, _ = self._residual(x, self.norm_mha, lambda h: (drop(attn_fn(h)), None))
+        if self.conv_module is not None:
+            x, _ = self._residual(x, self.norm_conv, lambda h: (drop(conv_fn(h)[0]), None))
+        x, _ = self._residual(x, self.norm_ff, lambda h: (drop(
+            self.feed_forward(h, drop_rate, generator)), None), ff_scale)
+        if self.conv_module is not None:
+            x = self.norm_final(x)
+        return x

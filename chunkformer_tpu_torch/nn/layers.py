@@ -6,6 +6,8 @@ positionwise_feed_forward.py), so reference state dicts load as they are.
 
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,10 +31,46 @@ def make_norm(dim: int, norm_type: str = "layer_norm", eps: float = 1e-5) -> nn.
     return RMSNorm(dim, eps) if norm_type == "rms_norm" else nn.LayerNorm(dim, eps=eps)
 
 
+_ACTIVATIONS = {"swish": F.silu, "relu": F.relu}  # swish: x * sigmoid(x) (modules/swish.py:22)
+
+
 def activation(name: str):
-    if name != "swish":
+    if name not in _ACTIVATIONS:
         raise ValueError(f"activation {name!r} is not supported by this package yet")
-    return F.silu  # x * sigmoid(x) (reference: modules/swish.py:22)
+    return _ACTIVATIONS[name]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (``chunkformer_tpu/nn/layers.py:158``); the identity
+    when ``generator`` is None (eval) or the rate is 0. The mask is drawn from
+    ``generator``, which the caller seeds, so a recompute that re-seeds it
+    draws the same mask."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def batch_norm_train(norm: nn.BatchNorm1d, x: torch.Tensor, channel_axis: int = 1,
+                     momentum: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Train-mode BatchNorm from batch statistics, in f32
+    (``chunkformer_tpu/nn/layers.py:121``). Returns (y, new running stats);
+    the module's buffers are left as they are, as the JAX function leaves them."""
+    axes = tuple(i for i in range(x.ndim) if i != channel_axis)
+    xf = x.float()
+    mean = xf.mean(axes)
+    var = xf.square().mean(axes) - mean.square()
+    shape = [1] * x.ndim
+    shape[channel_axis] = x.shape[channel_axis]
+    inv = torch.rsqrt(var + norm.eps) * norm.weight.float()
+    y = (xf - mean.view(shape)) * inv.view(shape) + norm.bias.float().view(shape)
+    count = x.numel() // x.shape[channel_axis]
+    with torch.no_grad():
+        stats = {"mean": (1 - momentum) * norm.running_mean + momentum * mean,
+                 "var": (1 - momentum) * norm.running_var
+                 + momentum * var * count / max(count - 1, 1)}
+    return y.to(x.dtype), stats
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -44,5 +82,7 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = nn.Linear(hidden, d_model)
         self.act = activation(act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_2(self.act(self.w_1(x)))
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.w_2(dropout(self.act(self.w_1(x)), drop_rate, generator))
+

@@ -1,0 +1,322 @@
+"""Limited-context training attention with a hand-written backward: CUDA
+kernels (``csrc/chunk_attention_train.cu``) and their plain versions.
+
+Counterpart of ``chunkformer_tpu/ops/pallas/chunk_attention_train.py``: the
+forward ``_attn_fwd_call`` (:316) and the backward ``_attn_core_bwd`` (:390).
+The operands are built by ``RelPositionMultiHeadedAttention.chunked_train``
+(as ``nn/attention.py:142 attention_chunked_train_pallas`` builds them):
+
+    q   [B, n*c, H, dk]          queries of the padded utterances
+    kv  [B, L + n*c + R, H, 2dk] fused K|V stream, L zero rows ahead, R behind
+    p   [2c - 1 + L + R, H, dk]  projected positional encodings
+    u, v [H, dk]                 positional biases
+    lens [B] int32               valid (subsampled) frames per utterance
+
+For query frame ci*c + r of utterance b and window position j < W = L + c + R
+(key stream row ci*c + j, key frame f = ci*c - L + j):
+
+    s[r, j] = ((q + u) . k[j] + (q + v) . p[c - 1 - r + j]) / sqrt(dk)
+    valid   iff 0 <= f < lens[b] and ci*c + r < lens[b]
+    m = max(max_j s, -1e29), den = max(sum_j exp(s - m), 1e-30)  (valid j only)
+    ctx[r] = sum_j keep(j) / (1 - p_drop) * exp(s[r, j] - m) / den * v[j]
+
+m and den are [B, H, n*c] float32. A query row at or past its length has an
+empty key interval, so its ctx is 0.
+
+Dropout: ``keep`` is a counter-based hash of (seed, b, h, query frame, key
+stream row), a function of absolute positions only, so the forward, the
+backward, any recompute and the plain version regenerate the same mask. The
+TPU kernel's PRNG stream has no counterpart; the Bernoulli(1 - p) law is the
+same.
+
+The forward and backward are custom operators (``torch.library``), so a
+selective-checkpoint policy can name the forward's outputs (the encoder's
+``remat_policy: "dots"``). On a CPU tensor each runs its plain version; on a
+CUDA tensor it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from . import kernels
+from .relshift import rel_shift
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_M32 = 0xFFFFFFFF
+_MIX1, _MIX2 = 0x2C1B3C6D, 0x297A2D39   # odd, below 2**30: int64 products never overflow
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """32-bit integer hash on int64 tensors holding values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX1) & _M32
+    x = x ^ (x >> 12)
+    x = (x * _MIX2) & _M32
+    return x ^ (x >> 15)
+
+
+def drop_threshold(drop_rate: float) -> int:
+    """Keep iff the hash is >= this (the TPU kernel's comparison)."""
+    return min(int(drop_rate * 2 ** 32), 2 ** 32 - 1)
+
+
+def _layout(q, kv, p, chunk, left, right):
+    b, tp, heads, d_k = q.shape
+    if tp % chunk:
+        raise ValueError(f"q has {tp} frames, not a multiple of chunk {chunk}")
+    n = tp // chunk
+    w = left + chunk + right
+    if kv.shape != (b, left + tp + right, heads, 2 * d_k):
+        raise ValueError(f"kv shape {tuple(kv.shape)} != {(b, left + tp + right, heads, 2 * d_k)}")
+    if p.shape != (2 * chunk - 1 + left + right, heads, d_k):
+        raise ValueError(f"p shape {tuple(p.shape)} != {(2 * chunk - 1 + left + right, heads, d_k)}")
+    return b, n, heads, d_k, w
+
+
+def _valid(lens, n, c, left, w) -> torch.Tensor:
+    """[B, n, 1, c, W] validity of (query row, window position)."""
+    dev = lens.device
+    ci = torch.arange(n, device=dev)[:, None, None]
+    r = torch.arange(c, device=dev)[None, :, None]
+    j = torch.arange(w, device=dev)[None, None, :]
+    f = ci * c - left + j
+    ln = lens.long()[:, None, None, None]
+    ok = (f >= 0) & (f < ln) & (ci * c + r < ln)
+    return ok[:, :, None]
+
+
+def window_keep_mask(seed, lens, n, heads, c, w, drop_rate) -> torch.Tensor:
+    """[B, n, H, c, W] dropout keep mask: keep iff the hash of (seed,
+    utterance b, head h, query frame ci*c + r, key stream row ci*c + j) is
+    >= ``drop_threshold`` (the kernels compute the same hash)."""
+    dev = lens.device
+    bi = torch.arange(lens.shape[0], device=dev).view(-1, 1, 1, 1, 1)
+    ci = torch.arange(n, device=dev).view(1, -1, 1, 1, 1)
+    hi = torch.arange(heads, device=dev).view(1, 1, -1, 1, 1)
+    r = torch.arange(c, device=dev).view(1, 1, 1, -1, 1)
+    j = torch.arange(w, device=dev).view(1, 1, 1, 1, -1)
+    s = _mix(_mix((bi * heads + hi) & _M32) ^ (seed & _M32))
+    s = _mix(s ^ (ci * c + r))
+    return _mix(s ^ (ci * c + j)) >= drop_threshold(drop_rate)
+
+
+def _scores(q, kv, p, u, v, chunk, left, right):
+    """f32 windows and scores: (qu, qv, k, vals, s [B, n, H, c, W])."""
+    b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
+    scale = 1.0 / math.sqrt(d_k)
+    win = kv.float().unfold(1, w, chunk)                  # [B, n, H, 2dk, W]
+    k, vals = win[:, :, :, :d_k], win[:, :, :, d_k:]
+    qc = q.float().reshape(b, n, chunk, heads, d_k)
+    qu = (qc + u.float()) * scale
+    qv = (qc + v.float()) * scale
+    ac = torch.einsum("bnchd,bnhdw->bnhcw", qu, k)
+    bd = torch.einsum("bnchd,phd->bnhcp", qv, p.float())
+    return qu, qv, k, vals, ac + rel_shift(bd, left, right)
+
+
+def forward_plain(q, kv, p, u, v, lens, seed: int, chunk: int, left: int, right: int,
+                  drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel, differentiable by autograd:
+    (ctx [B, n*c, H, dk] in q's dtype, m and den [B, H, n*c] f32)."""
+    b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
+    _, _, _, vals, s = _scores(q, kv, p, u, v, chunk, left, right)
+    valid = _valid(lens, n, chunk, left, w)
+    s = s.masked_fill(~valid, -1e30)
+    m = s.amax(-1, keepdim=True).clamp_min(-1e29)
+    e = torch.exp(s - m)
+    den = e.sum(-1, keepdim=True).clamp_min(1e-30)
+    attn = e / den
+    if drop_rate > 0.0:
+        keep = window_keep_mask(seed, lens, n, heads, chunk, w, drop_rate)
+        attn = attn * keep / (1.0 - drop_rate)
+    ctx = torch.einsum("bnhcw,bnhdw->bnchd", attn, vals)
+    stats = lambda x: x[..., 0].permute(0, 2, 1, 3).reshape(b, heads, n * chunk)  # noqa: E731
+    return ctx.reshape(b, n * chunk, heads, d_k).to(q.dtype), stats(m), stats(den)
+
+
+def backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed: int, chunk: int, left: int,
+                   right: int, drop_rate: float):
+    """Plain PyTorch version of the backward kernel: (dq, dkv, dp, du, dv).
+
+    Recomputes the weights from (m, den); dS = A * (dA - rowsum(dA * A));
+    dq from the content and the un-shifted position branch; the per-window
+    dK | dV overlap-added onto the stream, whose L and R pad rows get 0.
+    """
+    b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
+    c = chunk
+    scale = 1.0 / math.sqrt(d_k)
+    qu, qv, k, vals, s = _scores(q, kv, p, u, v, chunk, left, right)
+    valid = _valid(lens, n, c, left, w)
+    stat = lambda x: x.reshape(b, heads, n, c).permute(0, 2, 1, 3)[..., None]  # noqa: E731
+    attn = torch.exp(s.masked_fill(~valid, -1e30) - stat(m)) / stat(den)
+    g = dctx.float().reshape(b, n, c, heads, d_k)
+    da = torch.einsum("bnchd,bnhdw->bnhcw", g, vals)
+    attn_drop = attn
+    if drop_rate > 0.0:
+        keep = window_keep_mask(seed, lens, n, heads, c, w, drop_rate) / (1.0 - drop_rate)
+        attn_drop = attn * keep
+        da = da * keep
+    dvals = torch.einsum("bnhcw,bnchd->bnhwd", attn_drop, g)
+    ds = attn * (da - (da * attn).sum(-1, keepdim=True))          # [B, n, H, c, W]
+    dqu = torch.einsum("bnhcw,bnhdw->bnchd", ds, k)
+    dkeys = torch.einsum("bnhcw,bnchd->bnhwd", ds, qu)
+    # un-shift: window position j of row r is positional row c - 1 - r + j
+    idx = (c - 1 - torch.arange(c, device=q.device)[:, None]
+           + torch.arange(w, device=q.device)[None, :])
+    dbd = ds.new_zeros(b, n, heads, c, p.shape[0])
+    dbd.scatter_(-1, idx.expand(b, n, heads, c, w), ds)
+    dqv = torch.einsum("bnhcp,phd->bnchd", dbd, p.float())
+    dp = torch.einsum("bnhcp,bnchd->phd", dbd, qv)
+    dq = ((dqu + dqv) * scale).reshape(b, n * c, heads, d_k)
+    du = dqu.sum((0, 1, 2)) * scale
+    dv = dqv.sum((0, 1, 2)) * scale
+    dwin = torch.cat([dkeys, dvals], -1)                           # [B, n, H, W, 2dk]
+    dkv = torch.zeros(kv.shape, dtype=torch.float32, device=q.device)
+    for i in range(n):
+        dkv[:, i * c:i * c + w] += dwin[:, i].transpose(1, 2)
+    dkv[:, :left] = 0.0
+    dkv[:, left + n * c:] = 0.0
+    return (dq.to(q.dtype), dkv.to(kv.dtype), dp.to(p.dtype), du.to(u.dtype), dv.to(v.dtype))
+
+
+def _check(q, kv, p, u, v, lens, chunk, left, right):
+    b, n, heads, d_k, _ = _layout(q, kv, p, chunk, left, right)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"chunk_train_attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("kv", kv), ("p", p), ("u", u), ("v", v)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, q is {q.dtype} on {q.device}")
+    if lens.dtype != torch.int32 or lens.shape != (b,) or not lens.is_contiguous() \
+            or lens.device != q.device:
+        raise TypeError(f"lens must be a contiguous int32 [B] tensor on {q.device}")
+    if u.shape != (heads, d_k) or v.shape != (heads, d_k) or not (
+            u.is_contiguous() and v.is_contiguous()):
+        raise ValueError("u and v must be contiguous [H, dk]")
+    if q.stride(-1) != 1 or kv.stride(-1) != 1 or p.stride(-1) != 1:
+        raise ValueError("q, kv and p need a contiguous last axis")
+    if chunk * d_k > 4096 or d_k > 128:
+        raise ValueError(f"chunk * head_dim = {chunk * d_k} exceeds the kernel's 4096 "
+                         f"(or head_dim {d_k} > 128)")
+    return b, n, heads, d_k
+
+
+def _strides(t):
+    return [t.stride(i) for i in range(t.dim() - 1)]
+
+
+def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate):
+    """Launch the forward kernel: (ctx, m, den) as ``forward_plain``."""
+    b, n, heads, d_k = _check(q, kv, p, u, v, lens, chunk, left, right)
+    ctx = torch.empty((b, n * chunk, heads, d_k), dtype=q.dtype, device=q.device)
+    m = torch.empty((b, heads, n * chunk), dtype=torch.float32, device=q.device)
+    den = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        err = kernels.library().cf_chunk_train_attn_fwd(
+            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
+            b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF, drop_threshold(drop_rate),
+            float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
+            *_strides(q), *_strides(kv), *_strides(p),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, "chunk_train_attention forward")
+    chunk_train_attention.fwd_launches += 1
+    return ctx, m, den
+
+
+def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
+                    drop_rate):
+    """Launch the backward kernels: (dq, dkv, dp, du, dv) as ``backward_plain``."""
+    b, n, heads, d_k = _check(q, kv, p, u, v, lens, chunk, left, right)
+    dev = q.device
+    dctx = dctx.contiguous()
+    ctx = ctx.contiguous()
+    p_len = p.shape[0]
+    blocks = b * n * heads
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dkv = torch.empty(kv.shape, dtype=kv.dtype, device=dev)
+    dkv[:, :left].zero_()
+    dkv[:, left + n * chunk:].zero_()
+    delta = torch.empty_like(m)
+    dp_part = torch.empty((blocks, p_len, d_k), dtype=torch.float32, device=dev)
+    duv_part = torch.empty((blocks, 2, d_k), dtype=torch.float32, device=dev)
+    dp = torch.empty((p_len, heads, d_k), dtype=p.dtype, device=dev)
+    du = torch.empty((heads, d_k), dtype=u.dtype, device=dev)
+    dv = torch.empty((heads, d_k), dtype=v.dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.library().cf_chunk_train_attn_bwd(
+            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
+            dctx.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
+            dp_part.data_ptr(), duv_part.data_ptr(), dp.data_ptr(), du.data_ptr(),
+            dv.data_ptr(), b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF,
+            drop_threshold(drop_rate), float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
+            *_strides(q), *_strides(kv), *_strides(p), *_strides(dkv),
+            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "chunk_train_attention backward")
+    chunk_train_attention.bwd_launches += 1
+    return dq, dkv, dp, du, dv
+
+
+def _on(device: torch.device) -> str:
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk_train_attention runs on cpu or cuda, not {device}")
+    return device.type
+
+
+@torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
+            v: torch.Tensor, lens: torch.Tensor, seed: int, chunk: int, left: int,
+            right: int, drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if _on(q.device) == "cpu":
+        return forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate)
+    return forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate)
+
+
+@torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
+            v: torch.Tensor, lens: torch.Tensor, ctx: torch.Tensor, m: torch.Tensor,
+            den: torch.Tensor, dctx: torch.Tensor, seed: int, chunk: int, left: int,
+            right: int, drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                                    torch.Tensor, torch.Tensor]:
+    if _on(q.device) == "cpu":
+        return backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed, chunk, left, right,
+                              drop_rate)
+    return backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
+                           drop_rate)
+
+
+def _setup(ctx, inputs, output):
+    q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate = inputs
+    ctx.save_for_backward(q, kv, p, u, v, lens, *output)
+    ctx.statics = (seed, chunk, left, right, drop_rate)
+
+
+def _backward(ctx, dctx, _dm, _dden):
+    q, kv, p, u, v, lens, out, m, den = ctx.saved_tensors
+    dq, dkv, dp, du, dv = _bwd_op(q, kv, p, u, v, lens, out, m, den, dctx, *ctx.statics)
+    return dq, dkv, dp, du, dv, None, None, None, None, None, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup)
+
+#: the forward operator, for selective-checkpoint policies (nn/encoder.py)
+FORWARD_OP = torch.ops.chunkformer_tpu_torch.chunk_train_attention_fwd.default
+
+
+def chunk_train_attention(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int, left: int,
+                          right: int, drop_rate: float = 0.0) -> torch.Tensor:
+    """Differentiable limited-context training attention: ctx [B, n*c, H, dk].
+
+    On a CPU tensor the forward and backward are the plain versions; on a
+    CUDA tensor they launch the kernels of ``csrc/chunk_attention_train.cu``
+    or raise. ``seed`` is ignored when ``drop_rate`` is 0.
+    """
+    return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate))[0]
+
+
+chunk_train_attention.fwd_launches = 0  # forward kernel launches since the last reset
+chunk_train_attention.bwd_launches = 0  # backward launches (dq, dkv and reduction kernels)

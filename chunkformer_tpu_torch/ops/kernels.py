@@ -28,6 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_U = ctypes.c_uint32
+_F = ctypes.c_float
 
 
 def _nvcc() -> str:
@@ -80,6 +82,12 @@ def library() -> ctypes.CDLL:
     lib.cf_chunk_attention.restype = _I
     lib.cf_fbank.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.cf_fbank.restype = _I
+    lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
+                                            + [_L] * 8 + [_P])
+    lib.cf_chunk_train_attn_fwd.restype = _I
+    lib.cf_chunk_train_attn_bwd.argtypes = ([_I] + [_P] * 18 + [_I] * 7 + [_U, _U, _F, _I]
+                                            + [_L] * 11 + [_P])
+    lib.cf_chunk_train_attn_bwd.restype = _I
     return lib
 
 

@@ -1,0 +1,80 @@
+"""One training step: loss, gradients and an optimizer update (counterpart of
+``chunkformer_tpu/train/train_step.py:46 make_train_step`` and
+``make_eval_step``).
+
+The step takes a batch that is already on the model's device. With
+``accum_steps`` = A the batch is cut into A micro-batches along its first
+axis; their gradients and metrics are averaged before one update (the JAX
+``lax.scan`` over micro-batches; reference executor.py:85-98). Gradients land
+in each parameter's ``.grad``, clipped in place before the update.
+``autocast`` = torch.bfloat16 runs the forward under ``torch.autocast`` with
+f32 parameters and optimizer state.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..config import ChunkFormerConfig
+from .losses import asr_model_loss
+from .optim import clip_by_global_norm_
+
+
+def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
+                    optimizer: torch.optim.Optimizer,
+                    scheduler: torch.optim.lr_scheduler.LRScheduler,
+                    chunk_cfg: Tuple[int, int, int] = (0, 0, 0), accum_steps: int = 1,
+                    autocast: Optional[torch.dtype] = None, grad_clip: float = 5.0
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Returns step(feats [A*B, T, F], feats_lens, targets, target_lens,
+    generator) -> metrics (loss, loss_ctc, loss_att, acc_att, grad_norm, step)
+    as 0-dim tensors. ``generator`` (CPU) turns dropout on; None leaves it off.
+    ``optimizer`` and ``scheduler`` come from ``optim.build_optimizer``; the
+    gradients are clipped to a global norm of ``grad_clip`` before the update
+    (``grad_norm`` is the norm before clipping).
+    """
+    c, left, right = chunk_cfg
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step(feats, feats_lens, targets, target_lens,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        for p in params:
+            p.grad = None
+        a = accum_steps
+        sums: Dict[str, torch.Tensor] = {}
+        ctx = (torch.autocast(feats.device.type, dtype=autocast) if autocast is not None
+               else contextlib.nullcontext())
+        for f, fl, t, tl in zip(feats.chunk(a), feats_lens.chunk(a), targets.chunk(a),
+                                target_lens.chunk(a)):
+            with ctx:
+                metrics = asr_model_loss(model, cfg, f, fl, t, tl, c, left, right, train=True,
+                                         generator=generator)
+            (metrics["loss"] / a).backward()
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0.0) + v.detach().float()
+        for p in params:  # optax updates (and decays) every parameter
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        out = {k: v / a for k, v in sums.items()}
+        out["grad_norm"] = clip_by_global_norm_([p.grad for p in params], grad_clip)
+        optimizer.step()
+        scheduler.step()
+        out["step"] = torch.tensor(scheduler.last_epoch)
+        return out
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, cfg: ChunkFormerConfig):
+    """Returns eval(feats, feats_lens, targets, target_lens) -> metrics, full
+    context, no dropout, batch norm on running statistics."""
+
+    @torch.no_grad()
+    def eval_step(feats, feats_lens, targets, target_lens) -> Dict[str, torch.Tensor]:
+        return asr_model_loss(model, cfg, feats, feats_lens, targets, target_lens, 0, 0, 0,
+                              train=False, generator=None)
+
+    return eval_step

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
 from chunkformer_tpu_torch.ops.fbank import fbank, fbank_plain
 
@@ -84,3 +85,69 @@ def test_fbank_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert fbank.launches == launches + 1
     torch.testing.assert_close(got, fbank_plain(wave), atol=2e-3, rtol=1e-3)
+
+
+def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    tp = n * c
+    kv = rnd(b, L + tp + R, heads, 2 * d_k)
+    kv[:, :L] = 0
+    kv[:, L + tp:] = 0
+    lens = [tp - 9 - 7 * i for i in range(b)]
+    lens[-1] = c + 3 if b > 1 else lens[-1]
+    return [rnd(b, tp, heads, d_k), kv, rnd(2 * c - 1 + L + R, heads, d_k), rnd(heads, d_k),
+            rnd(heads, d_k), torch.tensor(lens, dtype=torch.int32, device=device)]
+
+
+@pytest.mark.parametrize("dtype,b,n,c,L,R,d_k,drop", [
+    (torch.float32, 4, 4, 64, 128, 128, 64, 0.0),
+    (torch.float32, 3, 5, 8, 16, 0, 16, 0.0),
+    (torch.float32, 3, 3, 8, 0, 8, 32, 0.1),
+    (torch.float32, 4, 4, 64, 128, 128, 64, 0.1),
+    (torch.bfloat16, 4, 4, 64, 128, 128, 64, 0.0),
+    (torch.bfloat16, 4, 4, 64, 128, 128, 64, 0.1),
+])
+def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, d_k, drop):
+    """Forward kernel (ctx, m, den) and backward kernels (grads of q, kv, p, u,
+    v) against the plain forward and autograd through it, on the same inputs
+    and the same dropout masks. f32: ctx atol 1e-5, m and den rtol 1e-5,
+    gradients atol 1e-4 rtol 1e-5 (summation order only; a single dropout
+    mask difference would move ctx by a whole weight). bf16: ctx atol 1e-2
+    plus one bf16 ulp relative (both accumulate in f32 and round once);
+    gradients within 1e-2 relative L2 (the kernel takes rowsum(dctx * ctx)
+    from the bf16-rounded ctx)."""
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device)
+    kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
+    seed = 1234
+    f0, b0 = cat.chunk_train_attention.fwd_launches, cat.chunk_train_attention.bwd_launches
+    ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop)
+    torch.cuda.synchronize()
+    want_ctx, want_m, want_den = cat.forward_plain(*args, seed, c, L, R, drop)
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(ctx.float(), want_ctx.float(), atol=1e-2 if bf16 else 1e-5,
+                               rtol=2.0 ** -7 if bf16 else 0.0)
+    torch.testing.assert_close(m, want_m, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(den, want_den, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
+
+    w = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(3)).to(dtype)
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert cat.chunk_train_attention.fwd_launches == f0 + 2
+    assert cat.chunk_train_attention.bwd_launches == b0 + 1
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    ref = cat.forward_plain(*leaves, args[5], seed, c, L, R, drop)[0]
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), leaves)
+    for name, a, e in zip(("q", "kv", "p", "u", "v"), got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape, name
+        if bf16:
+            rel = float((a.float() - e.float()).norm() / e.float().norm())
+            assert rel <= 1e-2, (name, rel)
+        else:
+            torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-5, msg=name)
