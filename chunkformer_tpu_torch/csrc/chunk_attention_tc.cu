@@ -1,0 +1,543 @@
+// Relative-position chunk attention for decode on Hopper tensor cores
+// (sm_90a), bf16.
+//
+// Replaces the TPU kernel chunk_attention_pallas_union_hmajor
+// (chunkformer_tpu/ops/pallas/chunk_attention.py:335), with its row-major
+// wrapper (:306) and the per-chunk and G-batched variants (:32, :158), for
+// bf16 inputs with head_dim 64 or 128 and a chunk size that is a multiple of
+// 64. Everything else (f32, other shapes) stays on the CUDA-core kernel of
+// chunk_attention.cu; ops/chunk_attention.py routes by dtype, shape and
+// stride alone. The function is that of chunk_attention.cu:
+//   s[r, j] = ((q[r] + u) . k[j] + (q[r] + v) . p[c - 1 - r + j]) / sqrt(dk)
+//   valid(j)  iff  -offset[n] <= chunk_idx[n]*c - L + j < max_len[n]
+//   out[r]    = softmax_j(s[r, j] | valid) . v[j]      (all-masked row -> 0)
+// over the window of KV stream rows [n*c, n*c + L + c + R).
+//
+// What bounds it on an H100: at the ChunkFormer-large segment (N = 209,
+// H = 8, c = 64, dk = 64, L = R = 128) one call must move about 55 MB (q,
+// the KV stream and the output once each), 16.6 us at 3.35 TB/s; its
+// products (content, position, context: 6.6 GFLOP over the valid keys) take
+// about 7 us at the bf16 tensor-core peak. It is bound by bytes, and the
+// CUDA-core kernel was 134x above that bound because every FMA read both
+// operands from shared memory and no copy overlapped compute.
+//
+// Design: one block of one warpgroup (128 threads) per (chunk row n, head h,
+// 64 query rows); c = 64 gives exactly one wgmma M of 64. The key window
+// [lo, hi) of the block is walked in tiles of 64 keys.
+// - Tensor cores. wgmma products from shared memory with bf16 inputs and f32
+//   accumulators: per tile S = Q K^T (64 x 64), and the position scores
+//   BD' = Q P^T over 64-row positional blocks. Key tile t needs blocks t and
+//   t + 1 (the 127 rows of its rel-shift), so each block's 64 x 64 product is
+//   computed once, by the tile before the one that first needs it, and kept
+//   in one of two f32 staging slots. The bias terms use the split form
+//   (q + u).k = q.k + u.k and (q + v).p = q.p + v.p, so one bare bf16 Q tile
+//   serves both products and u, v never round to bf16 sums; u.k_j and v.p_m
+//   are f32 dot products, one per key and per positional row, computed while
+//   the products run.
+// - Rel-shift. The staged BD' (+ v.p) is read skewed across the two slots:
+//   S_bd[r, j] = BD'[r, 63 - r + j].
+// - Online softmax in the accumulator registers (exp2, f32 row max and sum);
+//   the probabilities become bf16 A fragments in registers for O += P V,
+//   whose B operand is the V tile as it was loaded (MN-major, transposed).
+// - Asynchronous copies. Tiles arrive by cp.async (16 bytes a thread, zero
+//   fill past the window) in commit groups, double-buffered: tile t + 1's K
+//   and V and positional block t + 2 load while tile t computes. cp.async
+//   rather than TMA: it takes the row-major and head-major layouts by
+//   strides, with no per-call tensor maps and no driver entry point.
+// - Shared tiles are [64 rows][64 bf16] sub-tiles of 128-byte rows in the
+//   128-byte swizzle that wgmma's descriptors name (16-byte chunk index XOR
+//   row % 8), so the copies and the tensor cores meet no bank conflicts.
+// Shared memory: 94 KB a block at dk = 64 (two blocks an SM), 150 KB at 128.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): about 0.11 ms
+// at the shape above, 6.6x its byte bound and 20x faster than the CUDA-core
+// kernel. Computing each positional product once instead of twice cut a
+// quarter of the products and barely moved the time, so what holds it is
+// latency (two warpgroups an SM, three block-wide barriers a key tile) and
+// the tiles each block reloads through L2 (about 230 MB a call against the
+// 55 MB of distinct bytes), not the tensor cores.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kStage = 72;     // f32 row stride of a BD' staging slot
+
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk ch of row r in a [64][DK] bf16 tile stored as
+// DK/64 swizzled [64][64] sub-tiles of 8 KB.
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+  return static_cast<uint32_t>((ch >> 3) * 8192 + r * 128 + (((ch & 7) ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// make this thread's generic-proxy shared writes visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving register reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (rows of the tile along M or N, dk contiguous): k-step kk
+// covers dk columns [16kk, 16kk + 16); 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  return make_desc(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B operand (the V tile: keys along K, dk contiguous along N):
+// k-step kk covers keys [16kk, 16kk + 16); 8-key groups 1024 bytes apart,
+// 64-column swizzle atoms along N 8192 bytes apart
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 2048, 8192, 1024);
+}
+
+#define CF_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define CF_ACC32 CF_ACC8(0), CF_ACC8(8), CF_ACC8(16), CF_ACC8(24)
+#define CF_ACC64 CF_ACC32, CF_ACC8(32), CF_ACC8(40), CF_ACC8(48), CF_ACC8(56)
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CF_ACC32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] (registers) B[16 x 64] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : CF_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (registers) B[16 x 128] (MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : CF_ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DK>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DK / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------- tiles
+
+// Copy rows [row0, row0 + 64) of a row-strided bf16 matrix (row_stride
+// elements apart, DK contiguous) into a swizzled tile; rows at or past
+// row_end are zero-filled.
+template <int DK>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, int64_t row_stride,
+                                          int row0, int row_end, int tid) {
+  constexpr int kChunks = DK / 8;  // 16-byte chunks a row
+#pragma unroll
+  for (int k = 0; k < 64 * kChunks / kThreads; ++k) {
+    const int i = tid + k * kThreads;
+    const int r = i / kChunks, ch = i % kChunks;
+    const int g = row0 + r;
+    const bool ok = g < row_end;
+    const bf16* src = ok ? base + static_cast<int64_t>(g) * row_stride + ch * 8 : base;
+    cp_async16(dst + swz(r, ch), src, ok ? 16 : 0);
+  }
+}
+
+// f32 dot product of row r of a swizzled tile with w[DK] (shared, f32)
+template <int DK>
+__device__ __forceinline__ float dot_row(const uint8_t* tile, int r, const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float acc = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < DK / 8; ++ch) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(tile + swz(r, ch));
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float4 wa = w4[2 * ch], wb = w4[2 * ch + 1];
+    const float2 f0 = __bfloat1622float2(p2[0]), f1 = __bfloat1622float2(p2[1]);
+    const float2 f2 = __bfloat1622float2(p2[2]), f3 = __bfloat1622float2(p2[3]);
+    acc = fmaf(f0.x, wa.x, acc);
+    acc = fmaf(f0.y, wa.y, acc);
+    acc = fmaf(f1.x, wa.z, acc);
+    acc = fmaf(f1.y, wa.w, acc);
+    acc = fmaf(f2.x, wb.x, acc);
+    acc = fmaf(f2.y, wb.y, acc);
+    acc = fmaf(f3.x, wb.z, acc);
+    acc = fmaf(f3.y, wb.w, acc);
+  }
+  return acc;
+}
+
+// The 64 x 64 product BD_b = Q P_b^T of one positional block, plus v.p_m on
+// column m, into a staging slot (f32 rows kStage apart): float2 stores, free
+// of bank conflicts at kStage = 8 (mod 32)
+__device__ __forceinline__ void stage_block(const float (&b)[32], float* dst, const float* vp,
+                                            int ra, int cb) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = 8 * i + cb;
+    const float2 w = *reinterpret_cast<const float2*>(vp + m);
+    *reinterpret_cast<float2*>(dst + ra * kStage + m) = make_float2(b[4 * i] + w.x,
+                                                                    b[4 * i + 1] + w.y);
+    *reinterpret_cast<float2*>(dst + (ra + 8) * kStage + m) =
+        make_float2(b[4 * i + 2] + w.x, b[4 * i + 3] + w.y);
+  }
+}
+
+template <int DK>
+struct Smem {
+  static constexpr int kTile = 64 * DK * 2;  // bytes of a [64][DK] bf16 tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;      // 2 stages
+  static constexpr int kV = kK + 2 * kTile;  // 2 stages
+  static constexpr int kP = kV + 2 * kTile;  // 2 positional blocks
+  static constexpr int kStg = kP + 2 * kTile;                       // f32 [2][64][kStage]
+  static constexpr int kUf = kStg + 2 * 64 * kStage * 4;            // f32 u [DK]
+  static constexpr int kVf = kUf + DK * 4;                          // f32 v [DK]
+  static constexpr int kUk = kVf + DK * 4;                          // f32 u.k [64]
+  static constexpr int kVp = kUk + 64 * 4;                          // f32 v.p [64]
+  static constexpr int kBytes = kVp + 64 * 4 + 1024;                // + 1024-byte alignment
+};
+
+// ---------------------------------------------------------------- kernel
+
+template <int DK>
+__global__ void __launch_bounds__(kThreads)
+chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
+                          const bf16* __restrict__ pos, const bf16* __restrict__ bias_u,
+                          const bf16* __restrict__ bias_v,
+                          const int* __restrict__ chunk_idx, const int* __restrict__ offsets,
+                          const int* __restrict__ max_lens, bf16* __restrict__ out,
+                          int c, int L, int R,
+                          int64_t sqn, int64_t sqr, int64_t sqh,
+                          int64_t skt, int64_t skh,
+                          int64_t spp, int64_t sph,
+                          int64_t son, int64_t sor, int64_t soh) {
+  using S = Smem<DK>;
+  constexpr int kTile = S::kTile;
+  constexpr int kSlot = 64 * kStage;  // floats of a staging slot
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem + S::kQ;
+  uint8_t* sK = smem + S::kK;
+  uint8_t* sV = smem + S::kV;
+  uint8_t* sP = smem + S::kP;
+  float* stg = reinterpret_cast<float*>(smem + S::kStg);
+  float* uf = reinterpret_cast<float*>(smem + S::kUf);
+  float* vf = reinterpret_cast<float*>(smem + S::kVf);
+  float* uk = reinterpret_cast<float*>(smem + S::kUk);
+  float* vp = reinterpret_cast<float*>(smem + S::kVp);
+
+  const int n = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * 64;
+  const int tid = threadIdx.x;
+  const int W = L + c + R;
+  const int p_rows = 2 * c - 1 + L + R;
+  const int ci = chunk_idx[n];
+  const int lo = max(0, L - ci * c - offsets[n]);
+  const int hi = min(W, max_lens[n] - ci * c + L);
+  // accumulator layout: this thread holds rows ra and ra + 8 of the 64, at
+  // columns 8i + cb and 8i + cb + 1 of every 8-column group i
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ra = warp * 16 + (lane >> 2);
+  const int cb = 2 * (lane & 3);
+  bf16* ob = out + n * son + h * soh + static_cast<int64_t>(r0) * sor;
+
+  if (hi <= lo) {  // no valid key: the rows are 0
+    for (int i = tid; i < 64 * DK / 2; i += kThreads) {
+      const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
+      *reinterpret_cast<__nv_bfloat162*>(ob + r * sor + d) = __floats2bfloat162_rn(0.f, 0.f);
+    }
+    return;
+  }
+  const int n_tiles = (hi - lo + 63) / 64;
+  // positional block b holds rows [pb0 + 64b, pb0 + 64b + 64); key tile t
+  // needs blocks t and t + 1, and S_bd[r, j] = BD'[r, 63 - r + j] over them
+  const int pb0 = lo + c - 64 - r0;
+
+  const bf16* qb = q + n * sqn + h * sqh + static_cast<int64_t>(r0) * sqr;
+  const bf16* kb = kv + static_cast<int64_t>(n) * c * skt + h * skh;
+  const bf16* pb = pos + h * sph;
+
+  for (int d = tid; d < DK; d += kThreads) {
+    uf[d] = __bfloat162float(bias_u[h * DK + d]);
+    vf[d] = __bfloat162float(bias_v[h * DK + d]);
+  }
+  // prologue: Q, tile 0's K and V, positional blocks 0 and 1
+  load_tile<DK>(smem_u32(sQ), qb, sqr, 0, 64, tid);
+  load_tile<DK>(smem_u32(sK), kb, skt, lo, W, tid);
+  load_tile<DK>(smem_u32(sV), kb + DK, skt, lo, W, tid);
+  load_tile<DK>(smem_u32(sP), pb, spp, pb0, p_rows, tid);
+  load_tile<DK>(smem_u32(sP + kTile), pb, spp, pb0 + 64, p_rows, tid);
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_async_smem();
+  __syncthreads();
+
+  const uint32_t q_addr = smem_u32(sQ);
+  float b[32];
+  // block 0's product into staging slot 0; each later block's is computed
+  // once, by the tile before the one that first needs it
+  fence_regs(b);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk)
+    wgmma_ss_n64(b, desc_kmajor(q_addr, kk), desc_kmajor(smem_u32(sP), kk), kk > 0);
+  wgmma_commit();
+  if (tid >= 64) vp[tid - 64] = dot_row<DK>(sP, tid - 64, vf);
+  __syncthreads();
+  wgmma_wait_all();
+  fence_regs(b);
+  stage_block(b, stg, vp, ra, cb);
+
+  float o[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  const float scale_log2 = 1.4426950408889634f * rsqrtf(static_cast<float>(DK));
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = lo + 64 * t;
+    cp_async_wait_all();  // tile t and block t + 1 have landed
+    fence_async_smem();
+    __syncthreads();      // ... for every thread; tile t - 1's buffers are free
+    if (t + 1 < n_tiles) {
+      const int st = (t + 1) & 1;
+      load_tile<DK>(smem_u32(sK + st * kTile), kb, skt, j0 + 64, W, tid);
+      load_tile<DK>(smem_u32(sV + st * kTile), kb + DK, skt, j0 + 64, W, tid);
+      load_tile<DK>(smem_u32(sP + (t & 1) * kTile), pb, spp, pb0 + 64 * (t + 2), p_rows, tid);
+    }
+    cp_async_commit();
+
+    const uint8_t* tK = sK + (t & 1) * kTile;
+    const uint8_t* tV = sV + (t & 1) * kTile;
+    const uint8_t* tP = sP + ((t + 1) & 1) * kTile;  // block t + 1
+
+    float s[32];
+    fence_regs(s);
+    fence_regs(b);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk) {
+      const uint64_t da = desc_kmajor(q_addr, kk);
+      wgmma_ss_n64(s, da, desc_kmajor(smem_u32(tK), kk), kk > 0);
+      wgmma_ss_n64(b, da, desc_kmajor(smem_u32(tP), kk), kk > 0);
+    }
+    wgmma_commit();
+
+    // while the products run: u.k for the tile's keys (warps 0-1) and v.p
+    // for block t + 1 (warps 2-3)
+    if (tid < 64)
+      uk[tid] = dot_row<DK>(tK, tid, uf);
+    else
+      vp[tid - 64] = dot_row<DK>(tP, tid - 64, vf);
+    __syncthreads();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(b);
+    stage_block(b, stg + ((t + 1) & 1) * kSlot, vp, ra, cb);
+    __syncthreads();
+
+    // scores in the log2 domain, masked past hi; s[4i + 2x + e] is row
+    // ra + 8x, column 8i + cb + e. Positional column 63 - r + j < 64 is in
+    // block t's slot, the rest in block t + 1's.
+    const int slot_lo = (t & 1) * kSlot, slot_hi = ((t + 1) & 1) * kSlot;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 ukj = *reinterpret_cast<const float2*>(uk + 8 * i + cb);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int jj = 8 * i + cb + e;
+        const bool ok = j0 + jj < hi;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int rr = ra + 8 * x;
+          const int idx = 63 - rr + jj;
+          const float bd = stg[(idx < 64 ? slot_lo : slot_hi) + rr * kStage + (idx & 63)];
+          const float v = (s[4 * i + 2 * x + e] + (e ? ukj.y : ukj.x) + bd) * scale_log2;
+          s[4 * i + 2 * x + e] = ok ? v : -INFINITY;
+          mx[x] = fmaxf(mx[x], s[4 * i + 2 * x + e]);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
+      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
+      const float m_new = fmaxf(m_run[x], mx[x]);  // finite: the tile has a valid key
+      alpha[x] = exp2f(m_run[x] - m_new);
+      m_run[x] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pr = exp2f(s[4 * i + 2 * x + e] - m_run[x]);
+          s[4 * i + 2 * x + e] = pr;
+          ls[x] += pr;
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) l_run[x] = l_run[x] * alpha[x] + ls[x];
+#pragma unroll
+    for (int i = 0; i < DK / 8; ++i) {
+      o[4 * i] *= alpha[0];
+      o[4 * i + 1] *= alpha[0];
+      o[4 * i + 2] *= alpha[1];
+      o[4 * i + 3] *= alpha[1];
+    }
+
+    // P (bf16, registers) times V: k-step kk takes keys [16kk, 16kk + 16)
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_pv<DK>(o, a[kk], desc_mnmajor(smem_u32(tV), kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    float l = l_run[x];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[x] = l > 0.f ? 1.f / l : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DK / 8; ++i) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
+          __floats2bfloat162_rn(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
+    }
+  }
+}
+
+template <int DK>
+int launch(const void* q, const void* kv, const void* pos, const void* u, const void* v,
+           const int* ci, const int* off, const int* ml, void* out, int N, int H, int c,
+           int L, int R, int64_t sqn, int64_t sqr, int64_t sqh, int64_t skt, int64_t skh,
+           int64_t spp, int64_t sph, int64_t son, int64_t sor, int64_t soh,
+           cudaStream_t stream) {
+  const int smem = Smem<DK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(chunk_attention_tc_kernel<DK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(N, H, c / 64);
+  chunk_attention_tc_kernel<DK><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
+      static_cast<const bf16*>(pos), static_cast<const bf16*>(u),
+      static_cast<const bf16*>(v), ci, off, ml, static_cast<bf16*>(out), c, L, R, sqn, sqr,
+      sqh, skt, skh, spp, sph, son, sor, soh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 only; dk 64 or 128; c a multiple of 64; every row 16-byte aligned
+// (checked by the Python wrapper). Returns a cudaError_t (0 = launched).
+extern "C" int cf_chunk_attention_tc(const void* q, const void* kv, const void* pos,
+                                     const void* u, const void* v, const int* chunk_idx,
+                                     const int* offsets, const int* max_lens, void* out,
+                                     int N, int H, int c, int dk, int L, int R,
+                                     int64_t sqn, int64_t sqr, int64_t sqh,
+                                     int64_t skt, int64_t skh, int64_t spp, int64_t sph,
+                                     int64_t son, int64_t sor, int64_t soh, void* stream) {
+  if (N == 0) return 0;
+  if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dk == 64)
+    return launch<64>(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H, c, L, R,
+                      sqn, sqr, sqh, skt, skh, spp, sph, son, sor, soh, s);
+  if (dk == 128)
+    return launch<128>(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H, c, L, R,
+                       sqn, sqr, sqh, skt, skh, spp, sph, son, sor, soh, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -90,8 +90,11 @@ class ConvolutionModule(nn.Module):
         if chunk_size > 0:
             c = chunk_size
             n = -(-t // c)
+            # each chunk sees lorder real left frames and k - 1 - lorder zero
+            # right frames: (k - 1) // 2 of them, or none when causal
             win = F.pad(h, (lorder, n * c - t)).unfold(2, lorder + c, c)     # [B, C, n, l+c]
-            win = F.pad(win.permute(0, 2, 1, 3).reshape(b * n, d, lorder + c), (0, lorder))
+            win = F.pad(win.permute(0, 2, 1, 3).reshape(b * n, d, lorder + c),
+                        (0, k - 1 - lorder))
             y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)
             y = y.view(b, n, d, c).permute(0, 2, 1, 3).reshape(b, d, n * c)[:, :, :t]
         else:

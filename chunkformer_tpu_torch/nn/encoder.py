@@ -8,7 +8,10 @@ A Python loop over the layers takes the place of ``lax.scan``; the per-layer
 KV and conv caches are stacked as [n_layers, L, H, 2dk] and
 [n_layers, D, lorder]. Under ``gradient_checkpointing`` each layer is wrapped
 in ``torch.utils.checkpoint`` (non-reentrant); its dropout masks come from
-seeds drawn before the layer loop, so a recompute draws the same masks.
+seeds drawn before the layer loop, so a recompute draws the same masks. In
+train mode a batch-norm conv module's running statistics are updated by
+momentum once per forward, after the layer's (checkpointed) function returns
+them (torch ``BatchNorm1d`` semantics; the buffers stay out of the optimizer).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import functools
 import math
 import random
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -143,7 +146,11 @@ class ChunkFormerEncoder(nn.Module):
     def _layer_train(self, layer: ChunkFormerEncoderLayer, pos_emb: torch.Tensor,
                      lens: torch.Tensor, pad_mask: torch.Tensor, chunk_size: int, left: int,
                      right: int, train: bool, seeds: Optional[Tuple[int, int]],
-                     x: torch.Tensor) -> torch.Tensor:
+                     x: torch.Tensor) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+        """One block of ``forward_train``; returns (x, the conv module's new
+        batch-norm running statistics, or None). The statistics leave the
+        (possibly checkpointed) function rather than being written inside
+        it, because a recompute reruns its body."""
         cfg = self.cfg
         c = chunk_size
         gen = None
@@ -158,13 +165,17 @@ class ChunkFormerEncoder(nn.Module):
                                                      att_seed, att_rate)
             return layer.self_attn.full(h, pos_emb, pad_mask[:, None, :], att_rate, gen)
 
-        def conv_fn(h):
-            return layer.conv_module.full(h, pad_mask, c if cfg.dynamic_conv and c > 0 else 0,
-                                          cfg.causal, train)
+        stats = []
 
-        return layer.forward_train(x, attn_fn, conv_fn if layer.conv_module is not None
-                                   else None, cfg.dropout_rate if gen is not None else 0.0,
-                                   gen)
+        def conv_fn(h):
+            y, new_stats = layer.conv_module.full(
+                h, pad_mask, c if cfg.dynamic_conv and c > 0 else 0, cfg.causal, train)
+            stats.append(new_stats)
+            return y, new_stats
+
+        x = layer.forward_train(x, attn_fn, conv_fn if layer.conv_module is not None
+                                else None, cfg.dropout_rate if gen is not None else 0.0, gen)
+        return x, (stats[0] if stats else None)
 
     def forward_train(
         self, xs: torch.Tensor, xs_lens: torch.Tensor, chunk_size: int = 0,
@@ -209,9 +220,15 @@ class ChunkFormerEncoder(nn.Module):
                                    c, L, R, train, sd)
             if remat:
                 kw = {"context_fn": context_fn} if context_fn is not None else {}
-                x = checkpoint(fn, x, use_reentrant=False, **kw)
+                x, stats = checkpoint(fn, x, use_reentrant=False, **kw)
             else:
-                x = fn(x)
+                x, stats = fn(x)
+            if stats is not None:  # once per forward, never from a recompute
+                with torch.no_grad():
+                    norm = layer.conv_module.norm
+                    norm.running_mean.copy_(stats["mean"])
+                    norm.running_var.copy_(stats["var"])
+                    norm.num_batches_tracked += 1
         if cfg.normalize_before and cfg.final_norm:
             x = self.after_norm(x)
         return x, pad_mask

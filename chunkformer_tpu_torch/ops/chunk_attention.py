@@ -15,6 +15,23 @@ p [2c - 1 + L + R, H, dk], u and v [H, dk] — but any strides with a
 contiguous last axis are taken, so the head-major tensors of the TPU
 contract (q [N, H, c, dk], kv [H, T, 2dk], p [H, P, dk]) are passed as
 ``transpose`` views without a copy. The result is [N, c, H, dk].
+
+Two hand-written kernels compute it on the card, and ``route`` picks one
+from dtype, shapes and strides alone:
+
+- ``csrc/chunk_attention_tc.cu`` (tensor-core route): bf16 with head_dim 64
+  or 128, a chunk of a multiple of 64 rows and 16-byte-aligned rows, as the
+  main path gives it (ChunkFormer-large: dk = 64, c = 64). wgmma products
+  with the split bias form, an online softmax in registers, cp.async
+  double-buffered tiles.
+- ``csrc/chunk_attention.cu`` (CUDA-core route): everything else, f32 among
+  it (f32 on tensor cores would be TF32, which cannot hold the f32 1e-5
+  bar). Products in f32 on CUDA cores from shared memory.
+
+Both are bound by bytes on an H100: at the ChunkFormer-large segment
+(N = 209, H = 8) a bf16 call moves about 55 MB, 16.6 us at 3.35 TB/s. Each
+route counts its launches: ``chunk_attention.launches`` (CUDA-core) and
+``chunk_attention.tc_launches`` (tensor-core).
 """
 
 from __future__ import annotations
@@ -78,8 +95,67 @@ def _check(q, kv, p, u, v, meta, chunk, left, right):
         raise ValueError("u and v must be contiguous [H, dk]")
     if q.stride(-1) != 1 or kv.stride(-1) != 1 or p.stride(-1) != 1:
         raise ValueError("q, kv and p need a contiguous last axis")
-    if c * d_k > 4096:
-        raise ValueError(f"chunk * head_dim = {c * d_k} exceeds the kernel's 4096")
+
+
+def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor) -> str:
+    """Which kernel a CUDA call launches, from dtype, shapes and strides
+    alone: "tensor_core" for bf16 with head_dim 64 or 128, a chunk of a
+    multiple of 64 rows and every row of q, kv and p 16-byte aligned (the
+    kernel copies 16 bytes a thread); "cuda_core" otherwise."""
+    n, c, heads, d_k = q.shape
+    if q.dtype != torch.bfloat16 or d_k not in (64, 128) or c % 64 != 0:
+        return "cuda_core"
+    for t in (q, kv, p):
+        if t.data_ptr() % 16 != 0 or any(s % 8 != 0 for s in t.stride()[:-1]):
+            return "cuda_core"
+    return "tensor_core"
+
+
+def _launch(entry: str, lead: tuple, q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
+            chunk: int, left: int, right: int) -> torch.Tensor:
+    """Check the operands and call the C entry ``entry`` with ``lead`` before
+    the shared pointer, shape and stride arguments."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the chunk attention kernels run on cuda, not {q.device}")
+    _check(q, kv, p, u, v, (chunk_idx, offsets, max_lens), chunk, left, right)
+    n, c, heads, d_k = q.shape
+    out = torch.empty((n, c, heads, d_k), dtype=q.dtype, device=q.device)
+    lib = kernels.library()
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            *lead, q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            v.data_ptr(), chunk_idx.data_ptr(), offsets.data_ptr(), max_lens.data_ptr(),
+            out.data_ptr(), n, heads, c, d_k, left, right,
+            q.stride(0), q.stride(1), q.stride(2), kv.stride(0), kv.stride(1),
+            p.stride(0), p.stride(1), out.stride(0), out.stride(1), out.stride(2),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    kernels.check(err, entry)
+    return out
+
+
+def chunk_attention_cuda_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *, chunk: int,
+                              left: int, right: int) -> torch.Tensor:
+    """Launch the CUDA-core kernel (``csrc/chunk_attention.cu``) on CUDA tensors."""
+    if q.shape[1] * q.shape[3] > 4096:
+        raise ValueError(f"chunk * head_dim = {q.shape[1] * q.shape[3]} exceeds the "
+                         "CUDA-core kernel's 4096")
+    out = _launch("cf_chunk_attention", (_DTYPES[q.dtype],), q, kv, p, u, v, chunk_idx,
+                  offsets, max_lens, chunk=chunk, left=left, right=right)
+    chunk_attention.launches += 1
+    return out
+
+
+def chunk_attention_tensor_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *, chunk: int,
+                                left: int, right: int) -> torch.Tensor:
+    """Launch the tensor-core kernel (``csrc/chunk_attention_tc.cu``) on CUDA
+    tensors that ``route`` sends to it; raises on any other."""
+    if route(q, kv, p) != "tensor_core":
+        raise ValueError("the tensor-core kernel takes bf16, head_dim 64 or 128, a chunk of "
+                         "a multiple of 64 and 16-byte-aligned rows")
+    out = _launch("cf_chunk_attention_tc", (), q, kv, p, u, v, chunk_idx, offsets, max_lens,
+                  chunk=chunk, left=left, right=right)
+    chunk_attention.tc_launches += 1
+    return out
 
 
 def chunk_attention(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
@@ -87,28 +163,16 @@ def chunk_attention(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
     """Chunk attention context [N, c, H, dk] (see the module docstring).
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
-    the kernel of ``csrc/chunk_attention.cu`` or raises.
+    the kernel that ``route`` names, or raises.
     """
     if q.device.type == "cpu":
         return chunk_attention_plain(q, kv, p, u, v, chunk_idx, offsets, max_lens,
                                      chunk=chunk, left=left, right=right)
-    if q.device.type != "cuda":
-        raise ValueError(f"chunk_attention runs on cpu or cuda, not {q.device}")
-    _check(q, kv, p, u, v, (chunk_idx, offsets, max_lens), chunk, left, right)
-    n, c, heads, d_k = q.shape
-    out = torch.empty((n, c, heads, d_k), dtype=q.dtype, device=q.device)
-    lib = kernels.library()
-    with torch.cuda.device(q.device):
-        err = lib.cf_chunk_attention(
-            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
-            v.data_ptr(), chunk_idx.data_ptr(), offsets.data_ptr(), max_lens.data_ptr(),
-            out.data_ptr(), n, heads, c, d_k, left, right,
-            q.stride(0), q.stride(1), q.stride(2), kv.stride(0), kv.stride(1),
-            p.stride(0), p.stride(1), out.stride(0), out.stride(1), out.stride(2),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "chunk_attention")
-    chunk_attention.launches += 1
-    return out
+    launch = (chunk_attention_tensor_core if route(q, kv, p) == "tensor_core"
+              else chunk_attention_cuda_core)
+    return launch(q, kv, p, u, v, chunk_idx, offsets, max_lens, chunk=chunk, left=left,
+                  right=right)
 
 
-chunk_attention.launches = 0  # kernel launches since the last reset
+chunk_attention.launches = 0     # CUDA-core kernel launches since the last reset
+chunk_attention.tc_launches = 0  # tensor-core kernel launches since the last reset

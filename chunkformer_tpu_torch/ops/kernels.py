@@ -1,12 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file has a plain C interface and no PyTorch headers, so
-one ``nvcc`` call builds them all into one shared library in seconds, which
-is then loaded with ``ctypes``. The build runs at first use into
-``build/chunkformer_tpu_torch/`` beside the package (a directory git
-ignores), under a name keyed by the sources' hash, and is written to a
-temporary file first so concurrent processes never load a half-written
-library. A failed build raises.
+Every ``csrc/*.cu`` file has a plain C interface and no PyTorch headers.
+Each is compiled by its own ``nvcc`` process, all started together, and the
+objects are linked into one shared library, which is then loaded with
+``ctypes``. The build runs at first use into ``build/chunkformer_tpu_torch/``
+beside the package (a directory git ignores), under a name keyed by the
+sources' hash, and is written to a temporary file first so concurrent
+processes never load a half-written library. A failed build raises.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "chunkformer_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,12 +59,32 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = []
+    try:
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({proc.returncode}):\n{err}")
+            logs.append(err)
+        link = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                               "-o", tmp, *objects], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(path + ".log", "w") as f:
-        f.write(proc.stderr)
+        f.write("".join(logs))
     os.replace(tmp, path)
     return path
 
@@ -80,6 +100,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     lib.cf_chunk_attention.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
     lib.cf_chunk_attention.restype = _I
+    lib.cf_chunk_attention_tc.argtypes = [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
+    lib.cf_chunk_attention_tc.restype = _I
     lib.cf_fbank.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.cf_fbank.restype = _I
     lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from chunkformer_tpu_torch.ops import chunk_attention_train as cat
-from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention, chunk_attention_plain
+from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention,
+                                                       chunk_attention_cuda_core,
+                                                       chunk_attention_plain, route)
 from chunkformer_tpu_torch.ops.fbank import fbank, fbank_plain
 
 pytestmark = pytest.mark.cuda
@@ -54,10 +56,11 @@ def test_chunk_attention_kernel_matches_plain(cuda_device, dtype, n, c, L, R, d_
     ulp (2^-7) relative: both sides accumulate in f32 and round once."""
     args = _attention_args(n, c, L, R, 8, d_k, dtype, cuda_device)
     kw = dict(chunk=c, left=L, right=R)
-    launches = chunk_attention.launches
+    counter = "tc_launches" if route(*args[:3]) == "tensor_core" else "launches"
+    launches = getattr(chunk_attention, counter)
     got = chunk_attention(*args, **kw)
     torch.cuda.synchronize()
-    assert chunk_attention.launches == launches + 1
+    assert getattr(chunk_attention, counter) == launches + 1
     want = chunk_attention_plain(*args, **kw)
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
@@ -74,6 +77,71 @@ def test_chunk_attention_kernel_takes_head_major_views(cuda_device):
     kw = dict(chunk=64, left=128, right=128)
     got = chunk_attention(q, kv, p, *args[3:], **kw)
     torch.testing.assert_close(got, chunk_attention_plain(*args, **kw), atol=1e-5, rtol=0)
+
+
+def _segment_meta(n, c, segment, device):
+    """chunk_idx, offsets and max_lens of one utterance's macro-segment:
+    "first" (offset 0, so the first rows' left context is invalid, the last
+    chunk ragged) or "last" (a decode offset, and max_len halfway, so whole
+    chunk rows lie past it and give 0 where they see no valid key)."""
+    if segment == "first":
+        off, ml = 0, n * c - 5
+    else:
+        off, ml = 300, max(1, n * c // 2 - 7)
+    return [torch.tensor(a, dtype=torch.int32, device=device)
+            for a in (list(range(n)), [off] * n, [ml] * n)]
+
+
+@pytest.mark.parametrize("segment", ["first", "last"])
+@pytest.mark.parametrize("L,R", [(128, 128), (64, 0)])
+@pytest.mark.parametrize("d_k", [64, 128])
+@pytest.mark.parametrize("n", [1, 13, 40])
+def test_tensor_core_kernel_matches_plain(cuda_device, n, d_k, L, R, segment):
+    """The bf16 tensor-core route (c = 64) against the plain version: atol
+    1e-2 plus one bf16 ulp (2^-7) relative, the bf16 bar of the CUDA-core
+    kernel (both accumulate in f32; the kernel also rounds the softmax
+    weights to bf16 for the context product)."""
+    c = 64
+    args = _attention_args(n, c, L, R, 8, d_k, torch.bfloat16, cuda_device, seed=n + d_k)
+    args[5:] = _segment_meta(n, c, segment, cuda_device)
+    assert route(*args[:3]) == "tensor_core"
+    kw = dict(chunk=c, left=L, right=R)
+    launches = (chunk_attention.launches, chunk_attention.tc_launches)
+    got = chunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (chunk_attention.launches, chunk_attention.tc_launches) == (launches[0],
+                                                                       launches[1] + 1)
+    want = chunk_attention_plain(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2.0 ** -7)
+    if segment == "last" and n > 1:
+        assert not bool(got[-1].any())  # past max_len with no valid key: zero rows
+
+
+@pytest.mark.parametrize("d_k", [64, 128])
+def test_tensor_core_kernel_takes_head_major_views(cuda_device, d_k):
+    """The TPU kernel's head-major layout, passed as transposed views, gives
+    the row-major result on the tensor-core route."""
+    args = _attention_args(8, 64, 128, 128, 8, d_k, torch.bfloat16, cuda_device, seed=2)
+    q = args[0].transpose(1, 2).contiguous().transpose(1, 2)    # [N, H, c, dk] storage
+    kv = args[1].transpose(0, 1).contiguous().transpose(0, 1)   # [H, T, 2dk] storage
+    p = args[2].transpose(0, 1).contiguous().transpose(0, 1)    # [H, P, dk] storage
+    assert not q.is_contiguous() and route(q, kv, p) == "tensor_core"
+    kw = dict(chunk=64, left=128, right=128)
+    got = chunk_attention(q, kv, p, *args[3:], **kw)
+    torch.testing.assert_close(got, chunk_attention(*args, **kw), atol=0.0, rtol=0.0)
+    torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
+                               atol=1e-2, rtol=2.0 ** -7)
+
+
+def test_cuda_core_kernel_takes_bf16_main_path_shapes(cuda_device):
+    """The CUDA-core kernel stays right on the bf16 shapes that now route to
+    the tensor cores (it is their yardstick in chip_smoke.py)."""
+    args = _attention_args(16, 64, 128, 128, 8, 64, torch.bfloat16, cuda_device, seed=3)
+    kw = dict(chunk=64, left=128, right=128)
+    got = chunk_attention_cuda_core(*args, **kw)
+    torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
+                               atol=1e-2, rtol=2.0 ** -7)
 
 
 def test_fbank_kernel_matches_plain(cuda_device):

@@ -8,8 +8,8 @@ on the synthetic audio of ``chip_smoke.py`` (2040 s, 3 macro-segments, bf16),
 once to warm up and once under ``torch.profiler``. Prints the card's name and
 power limit, the wall time, the summed kernel time and the device busy share
 (summed kernel time over the profiled wall time, one stream), kernel time by
-group (chunk attention, fbank, matrix products, convolutions, the rest), and
-the top kernels by device time.
+group (chunk attention on each route, fbank, matrix products, convolutions,
+the rest), and the top kernels by device time.
 """
 
 from __future__ import annotations
@@ -31,8 +31,10 @@ import chip_smoke as smoke  # noqa: E402  (config, audio and sizes of the smoke 
 
 def group(name: str) -> str:
     n = name.lower()
+    if "chunk_attention_tc" in n:
+        return "chunk attention kernel, tensor cores"
     if "chunk_attention" in n:
-        return "chunk attention kernel"
+        return "chunk attention kernel, CUDA cores"
     if "fbank" in n:
         return "fbank kernel"
     if "conv" in n:
