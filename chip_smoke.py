@@ -28,14 +28,18 @@ non-zero exit code and no result line:
    CPU's on a small input;
 5. the training attention kernels (forward and backward) against their plain
    versions at the flagship train shape (B = 32, 199 subsampled frames,
-   c = 64, L = R = 128, H = 8, dk = 64), in f32 and bf16, at dropout 0 and
-   0.1 (identical keep masks);
+   c = 64, L = R = 128, H = 8, dk = 64), at dropout 0 and 0.1 (identical
+   keep masks): f32 on the CUDA-core kernels, bf16 on the tensor-core
+   kernels (backward run twice, bitwise equal), timed in turns with the
+   CUDA-core kernels and the plain version on the same inputs;
 6. the train path: three bf16 steps of the hybrid CTC/AED configuration of
    bench.py:149-177 (ChunkFormer-large encoder with gradient checkpointing,
    bitransformer decoder 3 + 3, vocab 6992, adamw) on 32 seeded synthetic
    utterances of 16 s, with the training attention's launch counts read
-   around them; then one f32 step through the kernels against the same step
-   through the plain attention;
+   around them (tensor-core kernels only); one f32 step through the kernels
+   (CUDA-core only) against the same step through the plain attention; one
+   bf16 step with dropout 0 through the tensor-core route and through the
+   CUDA-core route, each against the plain attention;
 7. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
@@ -524,23 +528,28 @@ def train_attention_inputs(dtype, gen, dev):
 
 
 def train_attention_bounds(args, backward: bool):
-    """Least time on an H100 SXM. Bytes: each input read once, each output
-    written once (forward: q, kv, p, u, v, lens -> ctx, m, den; backward:
-    q, kv, p, u, v, lens, ctx, m, den, dctx -> dq, dkv, dp, du, dv, the
-    gradients in the input dtype). Operations over
-    this data's valid (query, key) pairs, 2 per multiply-add: the forward's
-    three dk-long products (content, position, context), the backward's
-    eight (recomputed content and position scores, dA, dq from both
-    branches, dK, dV, dP)."""
+    """Least time on an H100 SXM. Bytes: each input read once over the rows
+    the function needs, each output written once whole. Of utterance b the
+    function needs the key stream's rows of frames [0, lens[b]) only (the L
+    and R pad rows and the frames past the length enter no valid window) and
+    the query rows below lens[b] of q, and in the backward of ctx, dctx, m
+    and den; p, u, v and lens it reads whole. Outputs: forward ctx, m, den;
+    backward dq, dkv, dp, du, dv, the gradients in the input dtype.
+    Operations over this data's valid (query, key) pairs, 2 per multiply-add:
+    the forward's three dk-long products (content, position, context), the
+    backward's eight (recomputed content and position scores, dA, dq from
+    both branches, dK, dV, dP)."""
     q, kv, p, u, v, lens = args
     b, tp, h, dk = q.shape
     item = q.element_size()
-    stats = b * h * tp * 4
-    operands = (q.numel() + kv.numel() + p.numel() + u.numel() + v.numel()) * item
-    ctx_m_den = q.numel() * item + 2 * stats
-    nbytes = operands + b * 4 + ctx_m_den          # forward: operands, lens in; ctx, m, den out
-    if backward:                                   # + dctx in; their gradients out
-        nbytes += q.numel() * item + operands
+    frames = int(lens.clamp(max=tp).sum())          # valid (utterance, frame) rows
+    row, stat_row = h * dk * item, h * 4            # one frame of q, ctx or dctx; of m or den
+    params = (p.numel() + u.numel() + v.numel()) * item
+    reads = frames * 3 * row + params + b * 4       # q rows, kv rows (k | v), p, u, v, lens
+    writes = b * tp * row + 2 * b * tp * stat_row   # ctx, m, den
+    if backward:                                    # + ctx, dctx, m, den rows in
+        reads += frames * (2 * row + 2 * stat_row)
+        writes = b * tp * row + kv.numel() * item + params   # dq, dkv, dp, du, dv
     pairs = 0
     for ln in lens.tolist():
         for ci in range(tp // C):
@@ -548,19 +557,36 @@ def train_attention_bounds(args, backward: bool):
             keys = max(0, min(LEFT + C + RIGHT, ln - ci * C + LEFT) - max(0, LEFT - ci * C))
             pairs += rows * keys
     ops = pairs * h * dk * 2 * (8 if backward else 3)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_PEAK[q.dtype]
+    t_bytes, t_ops = (reads + writes) / H100_BYTES_PER_S, ops / H100_PEAK[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, path):
+    """Bytes one backward launch of ``path`` allocates beyond its outputs (dq,
+    dkv, dp, du, dv), from the caching allocator's count of the bytes
+    allocated during the call: its f32 partial buffers and delta [B, H, n*c]."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    key = "allocated_bytes.all.allocated"
+    before = torch.cuda.memory_stats()[key]
+    outs = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+    total = torch.cuda.memory_stats()[key] - before
+    return total - sum(t.numel() * t.element_size() for t in outs)
 
 
 def phase_train_kernels(device):
     """B4 (forward) and B5 (backward) against their plain versions at the
-    flagship train shape: f32 and bf16 at p = 0, f32 and bf16 at p = 0.1.
-    Forward: ctx f32 atol 1e-5 (bf16 atol 1e-2 + one bf16 ulp relative), m
-    and den rtol 1e-5 (bf16 1e-2). Backward: the gradients of q, kv, p, u and
-    v through the kernels against autograd through the plain forward, f32
-    atol 1e-4 rtol 1e-5, bf16 relative L2 1e-2. At p = 0.1 a single keep-mask
+    flagship train shape, f32 and bf16 at p = 0 and 0.1: f32 on the CUDA-core
+    route (its only route), bf16 on the tensor-core route (the main path's)
+    and on the CUDA-core route (the other bf16 shapes' route, and the
+    tensor cores' yardstick), both held to the bf16 bars. Forward:
+    ctx f32 atol 1e-5 (bf16 atol 1e-2 + one bf16 ulp relative), m and den
+    rtol 1e-5 (bf16 1e-2). Backward: the gradients of q, kv, p, u and v
+    through the kernels against autograd through the plain forward, f32 atol
+    1e-4 rtol 1e-5, bf16 relative L2 1e-2. At p = 0.1 a single keep-mask
     difference would move a context row by a whole weight, far above these
-    bounds, so agreement means identical masks."""
+    bounds, so agreement means identical masks. bf16 times are taken in
+    turns on the same inputs (tensor cores, CUDA cores, plain)."""
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -570,62 +596,134 @@ def phase_train_kernels(device):
                         (torch.bfloat16, 0.1)):
         label = f"train attention {'bf16' if dtype == torch.bfloat16 else 'f32'} p={drop}"
         bf16 = dtype == torch.bfloat16
+        path = "tensor_core" if bf16 else "cuda_core"
         args = train_attention_inputs(dtype, gen, device)
+        require(cat.route(*args[:3], C) == path,
+                f"{label}: routed to {cat.route(*args[:3], C)}")
         st = (seed, C, LEFT, RIGHT, drop)
-        ctx, m, den = cat.forward_kernel(*args, *st)
-        torch.cuda.synchronize()
         want = cat.forward_plain(*args, *st)
-        fwd_err = float((ctx.float() - want[0].float()).abs().max())
-        require(all(bool(torch.isfinite(t).all()) for t in (ctx, m, den)),
-                f"{label}: non-finite forward output")
-        tol = (1e-2 + 2.0 ** -7 * want[0].float().abs()) if bf16 else 1e-5
-        require(bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
-                f"{label}: forward max |kernel - plain| {fwd_err:.3g}")
-        for name, got_s, want_s in (("m", m, want[1]), ("den", den, want[2])):
-            rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
-            require(rel <= (1e-2 if bf16 else 1e-5), f"{label}: {name} relative error {rel:.3g}")
-
-        dctx = torch.randn(ctx.shape, generator=gen, device=device).to(dtype)
-        leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
-        out = cat.chunk_train_attention(*leaves, args[5], seed, chunk=C, left=LEFT, right=RIGHT,
-                                        drop_rate=drop)
-        got_g = torch.autograd.grad(out, leaves, dctx)
-        torch.cuda.synchronize()
+        dctx = torch.randn(want[0].shape, generator=gen, device=device).to(dtype)
         leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
         want_g = torch.autograd.grad(cat.forward_plain(*leaves, args[5], *st)[0], leaves, dctx)
-        bwd_err = 0.0
-        for name, a, e in zip(("q", "kv", "p", "u", "v"), got_g, want_g):
-            require(bool(torch.isfinite(a).all()), f"{label}: non-finite d{name}")
-            err = (a.float() - e.float()).abs()
-            bwd_err = max(bwd_err, float(err.max()))
-            if bf16:
-                rel = float((a.float() - e.float()).norm() / e.float().norm())
-                require(rel <= 1e-2, f"{label}: d{name} relative L2 error {rel:.3g}")
-            else:
-                require(bool((err <= 1e-4 + 1e-5 * e.float().abs()).all()),
-                        f"{label}: d{name} max |kernel - plain| {float(err.max()):.3g}")
+        # bf16: the CUDA-core kernels (the route of the other bf16 shapes) are
+        # held to the same bars on the same inputs
+        errs, fwd_out = {}, {}
+        for route in ((path, "cuda_core") if bf16 else (path,)):
+            tag = f"{label} ({route.replace('_', '-')} route)"
+            ctx, m, den = fwd_out[route] = cat.forward_kernel(*args, *st, path=route)
+            torch.cuda.synchronize()
+            fwd_err = float((ctx.float() - want[0].float()).abs().max())
+            require(all(bool(torch.isfinite(t).all()) for t in (ctx, m, den)),
+                    f"{tag}: non-finite forward output")
+            tol = (1e-2 + 2.0 ** -7 * want[0].float().abs()) if bf16 else 1e-5
+            require(bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
+                    f"{tag}: forward max |kernel - plain| {fwd_err:.3g}")
+            for name, got_s, want_s in (("m", m, want[1]), ("den", den, want[2])):
+                rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
+                require(rel <= (1e-2 if bf16 else 1e-5), f"{tag}: {name} relative error {rel:.3g}")
+
+            leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+            entry = (cat.chunk_train_attention if route == path
+                     else cat.chunk_train_attention_cuda_core)
+            counts = read_train_counts()
+            out = entry(*leaves, args[5], seed, chunk=C, left=LEFT, right=RIGHT, drop_rate=drop)
+            got_g = torch.autograd.grad(out, leaves, dctx)
+            torch.cuda.synchronize()
+            moved = {k: v - counts[k] for k, v in read_train_counts().items()}
+            key = "_tc" if route == "tensor_core" else ""
+            require(moved == {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0,
+                              f"fwd{key}": 1, f"bwd{key}": 1},
+                    f"{tag}: launches {moved}, expected one forward and one backward")
+            bwd_err, rels = 0.0, {}
+            for name, a, e in zip(("q", "kv", "p", "u", "v"), got_g, want_g):
+                require(bool(torch.isfinite(a).all()), f"{tag}: non-finite d{name}")
+                err = (a.float() - e.float()).abs()
+                bwd_err = max(bwd_err, float(err.max()))
+                if bf16:
+                    rel = float((a.float() - e.float()).norm() / e.float().norm())
+                    rels[name] = rel
+                    require(rel <= 1e-2, f"{tag}: d{name} relative L2 error {rel:.3g}")
+                else:
+                    require(bool((err <= 1e-4 + 1e-5 * e.float().abs()).all()),
+                            f"{tag}: d{name} max |kernel - plain| {float(err.max()):.3g}")
+            errs[route] = (fwd_err, bwd_err, rels)
+            del out, got_g
+        ctx, m, den = fwd_out[path]
+        fwd_err, bwd_err, _ = errs[path]
         kept = (float(cat.window_keep_mask(seed, args[5], args[0].shape[1] // C, 8, C,
                                            LEFT + C + RIGHT, drop).float().mean())
                 if drop else 1.0)
-
-        fwd_ms = cuda_ms(lambda: cat.forward_kernel(*args, *st), iters=10)
-        bwd_ms = cuda_ms(lambda: cat.backward_kernel(*args, ctx, m, den, dctx, *st), iters=10)
-        plain_fwd_ms = cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3, warmup=1)
-        plain_bwd_ms = cuda_ms(lambda: cat.backward_plain(*args, m, den, dctx, *st), iters=3,
-                               warmup=1)
         fb, fb_by = train_attention_bounds(args, backward=False)
         bb, bb_by = train_attention_bounds(args, backward=True)
-        results[label] = {
-            "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fb,
-                        bound_by=fb_by),
-            "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bb,
-                        bound_by=bb_by)}
-        log(f"{label}: B={TRAIN_BATCH} T'={args[0].shape[1]} H=8 c={C} dk=64 L=R={LEFT}, "
-            f"keep share {kept:.4f}: forward max|kernel-plain| {fwd_err:.3g}, kernel "
-            f"{fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, bound {fb:.4f} ms by {fb_by}; "
-            f"backward max|kernel-plain| {bwd_err:.3g}, kernel {bwd_ms:.4f} ms, plain "
-            f"{plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bb_by}")
-        del args, ctx, m, den, want, dctx, got_g, want_g, leaves, out
+        scratch_mb = train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, path) / 1e6
+        require(scratch_mb <= 25.0 or not bf16,
+                f"{label}: the tensor-core backward allocates {scratch_mb:.2f} MB of f32 "
+                "partials and delta")
+        msg = (f"{label}: B={TRAIN_BATCH} T'={args[0].shape[1]} H=8 c={C} dk=64 L=R={LEFT}, "
+               f"keep share {kept:.4f}; " + "; ".join(
+                   f"{r.replace('_', '-')} route forward max|kernel-plain| {e[0]:.3g}, "
+                   f"backward max|kernel-plain| {e[1]:.3g}" + (", relative L2 " + ", ".join(
+                       f"d{k} {x:.3g}" for k, x in e[2].items()) if e[2] else "")
+                   for r, e in errs.items())
+               + f"; f32 scratch of the {path.replace('_', '-')} backward (partials and "
+               f"delta, allocator count) {scratch_mb:.2f} MB")
+        if bf16:
+            # determinism: the same backward twice, bitwise
+            b1 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+            b2 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+            require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
+                    f"{label}: two tensor-core backward runs differ")
+            del b1, b2
+            # in turns on the same inputs: tensor cores, CUDA cores, plain
+            times = {k: [] for k in ("tc_f", "cc_f", "pl_f", "tc_b", "cc_b", "pl_b")}
+            for _ in range(2):
+                times["tc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                    *args, *st, path="tensor_core"), iters=20))
+                times["cc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                    *args, *st, path="cuda_core"), iters=10))
+                times["pl_f"].append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3,
+                                             warmup=1))
+                times["tc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                    *args, ctx, m, den, dctx, *st, path="tensor_core"), iters=20))
+                times["cc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                    *args, ctx, m, den, dctx, *st, path="cuda_core"), iters=10))
+                times["pl_b"].append(cuda_ms(lambda: cat.backward_plain(
+                    *args, m, den, dctx, *st), iters=3, warmup=1))
+            mean = {k: sum(v) / len(v) for k, v in times.items()}
+            results[label] = {
+                "fwd": dict(max_abs_err=fwd_err, ms=mean["tc_f"], plain_ms=mean["pl_f"],
+                            bound_ms=fb, bound_by=fb_by),
+                "bwd": dict(max_abs_err=bwd_err, ms=mean["tc_b"], plain_ms=mean["pl_b"],
+                            bound_ms=bb, bound_by=bb_by),
+                "cuda_core_ms": (mean["cc_f"], mean["cc_b"])}
+            for part, t, c, pl, bound, by in (("forward", "tc_f", "cc_f", "pl_f", fb, fb_by),
+                                              ("backward", "tc_b", "cc_b", "pl_b", bb, bb_by)):
+                msg += (f"; {part} in turns (2 rounds): tensor cores {mean[t]:.4f} ms "
+                        f"({', '.join(f'{x:.4f}' for x in times[t])}), CUDA cores "
+                        f"{mean[c]:.4f} ms ({', '.join(f'{x:.4f}' for x in times[c])}), plain "
+                        f"{mean[pl]:.4f} ms, bound {bound:.4f} ms by {by}: tensor cores "
+                        f"{mean[c] / mean[t]:.1f}x faster than CUDA cores, "
+                        f"{mean[t] / bound:.1f}x the bound")
+            cc_mb = train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, "cuda_core") / 1e6
+            msg += (f"; f32 scratch of the CUDA-core backward {cc_mb:.2f} MB; backward "
+                    "bitwise deterministic over two runs")
+        else:
+            fwd_ms = cuda_ms(lambda: cat.forward_kernel(*args, *st, path=path), iters=10)
+            bwd_ms = cuda_ms(lambda: cat.backward_kernel(*args, ctx, m, den, dctx, *st,
+                                                         path=path), iters=10)
+            plain_fwd_ms = cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3, warmup=1)
+            plain_bwd_ms = cuda_ms(lambda: cat.backward_plain(*args, m, den, dctx, *st),
+                                   iters=3, warmup=1)
+            results[label] = {
+                "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fb,
+                            bound_by=fb_by),
+                "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bb,
+                            bound_by=bb_by)}
+            msg += (f"; forward kernel {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, bound "
+                    f"{fb:.4f} ms by {fb_by}; backward kernel {bwd_ms:.4f} ms, plain "
+                    f"{plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bb_by}")
+        log(msg)
+        del args, ctx, m, den, want, dctx, want_g, leaves, fwd_out
         torch.cuda.empty_cache()
     return results
 
@@ -646,12 +744,16 @@ def reset_train_counts():
 
     chunk_train_attention.fwd_launches = 0
     chunk_train_attention.bwd_launches = 0
+    chunk_train_attention.fwd_tc_launches = 0
+    chunk_train_attention.bwd_tc_launches = 0
 
 
 def read_train_counts():
     from chunkformer_tpu_torch.ops.chunk_attention_train import chunk_train_attention
 
-    return {"fwd": chunk_train_attention.fwd_launches, "bwd": chunk_train_attention.bwd_launches}
+    return {"fwd": chunk_train_attention.fwd_launches, "bwd": chunk_train_attention.bwd_launches,
+            "fwd_tc": chunk_train_attention.fwd_tc_launches,
+            "bwd_tc": chunk_train_attention.bwd_tc_launches}
 
 
 def new_trainer(train_dict, device, autocast):
@@ -669,11 +771,79 @@ def new_trainer(train_dict, device, autocast):
     return cfg, model, step
 
 
+def no_dropout(train_dict):
+    """train_dict with every dropout of the encoder and decoder at 0."""
+    return {**train_dict, "encoder_conf": {**train_dict["encoder_conf"], "dropout_rate": 0.0,
+                                           "positional_dropout_rate": 0.0,
+                                           "attention_dropout_rate": 0.0},
+            "decoder_conf": {**train_dict["decoder_conf"], "dropout_rate": 0.0,
+                             "positional_dropout_rate": 0.0}}
+
+
+def rel_l2(a, b, names):
+    """Relative L2 distance of the gradient dicts a and b over ``names``."""
+    num = torch.sqrt(sum((a[n] - b[n]).square().sum() for n in names))
+    return float(num / torch.sqrt(sum(b[n].square().sum() for n in names)))
+
+
+def bf16_step_routes(train_dict, device, batch, n_layers, recompute):
+    """One bf16 step (autocast, dropout 0, seeded weights and batch) through
+    the tensor-core route, through the CUDA-core route (its baseline) and
+    through the plain attention: the loss difference and the whole-gradient
+    relative L2 of each route against the plain attention, the tensor-core
+    route gated at 1e-2 (the single-op bf16 bar)."""
+    from chunkformer_tpu_torch.nn import attention as attention_module
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    runs = {}
+    for route in ("tensor_core", "cuda_core", "plain"):
+        _, model, step = new_trainer(no_dropout(train_dict), device, torch.bfloat16)
+        if route == "plain":
+            for layer in model.encoder.encoders:
+                layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
+        routed = attention_module.chunk_train_attention
+        if route == "cuda_core":
+            attention_module.chunk_train_attention = cat.chunk_train_attention_cuda_core
+        reset_train_counts()
+        try:
+            m = step(*batch)
+        finally:
+            attention_module.chunk_train_attention = routed
+        unclip = max(1.0, float(m["grad_norm"]) / GRAD_CLIP)   # .grad is clipped in place
+        grads = {n: p.grad.detach().float() * unclip for n, p in model.named_parameters()}
+        runs[route] = (float(m["loss"]), grads, read_train_counts())
+        del model, step
+        torch.cuda.empty_cache()
+    loss_p, g_p, counts_p = runs["plain"]
+    names = list(g_p)
+    stats = {r: (abs(runs[r][0] - loss_p) / abs(loss_p), rel_l2(runs[r][1], g_p, names))
+             for r in ("tensor_core", "cuda_core")}
+    log("train bf16 step (dropout 0) against the same step through the plain attention: "
+        + "; ".join(f"{r.replace('_', '-')} route loss {runs[r][0]:.8g} vs {loss_p:.8g}, "
+                    f"relative difference {stats[r][0]:.3g}, whole-gradient relative L2 "
+                    f"{stats[r][1]:.3g}, launches {runs[r][2]}" for r in stats)
+        + " (limit 1e-2 for each route)")
+    require(all(np.isfinite(runs[r][0]) for r in runs), "non-finite bf16 loss")
+    for r, (_, rel) in stats.items():
+        require(rel <= 1e-2, f"bf16 step on the {r} route: whole-gradient relative L2 "
+                f"{rel:.3g} against the plain attention, above 1e-2")
+    none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+    want = {"tensor_core": {**none, "fwd_tc": n_layers * recompute, "bwd_tc": n_layers},
+            "cuda_core": {**none, "fwd": n_layers * recompute, "bwd": n_layers}}
+    for r, w in want.items():
+        require(runs[r][2] == w, f"bf16 step on the {r} route launched {runs[r][2]}")
+    require(counts_p == none, f"plain bf16 step launched {counts_p}")
+    return stats
+
+
 def phase_train(card, device, train_dict=TRAIN):
     """The train path: TRAIN_STEPS bf16 steps of the flagship configuration
     (dropout on, from a seeded generator), with the training attention's
-    launch counts read around them; then one f32 step (TF32 off, dropout 0)
-    through the kernels against the same step through the plain attention."""
+    launch counts read around them (tensor-core kernels only); then one f32
+    step (TF32 off, dropout 0) through the kernels (CUDA-core only) against
+    the same step through the plain attention; then ``bf16_step_routes``.
+    Returns the bf16 and the f32 launch counts, the bf16 step time and the
+    peak memory."""
     from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention
     from chunkformer_tpu_torch.ops.fbank import fbank
 
@@ -719,7 +889,9 @@ def phase_train(card, device, train_dict=TRAIN):
              if torch.equal(p.detach(), b)]
     require(not still, f"parameters that did not move: {still[:5]}")
     if device.type == "cuda":
-        want = {"fwd": n_layers * TRAIN_STEPS * recompute, "bwd": n_layers * TRAIN_STEPS}
+        # bf16 training attention goes through the tensor cores only
+        want = {"fwd": 0, "bwd": 0, "fwd_tc": n_layers * TRAIN_STEPS * recompute,
+                "bwd_tc": n_layers * TRAIN_STEPS}
         require(counts == want, f"train launches {counts}, expected {want}")
         require((chunk_attention.launches, chunk_attention.tc_launches, fbank.launches)
                 == decode_counts,
@@ -732,11 +904,7 @@ def phase_train(card, device, train_dict=TRAIN):
     # sensitivity baseline: the plain route with its encoder output scaled by
     # (1 + eps * z), z ~ N(0, 1) from a seed and eps the kernels' measured
     # relative difference at the encoder output
-    f32_dict = {**train_dict, "encoder_conf": {**train_dict["encoder_conf"], "dropout_rate": 0.0,
-                                               "positional_dropout_rate": 0.0,
-                                               "attention_dropout_rate": 0.0},
-                "decoder_conf": {**train_dict["decoder_conf"], "dropout_rate": 0.0,
-                                 "positional_dropout_rate": 0.0}}
+    f32_dict = no_dropout(train_dict)
     runs, enc_out = {}, {}
     for route in ("kernel", "plain", "plain, perturbed encoder output"):
         cfg, model, step = new_trainer(f32_dict, device, None)
@@ -768,10 +936,6 @@ def phase_train(card, device, train_dict=TRAIN):
     g_n = runs["plain, perturbed encoder output"][1]
     eps = float((enc_out["kernel"] - enc_out["plain"]).norm() / enc_out["plain"].norm())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-
-    def rel_l2(a, b, names):
-        num = torch.sqrt(sum((a[n] - b[n]).square().sum() for n in names))
-        return float(num / torch.sqrt(sum(b[n].square().sum() for n in names)))
 
     groups = {g: [n for n in g_p if n.startswith(g + ".")] for g in ("encoder", "ctc", "decoder")}
     group_rel = {g: rel_l2(g_k, g_p, names) for g, names in groups.items()}
@@ -812,9 +976,13 @@ def phase_train(card, device, train_dict=TRAIN):
             "(difference, name, baseline): " + ", ".join(f"{r:.3g} {n} {b:.3g}"
                                                         for r, n, b in unexplained[:5]))
     if device.type == "cuda":
-        require(counts_p == {"fwd": 0, "bwd": 0} and counts_k["bwd"] == n_layers,
+        # f32 training attention goes through the CUDA cores only
+        none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+        require(counts_p == none and counts_k == {**none, "fwd": n_layers * recompute,
+                                                  "bwd": n_layers},
                 f"f32 launches {counts_k} (kernel), {counts_p} (plain)")
-    return counts, step_s, peak_gib
+    bf16_step_routes(train_dict, device, batch, n_layers, recompute)
+    return counts, counts_k, step_s, peak_gib
 
 
 def main() -> int:
@@ -854,7 +1022,7 @@ def main() -> int:
         log(f"[phase train kernels] {time.time() - t:.1f} s")
 
         t = time.time()
-        train_launches, _, _ = phase_train(card, torch.device("cuda"))
+        train_launches, f32_train_launches, _, _ = phase_train(card, torch.device("cuda"))
         log(f"[phase train path] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -876,20 +1044,32 @@ def main() -> int:
         {"name": "fbank", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": launches["fbank"], **results["fbank"], "library_ms": None},
-        {"name": "chunk_train_attention_fwd", "route": "cuda",
+        {"name": "chunk_train_attention_tc_fwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": train_launches["fwd_tc"],
+         **train_results["train attention bf16 p=0.0"]["fwd"], "library_ms": None},
+        {"name": "chunk_train_attention_tc_bwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
+         "launches": train_launches["bwd_tc"],
+         **train_results["train attention bf16 p=0.0"]["bwd"], "library_ms": None},
+        {"name": "chunk_train_attention_f32_fwd", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
-         "launches": train_launches["fwd"], **train_results["train attention bf16 p=0.0"]["fwd"],
-         "library_ms": None},
-        {"name": "chunk_train_attention_bwd", "route": "cuda",
+         "launches": f32_train_launches["fwd"],
+         **train_results["train attention f32 p=0.0"]["fwd"], "library_ms": None},
+        {"name": "chunk_train_attention_f32_bwd", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
-         "launches": train_launches["bwd"], **train_results["train attention bf16 p=0.0"]["bwd"],
-         "library_ms": None},
+         "launches": f32_train_launches["bwd"],
+         **train_results["train attention f32 p=0.0"]["bwd"], "library_ms": None},
     ]
     log(f"kernels at the main paths' shapes (attention: N={capacity}, the tensor-core kernel "
         f"in bf16 with launches from the bf16 decode, the CUDA-core kernel in f32 with launches "
-        f"from the f32 decode; train attention: bf16, B={TRAIN_BATCH}, p=0); card {card}")
+        f"from the f32 decode; train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in "
+        f"bf16 with launches from the bf16 steps, the CUDA-core kernels in f32 with launches "
+        f"from the f32 step); card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

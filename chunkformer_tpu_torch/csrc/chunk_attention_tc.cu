@@ -48,6 +48,8 @@
 //   128-byte swizzle that wgmma's descriptors name (16-byte chunk index XOR
 //   row % 8), so the copies and the tensor cores meet no bank conflicts.
 // Shared memory: 94 KB a block at dk = 64 (two blocks an SM), 150 KB at 128.
+// The PTX helpers, tile copies and staging are in hopper_tc.cuh, shared with
+// the training kernels of chunk_attention_train_tc.cu.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): about 0.11 ms
 // at the shape above, 6.6x its byte bound and 20x faster than the CUDA-core
@@ -57,203 +59,11 @@
 // the tiles each block reloads through L2 (about 230 MB a call against the
 // 55 MB of distinct bytes), not the tensor cores.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "hopper_tc.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr int kThreads = 128;  // one warpgroup
-constexpr int kStage = 72;     // f32 row stride of a BD' staging slot
-
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk ch of row r in a [64][DK] bf16 tile stored as
-// DK/64 swizzled [64][64] sub-tiles of 8 KB.
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return static_cast<uint32_t>((ch >> 3) * 8192 + r * 128 + (((ch & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-// make this thread's generic-proxy shared writes visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving register reads or writes across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-// K-major operand (rows of the tile along M or N, dk contiguous): k-step kk
-// covers dk columns [16kk, 16kk + 16); 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  return make_desc(tile + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
-}
-// MN-major B operand (the V tile: keys along K, dk contiguous along N):
-// k-step kk covers keys [16kk, 16kk + 16); 8-key groups 1024 bytes apart,
-// 64-column swizzle atoms along N 8192 bytes apart
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 2048, 8192, 1024);
-}
-
-#define CF_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-    "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define CF_ACC32 CF_ACC8(0), CF_ACC8(8), CF_ACC8(16), CF_ACC8(24)
-#define CF_ACC64 CF_ACC32, CF_ACC8(32), CF_ACC8(40), CF_ACC8(48), CF_ACC8(56)
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : CF_ACC32
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] (registers) B[16 x 64] (MN-major in shared memory)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : CF_ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] (registers) B[16 x 128] (MN-major in shared memory)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : CF_ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DK>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DK / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ---------------------------------------------------------------- tiles
-
-// Copy rows [row0, row0 + 64) of a row-strided bf16 matrix (row_stride
-// elements apart, DK contiguous) into a swizzled tile; rows at or past
-// row_end are zero-filled.
-template <int DK>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base, int64_t row_stride,
-                                          int row0, int row_end, int tid) {
-  constexpr int kChunks = DK / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int k = 0; k < 64 * kChunks / kThreads; ++k) {
-    const int i = tid + k * kThreads;
-    const int r = i / kChunks, ch = i % kChunks;
-    const int g = row0 + r;
-    const bool ok = g < row_end;
-    const bf16* src = ok ? base + static_cast<int64_t>(g) * row_stride + ch * 8 : base;
-    cp_async16(dst + swz(r, ch), src, ok ? 16 : 0);
-  }
-}
-
-// f32 dot product of row r of a swizzled tile with w[DK] (shared, f32)
-template <int DK>
-__device__ __forceinline__ float dot_row(const uint8_t* tile, int r, const float* w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  float acc = 0.f;
-#pragma unroll
-  for (int ch = 0; ch < DK / 8; ++ch) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(tile + swz(r, ch));
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float4 wa = w4[2 * ch], wb = w4[2 * ch + 1];
-    const float2 f0 = __bfloat1622float2(p2[0]), f1 = __bfloat1622float2(p2[1]);
-    const float2 f2 = __bfloat1622float2(p2[2]), f3 = __bfloat1622float2(p2[3]);
-    acc = fmaf(f0.x, wa.x, acc);
-    acc = fmaf(f0.y, wa.y, acc);
-    acc = fmaf(f1.x, wa.z, acc);
-    acc = fmaf(f1.y, wa.w, acc);
-    acc = fmaf(f2.x, wb.x, acc);
-    acc = fmaf(f2.y, wb.y, acc);
-    acc = fmaf(f3.x, wb.z, acc);
-    acc = fmaf(f3.y, wb.w, acc);
-  }
-  return acc;
-}
-
-// The 64 x 64 product BD_b = Q P_b^T of one positional block, plus v.p_m on
-// column m, into a staging slot (f32 rows kStage apart): float2 stores, free
-// of bank conflicts at kStage = 8 (mod 32)
-__device__ __forceinline__ void stage_block(const float (&b)[32], float* dst, const float* vp,
-                                            int ra, int cb) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = 8 * i + cb;
-    const float2 w = *reinterpret_cast<const float2*>(vp + m);
-    *reinterpret_cast<float2*>(dst + ra * kStage + m) = make_float2(b[4 * i] + w.x,
-                                                                    b[4 * i + 1] + w.y);
-    *reinterpret_cast<float2*>(dst + (ra + 8) * kStage + m) =
-        make_float2(b[4 * i + 2] + w.x, b[4 * i + 3] + w.y);
-  }
-}
 
 template <int DK>
 struct Smem {
@@ -466,13 +276,7 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // P (bf16, registers) times V: k-step kk takes keys [16kk, 16kk + 16)
     uint32_t a[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    acc_to_a(s, a);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll

@@ -32,7 +32,21 @@ same.
 The forward and backward are custom operators (``torch.library``), so a
 selective-checkpoint policy can name the forward's outputs (the encoder's
 ``remat_policy: "dots"``). On a CPU tensor each runs its plain version; on a
-CUDA tensor it launches the kernels or raises.
+CUDA tensor it launches the kernels of the route that ``route`` picks from
+dtype, shapes and strides alone, or raises:
+
+- ``csrc/chunk_attention_train_tc.cu`` (tensor-core route): bf16 with
+  head_dim 64 or 128, a chunk of a multiple of 64 rows and 16-byte-aligned
+  rows, as the main path gives it (the flagship step: dk = 64, c = 64).
+  wgmma products, the decode kernel's staged rel-shift, a deterministic
+  FlashAttention-2 backward. Counters ``chunk_train_attention.fwd_tc_launches``
+  and ``.bwd_tc_launches``.
+- ``csrc/chunk_attention_train.cu`` (CUDA-core route): everything else, f32
+  among it. Counters ``chunk_train_attention.fwd_launches`` and
+  ``.bwd_launches``.
+
+``chunk_train_attention_cuda_core`` and ``chunk_train_attention_tensor_core``
+launch one route directly, so both can run on the same bf16 inputs.
 """
 
 from __future__ import annotations
@@ -185,6 +199,8 @@ def backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed: int, chunk: int, le
 
 def _check(q, kv, p, u, v, lens, chunk, left, right):
     b, n, heads, d_k, _ = _layout(q, kv, p, chunk, left, right)
+    if q.device.type != "cuda":
+        raise ValueError(f"the training attention kernels run on cuda, not {q.device}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"chunk_train_attention takes float32 or bfloat16, got {q.dtype}")
     for name, t in (("kv", kv), ("p", p), ("u", u), ("v", v)):
@@ -198,107 +214,193 @@ def _check(q, kv, p, u, v, lens, chunk, left, right):
         raise ValueError("u and v must be contiguous [H, dk]")
     if q.stride(-1) != 1 or kv.stride(-1) != 1 or p.stride(-1) != 1:
         raise ValueError("q, kv and p need a contiguous last axis")
-    if chunk * d_k > 4096 or d_k > 128:
-        raise ValueError(f"chunk * head_dim = {chunk * d_k} exceeds the kernel's 4096 "
-                         f"(or head_dim {d_k} > 128)")
     return b, n, heads, d_k
+
+
+def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, chunk: int) -> str:
+    """Which kernels a CUDA call launches, from dtype, shapes and strides
+    alone: "tensor_core" (``csrc/chunk_attention_train_tc.cu``) for bf16 with
+    head_dim 64 or 128, a chunk of a multiple of 64 rows and every row of q,
+    kv and p 16-byte aligned (the kernels copy 16 bytes a thread);
+    "cuda_core" (``csrc/chunk_attention_train.cu``) otherwise."""
+    d_k = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d_k not in (64, 128) or chunk <= 0 or chunk % 64 != 0:
+        return "cuda_core"
+    for t in (q, kv, p):
+        if t.data_ptr() % 16 != 0 or any(s % 8 != 0 for s in t.stride()[:-1]):
+            return "cuda_core"
+    return "tensor_core"
+
+
+_PATHS = ("cuda_core", "tensor_core")
+#: bytes of f32 dP partial slabs the tensor-core backward may allocate: one
+#: [P, H, dk] slab per group of utterances (12.5 MB at the flagship shape)
+DP_PART_BUDGET = 16 << 20
+
+
+def _check_path(path, q, kv, p, chunk, d_k):
+    if path not in _PATHS:
+        raise ValueError(f"path must be one of {_PATHS}, got {path!r}")
+    if path == "tensor_core" and route(q, kv, p, chunk) != "tensor_core":
+        raise ValueError("the tensor-core kernels take bf16, head_dim 64 or 128, a chunk of a "
+                         "multiple of 64 and 16-byte-aligned rows")
+    if path == "cuda_core" and (chunk * d_k > 4096 or d_k > 128):
+        raise ValueError(f"chunk * head_dim = {chunk * d_k} exceeds the CUDA-core kernels' "
+                         f"4096 (or head_dim {d_k} > 128)")
 
 
 def _strides(t):
     return [t.stride(i) for i in range(t.dim() - 1)]
 
 
-def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate):
-    """Launch the forward kernel: (ctx, m, den) as ``forward_plain``."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, starting on a 16-byte boundary."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def dp_group(b: int, heads: int, p_len: int, d_k: int) -> int:
+    """Utterances per block of the tensor-core dq kernel: the fewest that keep
+    the f32 dP slabs ([ceil(B / group), H, P, dk]) within DP_PART_BUDGET."""
+    slabs = max(1, min(b, DP_PART_BUDGET // (heads * p_len * d_k * 4)))
+    return -(-b // slabs)
+
+
+def partial_shapes(path, b, n, heads, chunk, p_len, d_k):
+    """(shape, zeroed) of each f32 partial buffer a backward launch of
+    ``path`` allocates, in the order its entry takes them; ``zeroed`` marks
+    the buffers the kernels add into. Tensor cores: per (group of
+    ``dp_group`` utterances, h) a dP slab [P, dk] and the band's column sums
+    [P] (the v terms of dP and dv), both added into, and per (64 key frames,
+    h) a du partial [dk]. CUDA cores: per (b, ci, h) a dP slab [P, dk] and
+    du | dv [2, dk]."""
+    if path == "tensor_core":
+        cells = -(-b // dp_group(b, heads, p_len, d_k))
+        return [((cells, heads, p_len, d_k), True), ((cells, heads, p_len), True),
+                ((b * n * chunk // 64, heads, d_k), False)]
+    return [((b * n * heads, p_len, d_k), False), ((b * n * heads, 2, d_k), False)]
+
+
+def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *, path: str):
+    """Launch the forward kernel of ``path`` ("cuda_core" or "tensor_core"):
+    (ctx, m, den) as ``forward_plain``; raises where that route cannot take
+    the operands."""
     b, n, heads, d_k = _check(q, kv, p, u, v, lens, chunk, left, right)
+    _check_path(path, q, kv, p, chunk, d_k)
     ctx = torch.empty((b, n * chunk, heads, d_k), dtype=q.dtype, device=q.device)
     m = torch.empty((b, heads, n * chunk), dtype=torch.float32, device=q.device)
     den = torch.empty_like(m)
+    lib = kernels.library()
+    tc = path == "tensor_core"
+    lead = () if tc else (_DTYPES[q.dtype],)
+    entry = lib.cf_chunk_train_attn_tc_fwd if tc else lib.cf_chunk_train_attn_fwd
     with torch.cuda.device(q.device):
-        err = kernels.library().cf_chunk_train_attn_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+        err = entry(
+            *lead, q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
             v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
             b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF, drop_threshold(drop_rate),
             float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
             *_strides(q), *_strides(kv), *_strides(p),
             torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(err, "chunk_train_attention forward")
-    chunk_train_attention.fwd_launches += 1
+    kernels.check(err, f"chunk_train_attention forward ({path})")
+    if tc:
+        chunk_train_attention.fwd_tc_launches += 1
+    else:
+        chunk_train_attention.fwd_launches += 1
     return ctx, m, den
 
 
 def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
-                    drop_rate):
-    """Launch the backward kernels: (dq, dkv, dp, du, dv) as ``backward_plain``."""
+                    drop_rate, *, path: str):
+    """Launch the backward kernels of ``path``: (dq, dkv, dp, du, dv) as
+    ``backward_plain``; raises where that route cannot take the operands.
+
+    Both routes sum dP, du and dv across blocks from the f32 partials of
+    ``partial_shapes``, in a fixed order."""
     b, n, heads, d_k = _check(q, kv, p, u, v, lens, chunk, left, right)
+    _check_path(path, q, kv, p, chunk, d_k)
     dev = q.device
-    dctx = dctx.contiguous()
-    ctx = ctx.contiguous()
+    tc = path == "tensor_core"
+    dctx = _aligned(dctx)
+    ctx = _aligned(ctx)
     p_len = p.shape[0]
-    blocks = b * n * heads
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     dkv = torch.empty(kv.shape, dtype=kv.dtype, device=dev)
     dkv[:, :left].zero_()
     dkv[:, left + n * chunk:].zero_()
     delta = torch.empty_like(m)
-    dp_part = torch.empty((blocks, p_len, d_k), dtype=torch.float32, device=dev)
-    duv_part = torch.empty((blocks, 2, d_k), dtype=torch.float32, device=dev)
+    parts = [(torch.zeros if zeroed else torch.empty)(shape, dtype=torch.float32, device=dev)
+             for shape, zeroed in partial_shapes(path, b, n, heads, chunk, p_len, d_k)]
+    group = dp_group(b, heads, p_len, d_k)
     dp = torch.empty((p_len, heads, d_k), dtype=p.dtype, device=dev)
     du = torch.empty((heads, d_k), dtype=u.dtype, device=dev)
     dv = torch.empty((heads, d_k), dtype=v.dtype, device=dev)
+    lib = kernels.library()
+    lead = () if tc else (_DTYPES[q.dtype],)
+    entry = lib.cf_chunk_train_attn_tc_bwd if tc else lib.cf_chunk_train_attn_bwd
+    shape = (b, n, heads, chunk, d_k, left, right) + ((group,) if tc else ())
     with torch.cuda.device(dev):
-        err = kernels.library().cf_chunk_train_attn_bwd(
-            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+        err = entry(
+            *lead, q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
             v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
             dctx.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
-            dp_part.data_ptr(), duv_part.data_ptr(), dp.data_ptr(), du.data_ptr(),
-            dv.data_ptr(), b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF,
+            *(t.data_ptr() for t in parts), dp.data_ptr(), du.data_ptr(),
+            dv.data_ptr(), *shape, seed & 0xFFFFFFFF,
             drop_threshold(drop_rate), float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
             *_strides(q), *_strides(kv), *_strides(p), *_strides(dkv),
             torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(err, "chunk_train_attention backward")
-    chunk_train_attention.bwd_launches += 1
+    kernels.check(err, f"chunk_train_attention backward ({path})")
+    if tc:
+        chunk_train_attention.bwd_tc_launches += 1
+    else:
+        chunk_train_attention.bwd_launches += 1
     return dq, dkv, dp, du, dv
 
 
-def _on(device: torch.device) -> str:
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"chunk_train_attention runs on cpu or cuda, not {device}")
-    return device.type
+def _path(path: str, q, kv, p, chunk: int) -> str:
+    """"plain" on the CPU for the routed entry ("auto"), else the route to launch."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk_train_attention runs on cpu or cuda, not {q.device}")
+    if path == "auto":
+        return "plain" if q.device.type == "cpu" else route(q, kv, p, chunk)
+    return path
 
 
 @torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_fwd", mutates_args=())
 def _fwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
             v: torch.Tensor, lens: torch.Tensor, seed: int, chunk: int, left: int,
-            right: int, drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    if _on(q.device) == "cpu":
+            right: int, drop_rate: float, path: str) -> Tuple[torch.Tensor, torch.Tensor,
+                                                               torch.Tensor]:
+    how = _path(path, q, kv, p, chunk)
+    if how == "plain":
         return forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate)
-    return forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate)
+    return forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, path=how)
 
 
 @torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_bwd", mutates_args=())
 def _bwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
             v: torch.Tensor, lens: torch.Tensor, ctx: torch.Tensor, m: torch.Tensor,
             den: torch.Tensor, dctx: torch.Tensor, seed: int, chunk: int, left: int,
-            right: int, drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                                    torch.Tensor, torch.Tensor]:
-    if _on(q.device) == "cpu":
+            right: int, drop_rate: float, path: str) -> Tuple[
+                torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    how = _path(path, q, kv, p, chunk)
+    if how == "plain":
         return backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed, chunk, left, right,
                               drop_rate)
     return backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
-                           drop_rate)
+                           drop_rate, path=how)
 
 
 def _setup(ctx, inputs, output):
-    q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate = inputs
+    q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, path = inputs
     ctx.save_for_backward(q, kv, p, u, v, lens, *output)
-    ctx.statics = (seed, chunk, left, right, drop_rate)
+    ctx.statics = (seed, chunk, left, right, drop_rate, path)
 
 
 def _backward(ctx, dctx, _dm, _dden):
     q, kv, p, u, v, lens, out, m, den = ctx.saved_tensors
     dq, dkv, dp, du, dv = _bwd_op(q, kv, p, u, v, lens, out, m, den, dctx, *ctx.statics)
-    return dq, dkv, dp, du, dv, None, None, None, None, None, None
+    return dq, dkv, dp, du, dv, None, None, None, None, None, None, None
 
 
 _fwd_op.register_autograd(_backward, setup_context=_setup)
@@ -312,11 +414,34 @@ def chunk_train_attention(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int, le
     """Differentiable limited-context training attention: ctx [B, n*c, H, dk].
 
     On a CPU tensor the forward and backward are the plain versions; on a
-    CUDA tensor they launch the kernels of ``csrc/chunk_attention_train.cu``
-    or raise. ``seed`` is ignored when ``drop_rate`` is 0.
+    CUDA tensor they launch the kernels that ``route`` names, or raise.
+    ``seed`` is ignored when ``drop_rate`` is 0.
     """
-    return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate))[0]
+    return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
+                   "auto")[0]
 
 
-chunk_train_attention.fwd_launches = 0  # forward kernel launches since the last reset
-chunk_train_attention.bwd_launches = 0  # backward launches (dq, dkv and reduction kernels)
+def chunk_train_attention_cuda_core(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int,
+                                    left: int, right: int,
+                                    drop_rate: float = 0.0) -> torch.Tensor:
+    """``chunk_train_attention`` through the CUDA-core kernels
+    (``csrc/chunk_attention_train.cu``) on CUDA tensors, whatever ``route``
+    says; raises on others."""
+    return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
+                   "cuda_core")[0]
+
+
+def chunk_train_attention_tensor_core(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int,
+                                      left: int, right: int,
+                                      drop_rate: float = 0.0) -> torch.Tensor:
+    """``chunk_train_attention`` through the tensor-core kernels
+    (``csrc/chunk_attention_train_tc.cu``) on CUDA tensors that ``route``
+    sends to them; raises on others."""
+    return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
+                   "tensor_core")[0]
+
+
+chunk_train_attention.fwd_launches = 0     # CUDA-core forward launches since the last reset
+chunk_train_attention.bwd_launches = 0     # CUDA-core backward launches (dq, dkv, reduction)
+chunk_train_attention.fwd_tc_launches = 0  # tensor-core forward launches
+chunk_train_attention.bwd_tc_launches = 0  # tensor-core backward launches (dq, dkv, reduction)

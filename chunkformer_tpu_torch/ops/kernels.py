@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file has a plain C interface and no PyTorch headers.
-Each is compiled by its own ``nvcc`` process, all started together, and the
-objects are linked into one shared library, which is then loaded with
-``ctypes``. The build runs at first use into ``build/chunkformer_tpu_torch/``
-beside the package (a directory git ignores), under a name keyed by the
-sources' hash, and is written to a temporary file first so concurrent
+Every ``csrc/*.cu`` file has a plain C interface and no PyTorch headers;
+the ``csrc/*.cuh`` headers hold the device code they share. Each ``.cu`` is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are linked into one shared library, which is then loaded with ``ctypes``.
+The build runs at first use into ``build/chunkformer_tpu_torch/`` beside the
+package (a directory git ignores), under a name keyed by the hash of the
+sources and headers, and is written to a temporary file first so concurrent
 processes never load a half-written library. A failed build raises.
 """
 
@@ -42,8 +43,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Path of the shared library for the current sources."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    """Path of the shared library for the current sources and headers."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                     + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         with open(src, "rb") as f:
@@ -110,6 +112,12 @@ def library() -> ctypes.CDLL:
     lib.cf_chunk_train_attn_bwd.argtypes = ([_I] + [_P] * 18 + [_I] * 7 + [_U, _U, _F, _I]
                                             + [_L] * 11 + [_P])
     lib.cf_chunk_train_attn_bwd.restype = _I
+    lib.cf_chunk_train_attn_tc_fwd.argtypes = ([_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
+                                               + [_L] * 8 + [_P])
+    lib.cf_chunk_train_attn_tc_fwd.restype = _I
+    lib.cf_chunk_train_attn_tc_bwd.argtypes = ([_P] * 19 + [_I] * 8 + [_U, _U, _F, _I]
+                                               + [_L] * 11 + [_P])
+    lib.cf_chunk_train_attn_tc_bwd.restype = _I
     return lib
 
 

@@ -155,7 +155,7 @@ def test_fbank_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(got, fbank_plain(wave), atol=2e-3, rtol=1e-3)
 
 
-def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0):
+def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0, lens=None):
     g = torch.Generator(device="cpu").manual_seed(seed)
 
     def rnd(*shape):
@@ -165,8 +165,9 @@ def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0):
     kv = rnd(b, L + tp + R, heads, 2 * d_k)
     kv[:, :L] = 0
     kv[:, L + tp:] = 0
-    lens = [tp - 9 - 7 * i for i in range(b)]
-    lens[-1] = c + 3 if b > 1 else lens[-1]
+    if lens is None:
+        lens = [tp - 9 - 7 * i for i in range(b)]
+        lens[-1] = c + 3 if b > 1 else lens[-1]
     return [rnd(b, tp, heads, d_k), kv, rnd(2 * c - 1 + L + R, heads, d_k), rnd(heads, d_k),
             rnd(heads, d_k), torch.tensor(lens, dtype=torch.int32, device=device)]
 
@@ -180,9 +181,11 @@ def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0):
     (torch.bfloat16, 4, 4, 64, 128, 128, 64, 0.1),
 ])
 def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, d_k, drop):
-    """Forward kernel (ctx, m, den) and backward kernels (grads of q, kv, p, u,
-    v) against the plain forward and autograd through it, on the same inputs
-    and the same dropout masks. f32: ctx atol 1e-5, m and den rtol 1e-5,
+    """The CUDA-core route (the route of f32, and the yardstick of the
+    tensor-core route on the bf16 main-path shapes): forward kernel (ctx, m,
+    den) and backward kernels (grads of q, kv, p, u, v) against the plain
+    forward and autograd through it, on the same inputs and the same dropout
+    masks. f32: ctx atol 1e-5, m and den rtol 1e-5,
     gradients atol 1e-4 rtol 1e-5 (summation order only; a single dropout
     mask difference would move ctx by a whole weight). bf16: ctx atol 1e-2
     plus one bf16 ulp relative (both accumulate in f32 and round once);
@@ -192,7 +195,7 @@ def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, 
     kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
     seed = 1234
     f0, b0 = cat.chunk_train_attention.fwd_launches, cat.chunk_train_attention.bwd_launches
-    ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop)
+    ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop, path="cuda_core")
     torch.cuda.synchronize()
     want_ctx, want_m, want_den = cat.forward_plain(*args, seed, c, L, R, drop)
     bf16 = dtype == torch.bfloat16
@@ -204,7 +207,7 @@ def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, 
     w = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
         device=cuda_device).manual_seed(3)).to(dtype)
     leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
-    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    out = cat.chunk_train_attention_cuda_core(*leaves, args[5], seed, **kw)
     got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
     torch.cuda.synchronize()
     assert cat.chunk_train_attention.fwd_launches == f0 + 2
@@ -219,3 +222,88 @@ def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, 
             assert rel <= 1e-2, (name, rel)
         else:
             torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-5, msg=name)
+
+
+def _tc_counts():
+    f = cat.chunk_train_attention
+    return (f.fwd_launches, f.bwd_launches, f.fwd_tc_launches, f.bwd_tc_launches)
+
+
+# (B, n, c, L, R, dk, p, lens): the flagship train shape (32 utterances of
+# 199 subsampled frames) at p = 0 and 0.1; dk = 128; c = 128; (L, R) of
+# (64, 0) and (0, 64); ragged lens (full length, below L, below one chunk);
+# a length of 1
+TC_CASES = [
+    (32, 4, 64, 128, 128, 64, 0.0, [199] * 32),
+    (32, 4, 64, 128, 128, 64, 0.1, [199] * 32),
+    (4, 4, 64, 128, 128, 128, 0.0, [256, 199, 100, 37]),
+    (3, 3, 128, 128, 128, 64, 0.1, [384, 300, 90]),
+    (4, 4, 64, 64, 0, 64, 0.0, [256, 190, 70, 13]),
+    (4, 4, 64, 0, 64, 64, 0.1, [256, 190, 70, 13]),
+    (5, 4, 64, 128, 128, 64, 0.1, [256, 100, 40, 199, 130]),
+    (3, 2, 64, 128, 128, 64, 0.0, [1, 128, 65]),
+]
+
+
+@pytest.mark.parametrize("b,n,c,L,R,d_k,drop,lens", TC_CASES)
+def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d_k, drop,
+                                                   lens):
+    """The tensor-core route, bf16, against the plain forward and autograd
+    through it, on the same inputs and dropout masks, at the bars of the
+    CUDA-core route's bf16 cases: ctx atol 1e-2 plus one bf16 ulp relative,
+    m and den rtol 1e-2, every gradient within 1e-2 relative L2 (the kernels
+    round the weights, dS and its band to bf16 for the tensor cores and sum
+    in f32). Only the tensor-core counters move."""
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, torch.bfloat16, cuda_device,
+                                 seed=b + c + d_k, lens=lens)
+    assert cat.route(*args[:3], c) == "tensor_core"
+    kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
+    seed = 4321
+    before = _tc_counts()
+    ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop, path="tensor_core")
+    torch.cuda.synchronize()
+    want_ctx, want_m, want_den = cat.forward_plain(*args, seed, c, L, R, drop)
+    torch.testing.assert_close(ctx.float(), want_ctx.float(), atol=1e-2, rtol=2.0 ** -7)
+    torch.testing.assert_close(m, want_m, atol=0.0, rtol=1e-2)
+    torch.testing.assert_close(den, want_den, atol=0.0, rtol=1e-2)
+
+    w = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(5)).to(torch.bfloat16)
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    after = _tc_counts()
+    assert after == (before[0], before[1], before[2] + 2, before[3] + 1)
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    ref = cat.forward_plain(*leaves, args[5], seed, c, L, R, drop)[0]
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), leaves)
+    for name, a, e in zip(("q", "kv", "p", "u", "v"), got, want):
+        assert a.dtype == e.dtype and a.shape == e.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        rel = float((a.float() - e.float()).norm() / e.float().norm())
+        assert rel <= 1e-2, (name, rel)
+    # the stream's pad rows and the frames past each length get no gradient
+    assert not bool(got[1][:, :L].any()) and not bool(got[1][:, L + n * c:].any())
+    for i, ln in enumerate(lens):
+        assert not bool(got[1][i, L + ln:L + n * c].any())
+        assert not bool(got[0][i, ln:].any())
+
+
+def test_train_attention_tensor_core_backward_is_deterministic(cuda_device):
+    """Two runs of the tensor-core backward on the same inputs give bitwise
+    equal gradients (every cross-block sum has one owner and a fixed order)."""
+    b, n, c, L, R, d_k, drop = 32, 4, 64, 128, 128, 64, 0.1
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, torch.bfloat16, cuda_device, seed=9,
+                                 lens=[199] * 31 + [77])
+    st = (77, c, L, R, drop)
+    ctx, m, den = cat.forward_kernel(*args, *st, path="tensor_core")
+    dctx = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(6)).to(torch.bfloat16)
+    before = _tc_counts()
+    first = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path="tensor_core")
+    second = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path="tensor_core")
+    torch.cuda.synchronize()
+    assert _tc_counts() == (before[0], before[1], before[2], before[3] + 2)
+    for name, a, e in zip(("dq", "dkv", "dp", "du", "dv"), first, second):
+        assert torch.equal(a, e), name
