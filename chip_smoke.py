@@ -11,21 +11,24 @@ non-zero exit code and no result line:
    registers and shared memory per kernel);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (chunk attention: the CUDA-core kernel in f32, at
-   an odd N and in bf16; the tensor-core kernel in bf16 at N = 209, 13 and 1,
-   on a middle, a first and a last macro-segment; fbank on 120 s of audio),
-   with CUDA-event times (the two attention kernels and the plain version
-   in turns on the same bf16 inputs);
+   an odd N, in bf16 and at head_dim 32, the shape it is the route of; the
+   tensor-core kernels in bf16 and in f32 (3xTF32) at N = 209, 13 and 1, on
+   a middle, a first and a last macro-segment, in f32 also at dk = 128,
+   c = 128 and head-major; fbank on 120 s of audio), with CUDA-event times
+   (each tensor-core kernel, the CUDA-core kernel and the plain version in
+   turns on the same inputs, bf16 and f32);
 4. the main path at ChunkFormer-large width (512 d, 8 heads, 17 blocks,
    vocab 6992, c = 64, L = R = 128) with random weights from a seed:
    ``endless_decode`` of 34 minutes of synthetic audio (3 macro-segments) and
    ``batch_decode`` of three files of mixed lengths, in bf16, with every
    kernel's launch count read around that run (all attention on the
-   tensor-core route); the bf16-vs-f32 CTC token-flip rate of
-   ``endless_decode``, held on frames that are not near ties and against the
-   same bf16 model through the plain attention; then in f32 (the
-   CUDA-core route, its launches read around that run) the
-   endless-vs-single-shot token mismatch, and the card's encoder against the
-   CPU's on a small input;
+   tensor-core route); then in f32 (the 3xTF32 tensor-core kernel, its
+   launches read around that run) the endless-vs-single-shot token mismatch,
+   the tokens against the same f32 ``endless_decode`` with the CUDA-core
+   kernel swapped in (no flip where the top-1/top-2 gap is 1e-3 or more),
+   the bf16-vs-f32 CTC token-flip rate of ``endless_decode``, held on frames
+   that are not near ties and against the same bf16 model through the plain
+   attention, and the card's encoder against the CPU's on a small input;
 5. the training attention kernels (forward and backward) against their plain
    versions at the flagship train shape (B = 32, 199 subsampled frames,
    c = 64, L = R = 128, H = 8, dk = 64), at dropout 0 and 0.1 (identical
@@ -59,7 +62,8 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
-H100_PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}  # dense FLOP/s
+H100_PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12,  # dense FLOP/s
+             "tf32": 495e12}  # tensor cores; f32 work split 3x as 3xTF32
 SEED = 0
 
 LARGE = {  # ChunkFormer-large, as bench.py:220-227
@@ -106,11 +110,15 @@ def require(ok: bool, msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean time of fn() on the card by CUDA events, after warm-up."""
+    """Mean time of fn() on the card by CUDA events, after warm-up. The stream
+    first spins for about 0.5 ms an iteration, so the host queues the calls
+    ahead of the card and a slow host does not leave gaps between short
+    kernels that the events would count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(iters * 1_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -156,26 +164,29 @@ def phase_build():
     kernels.library()
 
 
-def attention_inputs(n, dtype, offset, max_len, gen, dev):
+def attention_inputs(n, dtype, offset, max_len, gen, dev, c=C, dk=64):
     """Main-path-shaped chunk attention operands (row-major) on the card: n
     chunk rows of one macro-segment at decode offset ``offset``."""
-    h, dk = LARGE["encoder_conf"]["attention_heads"], 64
+    h = LARGE["encoder_conf"]["attention_heads"]
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    q, kv = rnd(n, C, h, dk), rnd(LEFT + n * C + RIGHT, h, 2 * dk)
-    p, u, v = rnd(2 * C - 1 + LEFT + RIGHT, h, dk), rnd(h, dk), rnd(h, dk)
+    q, kv = rnd(n, c, h, dk), rnd(LEFT + n * c + RIGHT, h, 2 * dk)
+    p, u, v = rnd(2 * c - 1 + LEFT + RIGHT, h, dk), rnd(h, dk), rnd(h, dk)
     meta = [torch.arange(n, dtype=torch.int32, device=dev),
             torch.full((n,), offset, dtype=torch.int32, device=dev),
             torch.full((n,), max_len, dtype=torch.int32, device=dev)]
     return [q, kv, p, u, v, *meta]
 
 
-def attention_bound(args):
+def attention_bound(args, peak=None):
     """Least time on an H100 SXM: each operand read once, the output written
     once; operations counted over this data's valid keys (AC, BD and the
-    context product, 2 FLOP per multiply-add)."""
+    context product, 2 FLOP per multiply-add) at the peak of the operands'
+    dtype, or with ``peak="tf32"`` as the three TF32 passes of the split
+    products at the TF32 tensor-core peak (f32-accurate work on the tensor
+    cores)."""
     q, kv, p, u, v, ci, off, ml = args
     n, c, h, dk = q.shape
     w = LEFT + c + RIGHT
@@ -187,7 +198,8 @@ def attention_bound(args):
     hi = torch.clamp(ml - ci * c + LEFT, max=w)
     valid_keys = int(torch.clamp(hi - lo, min=0).sum())
     ops = valid_keys * c * h * dk * 2 * 3
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_PEAK[q.dtype]
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 3 * ops / H100_PEAK["tf32"] if peak == "tf32" else ops / H100_PEAK[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -205,7 +217,7 @@ def check_attention(label, fn, args, atol, rtol):
     returns (output, max |error|)."""
     from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention_plain
 
-    kw = dict(chunk=C, left=LEFT, right=RIGHT)
+    kw = dict(chunk=args[0].shape[1], left=LEFT, right=RIGHT)
     got = fn(*args, **kw)
     torch.cuda.synchronize()
     want = chunk_attention_plain(*args, **kw)
@@ -231,71 +243,95 @@ def phase_kernels(sizing, device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     kw = dict(chunk=C, left=LEFT, right=RIGHT)
     results = {}
-    # the CUDA-core kernel (the route of f32 and of shapes the tensor cores do not take)
-    cases = [("attention f32", capacity, torch.float32, 1e-5, 0.0),
-             ("attention bf16 CUDA cores", capacity, torch.bfloat16, 1e-2, 2.0 ** -7),
-             ("attention f32 odd N=13", 13, torch.float32, 1e-5, 0.0)]
-    for label, n, dtype, atol, rtol in cases:
-        args = attention_inputs(n, dtype, trunc, min(max_len, n * C - 37), gen, device)
+    # the CUDA-core kernel: the route of the shapes the tensor cores do not
+    # take (here head_dim 32), and the yardstick of both tensor-core kernels
+    # on the main path's shapes
+    cases = [("attention f32", capacity, torch.float32, 64, 1e-5, 0.0),
+             ("attention bf16 CUDA cores", capacity, torch.bfloat16, 64, 1e-2, 2.0 ** -7),
+             ("attention f32 odd N=13", 13, torch.float32, 64, 1e-5, 0.0),
+             ("attention f32 head_dim 32", capacity, torch.float32, 32, 1e-5, 0.0)]
+    for label, n, dtype, dk, atol, rtol in cases:
+        args = attention_inputs(n, dtype, trunc, min(max_len, n * C - 37), gen, device, dk=dk)
         _, max_err = check_attention(label, chunk_attention_cuda_core, args, atol, rtol)
-        if dtype == torch.float32:
-            require(route(*args[:3]) == "cuda_core", f"{label}: f32 routed to the tensor cores")
+        want_route = "tensor_core" if dk in (64, 128) else "cuda_core"
+        require(route(*args[:3]) == want_route, f"{label}: route {route(*args[:3])}")
         ms = cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=20)
         plain_ms = cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3, warmup=1)
         bound_ms, bound_by = attention_bound(args)
         results[label] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-        log(f"{label}: N={n} H=8 c={C} dk=64 L=R={LEFT}: max|kernel-plain| {max_err:.3g} "
-            f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by}")
+        log(f"{label}: N={n} H=8 c={C} dk={dk} L=R={LEFT}: max|kernel-plain| {max_err:.3g} "
+            f"(atol {atol}, rtol {rtol}); CUDA-core kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms by {bound_by}; route of this shape: {want_route}")
 
-    # the tensor-core kernel (the bf16 route of the main path): a middle
-    # segment at N = 209, 13 and 1; a first one (offset 0: the first rows'
-    # left context is invalid); a last one whose second half of chunk rows
-    # lies past max_len (rows with no valid key give 0)
-    tc_cases = [("middle", capacity, trunc, min(max_len, capacity * C - 37)),
-                ("middle", 13, trunc, 13 * C - 37), ("middle", 1, trunc, C - 37),
-                ("first", capacity, 0, min(max_len, capacity * C - 37)),
-                ("last", capacity, 2 * trunc, capacity * C // 2 - 7)]
-    for segment, n, offset, seg_len in tc_cases:
-        label = f"attention bf16 tensor cores, {segment} segment N={n}"
-        args = attention_inputs(n, torch.bfloat16, offset, seg_len, gen, device)
-        require(route(*args[:3]) == "tensor_core", f"{label}: not on the tensor-core route")
-        launches = (chunk_attention.launches, chunk_attention.tc_launches)
-        got, max_err = check_attention(label, chunk_attention, args, 1e-2, 2.0 ** -7)
-        require((chunk_attention.launches, chunk_attention.tc_launches)
-                == (launches[0], launches[1] + 1), f"{label}: the tensor-core kernel did not run")
-        rows = ""
-        if segment == "last":
-            start = torch.arange(n, device=device) * C     # the rows' valid key interval
-            lo = (LEFT - start - offset).clamp(min=0)
-            hi = (seg_len - start + LEFT).clamp(max=LEFT + C + RIGHT)
-            past = hi <= lo
-            require(bool(past.any()) and not bool(got[past].any()),
-                    f"{label}: rows past max_len are not 0")
-            rows = f"; {int(past.sum())} chunk rows past max_len are 0"
-        msg = (f"{label}: H=8 c={C} dk=64 L=R={LEFT}, offset {offset}, max_len {seg_len}: "
-               f"max|kernel-plain| {max_err:.3g} (atol 1e-2, rtol 2^-7){rows}")
-        if segment == "middle" and n == capacity:
-            # in turns on the same inputs: tensor cores, CUDA cores, plain
-            tc, cc, plain = [], [], []
-            for _ in range(2):
-                tc.append(cuda_ms(lambda: chunk_attention_tensor_core(*args, **kw), iters=50))
-                cc.append(cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=20))
-                plain.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3,
-                                     warmup=1))
-            bound_ms, bound_by = attention_bound(args)
-            ms, cc_ms, plain_ms = (sum(x) / len(x) for x in (tc, cc, plain))
-            results["attention bf16"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                                             bound_ms=bound_ms, bound_by=bound_by)
-            msg += (f"; in turns (2 rounds): tensor cores {ms:.4f} ms "
-                    f"({', '.join(f'{x:.4f}' for x in tc)}), CUDA cores {cc_ms:.4f} ms "
-                    f"({', '.join(f'{x:.4f}' for x in cc)}), plain {plain_ms:.4f} ms; bound "
-                    f"{bound_ms:.4f} ms by {bound_by}: tensor cores {cc_ms / ms:.1f}x faster "
-                    f"than CUDA cores, {ms / bound_ms:.1f}x the bound")
-            require(ms < cc_ms, f"{label}: the tensor-core kernel ({ms:.4f} ms) is not faster "
-                    f"than the CUDA-core kernel ({cc_ms:.4f} ms)")
-        log(msg)
+    # the tensor-core kernels (the main path's route in bf16 and in f32):
+    # a middle segment at N = 209, 13 and 1; a first one (offset 0: the
+    # first rows' left context is invalid); a last one whose second half of
+    # chunk rows lies past max_len (rows with no valid key give 0); in f32
+    # also dk = 128, c = 128 and the head-major layout as views
+    tc_cases = [("middle", capacity, trunc, min(max_len, capacity * C - 37), C, 64),
+                ("middle", 13, trunc, 13 * C - 37, C, 64), ("middle", 1, trunc, C - 37, C, 64),
+                ("first", capacity, 0, min(max_len, capacity * C - 37), C, 64),
+                ("last", capacity, 2 * trunc, capacity * C // 2 - 7, C, 64)]
+    f32_extra = [("middle", 40, trunc, 40 * C - 37, C, 128),
+                 ("middle", 40, trunc, 40 * 2 * C - 37, 2 * C, 64),
+                 ("last", 40, 2 * trunc, 40 * 2 * C // 2 - 7, 2 * C, 128),
+                 ("head-major", capacity, trunc, min(max_len, capacity * C - 37), C, 64)]
+    for dtype, extra in ((torch.bfloat16, []), (torch.float32, f32_extra)):
+        f32 = dtype == torch.float32
+        name, atol, rtol = ("f32", 1e-5, 0.0) if f32 else ("bf16", 1e-2, 2.0 ** -7)
+        for segment, n, offset, seg_len, c, dk in tc_cases + extra:
+            label = (f"attention {name} tensor cores{' (3xTF32)' if f32 else ''}, {segment} "
+                     f"segment N={n}")
+            args = attention_inputs(n, dtype, offset, seg_len, gen, device, c=c, dk=dk)
+            if segment == "head-major":   # [N, H, c, dk], [H, T, 2dk], [H, P, dk] storage
+                args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+                args[1] = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+                args[2] = args[2].transpose(0, 1).contiguous().transpose(0, 1)
+            require(route(*args[:3]) == "tensor_core", f"{label}: not on the tensor-core route")
+            launches = (chunk_attention.launches, chunk_attention.tc_launches)
+            got, max_err = check_attention(label, chunk_attention, args, atol, rtol)
+            require((chunk_attention.launches, chunk_attention.tc_launches)
+                    == (launches[0], launches[1] + 1),
+                    f"{label}: the tensor-core kernel did not run")
+            rows = ""
+            if segment == "last":
+                start = torch.arange(n, device=device) * c     # the rows' valid key interval
+                lo = (LEFT - start - offset).clamp(min=0)
+                hi = (seg_len - start + LEFT).clamp(max=LEFT + c + RIGHT)
+                past = hi <= lo
+                require(bool(past.any()) and not bool(got[past].any()),
+                        f"{label}: rows past max_len are not 0")
+                rows = f"; {int(past.sum())} chunk rows past max_len are 0"
+            msg = (f"{label}: H=8 c={c} dk={dk} L=R={LEFT}, offset {offset}, max_len "
+                   f"{seg_len}: max|kernel-plain| {max_err:.3g} (atol {atol}, rtol {rtol}){rows}")
+            if segment == "middle" and n == capacity:
+                # in turns on the same inputs: tensor cores, CUDA cores, plain
+                tc, cc, plain = [], [], []
+                for _ in range(2):
+                    tc.append(cuda_ms(lambda: chunk_attention_tensor_core(*args, **kw),
+                                      iters=50))
+                    cc.append(cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=20))
+                    plain.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3,
+                                         warmup=1))
+                bound_ms, bound_by = attention_bound(args, "tf32" if f32 else None)
+                ms, cc_ms, plain_ms = (sum(x) / len(x) for x in (tc, cc, plain))
+                results[f"attention {name} tensor cores"] = dict(max_abs_err=max_err, ms=ms,
+                                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                                    bound_by=bound_by)
+                msg += (f"; in turns (2 rounds): tensor cores {ms:.4f} ms "
+                        f"({', '.join(f'{x:.4f}' for x in tc)}), CUDA cores {cc_ms:.4f} ms "
+                        f"({', '.join(f'{x:.4f}' for x in cc)}), plain {plain_ms:.4f} ms; bound "
+                        f"{bound_ms:.4f} ms by {bound_by}")
+                if f32:
+                    cc_bound, cc_by = attention_bound(args)
+                    msg += (f" at the TF32 peak for the three split passes (the same work "
+                            f"on the CUDA cores at the f32 peak: {cc_bound:.4f} ms by {cc_by})")
+                msg += (f": tensor cores {cc_ms / ms:.1f}x faster than CUDA cores, "
+                        f"{ms / bound_ms:.1f}x the bound")
+                require(ms < cc_ms, f"{label}: the tensor-core kernel ({ms:.4f} ms) is not "
+                        f"faster than the CUDA-core kernel ({cc_ms:.4f} ms)")
+            log(msg)
 
     rng = np.random.default_rng(SEED)
     wave = torch.from_numpy(speechlike(rng, 120.0).astype(np.float32)).to(device)
@@ -452,8 +488,9 @@ def phase_main_path(tmp, card, device):
     single = f32.batch_decode([long_wav], C, LEFT, RIGHT, BUDGET)[0]
     f32.model.ctc.argmax = argmax
     counts = read_counts()
-    # f32 attention goes through the CUDA cores only
-    require(counts == {"chunk_attention": n_layers * (n_seg + 1), "chunk_attention_tc": 0,
+    # f32 attention at the main path's shapes goes through the tensor cores
+    # (the 3xTF32 kernel) only
+    require(counts == {"chunk_attention": 0, "chunk_attention_tc": n_layers * (n_seg + 1),
                        "fbank": 2}, f"f32 launches {counts}")
     require(endless.shape == single.shape == bf16_tokens.shape
             == (int(chunk_ops.calc_length(t_total)),),
@@ -463,20 +500,49 @@ def phase_main_path(tmp, card, device):
     log(f"f32 endless vs single-shot batch on the same audio: {endless.size} frames, "
         f"token mismatch {mismatch:.5f} (limit 0.01); launches {counts}")
     require(mismatch <= 0.01, f"endless vs batch mismatch {mismatch} above 1%")
+    gap = np.concatenate(gaps)[:endless.size]
 
-    # bf16 against f32 tokens of endless_decode, PARITY.md round 4's 1% bar.
+    # the same f32 endless_decode with the CUDA-core kernel swapped in for the
+    # routed attention: the 3xTF32 kernel may move a token only where the f32
+    # top-1/top-2 log-prob gap is below 1e-3
+    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention_cuda_core
+
+    feats = f32.extract_features(long_wav)
+    routed = attention_module.chunk_attention
+    attention_module.chunk_attention = chunk_attention_cuda_core
+    reset_counts()
+    try:
+        cc_tokens = f32.endless_encode_tokens(feats, C, LEFT, RIGHT, BUDGET)
+    finally:
+        attention_module.chunk_attention = routed
+    cc_counts = read_counts()
+    require(cc_counts == {"chunk_attention": n_layers * n_seg, "chunk_attention_tc": 0,
+                          "fbank": 0}, f"f32 CUDA-core route launches {cc_counts}")
+    require(cc_tokens.shape == endless.shape, f"token counts {cc_tokens.shape} {endless.shape}")
+    route_flips = cc_tokens != endless
+    clear_flips = int((route_flips & (gap >= 1e-3)).sum())
+    log(f"f32 endless_decode CTC tokens, tensor-core route (3xTF32) vs CUDA-core route: "
+        f"{int(route_flips.sum())} of {route_flips.size} frames differ, {clear_flips} of them "
+        f"where the f32 top-1/top-2 log-prob gap is 1e-3 or more (limit 0); frames with a gap "
+        f"below 1e-3: {int((gap < 1e-3).sum())}; CUDA-core route launches {cc_counts}")
+    require(clear_flips == 0, f"{clear_flips} f32 tokens differ between the attention routes on "
+            "frames whose top-1/top-2 gap is at least 1e-3")
+    del feats
+
+    # bf16 against f32 tokens of endless_decode, PARITY.md round 4's 1% bar;
+    # the f32 reference runs its attention on the 3xTF32 tensor-core kernel.
     # Random weights leave near-tie frames (f32 top-1/top-2 log-prob gap below
     # 1e-2), where rounding the logits to bf16 decides the token; so the bar is
     # held on the other frames, and the whole rate is printed beside the same
     # bf16 model's rate through the plain attention (no kernel). A fault of the
     # kernels would flip confident frames, or rise above that baseline.
-    gap = np.concatenate(gaps)[:endless.size]
     near = gap < 1e-2
     flips = bf16_tokens != endless
     flips_plain = bf16_plain_tokens != endless
     flip_rate, plain_rate = float(np.mean(flips)), float(np.mean(flips_plain))
     clear_rate = float(np.mean(flips[~near]))
-    log(f"bf16 vs f32 endless_decode CTC tokens, {flips.size} frames: through the kernels "
+    log(f"bf16 vs f32 endless_decode CTC tokens (f32 attention on the 3xTF32 tensor-core "
+        f"kernel), {flips.size} frames: through the kernels "
         f"{int(flips.sum())} flipped, rate {flip_rate:.5f}; through the plain attention "
         f"{int(flips_plain.sum())}, rate {plain_rate:.5f}. f32 top-1/top-2 log-prob gap below "
         f"1e-2 on {float(np.mean(near)):.5f} of frames, which hold {int((flips & near).sum())} "
@@ -1034,7 +1100,12 @@ def main() -> int:
         {"name": "chunk_attention_tc", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
-         "launches": launches["chunk_attention_tc"], **results["attention bf16"],
+         "launches": launches["chunk_attention_tc"], **results["attention bf16 tensor cores"],
+         "library_ms": None},
+        {"name": "chunk_attention_tc_f32", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": f32_launches["chunk_attention_tc"], **results["attention f32 tensor cores"],
          "library_ms": None},
         {"name": "chunk_attention", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention.cu",
@@ -1065,9 +1136,10 @@ def main() -> int:
          "launches": f32_train_launches["bwd"],
          **train_results["train attention f32 p=0.0"]["bwd"], "library_ms": None},
     ]
-    log(f"kernels at the main paths' shapes (attention: N={capacity}, the tensor-core kernel "
-        f"in bf16 with launches from the bf16 decode, the CUDA-core kernel in f32 with launches "
-        f"from the f32 decode; train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in "
+    log(f"kernels at the main paths' shapes (attention: N={capacity}, the tensor-core kernels "
+        f"in bf16 and f32 with launches from the bf16 and the f32 decode, the CUDA-core kernel "
+        f"timed in f32 with launches from the f32 decode (0: not the route of the main path's "
+        f"shapes); train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in "
         f"bf16 with launches from the bf16 steps, the CUDA-core kernels in f32 with launches "
         f"from the f32 step); card {card}")
     log(json.dumps({"kernels": kernels}))

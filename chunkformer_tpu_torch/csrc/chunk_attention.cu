@@ -4,7 +4,11 @@
 // (chunkformer_tpu/ops/pallas/chunk_attention.py:335), and with it the
 // per-chunk and G-batched variants of the same function (:32, :158): this
 // kernel takes any number of chunk rows N and any strides, so one kernel
-// serves the row-major and the head-major contracts.
+// serves the row-major and the head-major contracts. It is the CUDA-core
+// route: since the tensor-core kernels (chunk_attention_tc.cu for bf16,
+// chunk_attention_tc_f32.cu for f32) took the main path's shapes (head_dim
+// 64 or 128, c a multiple of 64, 16-byte rows), it computes every other
+// shape, and it is their yardstick in chip_smoke.py.
 //
 // Function, for chunk row n, head h, query row r < c, window position j < W
 // (W = L + c + R), the window being KV stream rows [n*c, n*c + W):
@@ -31,8 +35,7 @@
 // rel-shift needs. Scores, an online (flash-style) softmax and the context
 // sum run in f32 on CUDA cores from shared memory; inputs are f32 or bf16.
 // Rows of shared tiles are padded to dk + 1 floats so that lanes reading
-// neighbouring rows hit different banks. Tensor cores (wgmma) and TMA are
-// work for a later change.
+// neighbouring rows hit different banks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -5,9 +5,10 @@
 // (chunkformer_tpu/ops/pallas/chunk_attention.py:335), with its row-major
 // wrapper (:306) and the per-chunk and G-batched variants (:32, :158), for
 // bf16 inputs with head_dim 64 or 128 and a chunk size that is a multiple of
-// 64. Everything else (f32, other shapes) stays on the CUDA-core kernel of
-// chunk_attention.cu; ops/chunk_attention.py routes by dtype, shape and
-// stride alone. The function is that of chunk_attention.cu:
+// 64. f32 at the same shapes takes the 3xTF32 kernel of
+// chunk_attention_tc_f32.cu (this file's C entry dispatches by dtype), and
+// other shapes the CUDA-core kernel of chunk_attention.cu;
+// ops/chunk_attention.py routes by dtype, shape and stride alone. The function is that of chunk_attention.cu:
 //   s[r, j] = ((q[r] + u) . k[j] + (q[r] + v) . p[c - 1 - r + j]) / sqrt(dk)
 //   valid(j)  iff  -offset[n] <= chunk_idx[n]*c - L + j < max_len[n]
 //   out[r]    = softmax_j(s[r, j] | valid) . v[j]      (all-masked row -> 0)
@@ -219,60 +220,10 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     stage_block(b, stg + ((t + 1) & 1) * kSlot, vp, ra, cb);
     __syncthreads();
 
-    // scores in the log2 domain, masked past hi; s[4i + 2x + e] is row
-    // ra + 8x, column 8i + cb + e. Positional column 63 - r + j < 64 is in
-    // block t's slot, the rest in block t + 1's.
-    const int slot_lo = (t & 1) * kSlot, slot_hi = ((t + 1) & 1) * kSlot;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float2 ukj = *reinterpret_cast<const float2*>(uk + 8 * i + cb);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jj = 8 * i + cb + e;
-        const bool ok = j0 + jj < hi;
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int rr = ra + 8 * x;
-          const int idx = 63 - rr + jj;
-          const float bd = stg[(idx < 64 ? slot_lo : slot_hi) + rr * kStage + (idx & 63)];
-          const float v = (s[4 * i + 2 * x + e] + (e ? ukj.y : ukj.x) + bd) * scale_log2;
-          s[4 * i + 2 * x + e] = ok ? v : -INFINITY;
-          mx[x] = fmaxf(mx[x], s[4 * i + 2 * x + e]);
-        }
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 1));
-      mx[x] = fmaxf(mx[x], __shfl_xor_sync(0xffffffffu, mx[x], 2));
-      const float m_new = fmaxf(m_run[x], mx[x]);  // finite: the tile has a valid key
-      alpha[x] = exp2f(m_run[x] - m_new);
-      m_run[x] = m_new;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pr = exp2f(s[4 * i + 2 * x + e] - m_run[x]);
-          s[4 * i + 2 * x + e] = pr;
-          ls[x] += pr;
-        }
-      }
-    }
-#pragma unroll
-    for (int x = 0; x < 2; ++x) l_run[x] = l_run[x] * alpha[x] + ls[x];
-#pragma unroll
-    for (int i = 0; i < DK / 8; ++i) {
-      o[4 * i] *= alpha[0];
-      o[4 * i + 1] *= alpha[0];
-      o[4 * i + 2] *= alpha[1];
-      o[4 * i + 3] *= alpha[1];
-    }
+    // scores, the online softmax over the tile and o's rescale; s now holds
+    // the tile's unnormalised probabilities
+    softmax_tile<DK>(s, o, m_run, l_run, stg + (t & 1) * kSlot, stg + ((t + 1) & 1) * kSlot,
+                     uk, ra, cb, j0, hi, scale_log2);
 
     // P (bf16, registers) times V: k-step kk takes keys [16kk, 16kk + 16)
     uint32_t a[4][4];
@@ -325,15 +276,31 @@ int launch(const void* q, const void* kv, const void* pos, const void* u, const 
 
 }  // namespace
 
-// bf16 only; dk 64 or 128; c a multiple of 64; every row 16-byte aligned
-// (checked by the Python wrapper). Returns a cudaError_t (0 = launched).
-extern "C" int cf_chunk_attention_tc(const void* q, const void* kv, const void* pos,
+// The f32 kernel's entry (chunk_attention_tc_f32.cu).
+extern "C" int cf_chunk_attention_tc_f32(const void* q, const void* kv, const void* pos,
+                                         const void* u, const void* v, const int* chunk_idx,
+                                         const int* offsets, const int* max_lens, void* out,
+                                         int N, int H, int c, int dk, int L, int R,
+                                         int64_t sqn, int64_t sqr, int64_t sqh,
+                                         int64_t skt, int64_t skh, int64_t spp, int64_t sph,
+                                         int64_t son, int64_t sor, int64_t soh, void* stream);
+
+// dtype: 0 = float32 (the 3xTF32 kernel of chunk_attention_tc_f32.cu), 1 =
+// bfloat16 (this file's kernel); dk 64 or 128; c a multiple of 64; every row
+// 16-byte aligned (checked by the Python wrapper). Returns a cudaError_t
+// (0 = launched).
+extern "C" int cf_chunk_attention_tc(int dtype, const void* q, const void* kv, const void* pos,
                                      const void* u, const void* v, const int* chunk_idx,
                                      const int* offsets, const int* max_lens, void* out,
                                      int N, int H, int c, int dk, int L, int R,
                                      int64_t sqn, int64_t sqr, int64_t sqh,
                                      int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                      int64_t son, int64_t sor, int64_t soh, void* stream) {
+  if (dtype == 0)
+    return cf_chunk_attention_tc_f32(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H,
+                                     c, dk, L, R, sqn, sqr, sqh, skt, skh, spp, sph, son, sor,
+                                     soh, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
   if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

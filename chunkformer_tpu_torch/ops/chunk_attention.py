@@ -16,22 +16,26 @@ contiguous last axis are taken, so the head-major tensors of the TPU
 contract (q [N, H, c, dk], kv [H, T, 2dk], p [H, P, dk]) are passed as
 ``transpose`` views without a copy. The result is [N, c, H, dk].
 
-Two hand-written kernels compute it on the card, and ``route`` picks one
-from dtype, shapes and strides alone:
+Three hand-written kernels compute it on the card, and ``route`` picks a
+route from dtype, shapes and strides alone:
 
-- ``csrc/chunk_attention_tc.cu`` (tensor-core route): bf16 with head_dim 64
-  or 128, a chunk of a multiple of 64 rows and 16-byte-aligned rows, as the
-  main path gives it (ChunkFormer-large: dk = 64, c = 64). wgmma products
-  with the split bias form, an online softmax in registers, cp.async
-  double-buffered tiles.
-- ``csrc/chunk_attention.cu`` (CUDA-core route): everything else, f32 among
-  it (f32 on tensor cores would be TF32, which cannot hold the f32 1e-5
-  bar). Products in f32 on CUDA cores from shared memory.
+- the tensor-core route, for head_dim 64 or 128, a chunk of a multiple of
+  64 rows and 16-byte-aligned rows, as the main path gives it
+  (ChunkFormer-large: dk = 64, c = 64): ``csrc/chunk_attention_tc.cu`` in
+  bf16 and ``csrc/chunk_attention_tc_f32.cu`` in f32 (one C entry picks by
+  dtype). wgmma products with the split bias form, an online softmax in
+  registers, cp.async tiles. The f32 kernel splits each operand into two
+  TF32 parts (hi + lo) and sums three TF32 products (hi.lo + lo.hi +
+  hi.hi): about 21 mantissa bits, which holds the f32 1e-5 bar that one
+  TF32 product (10 bits) cannot.
+- ``csrc/chunk_attention.cu`` (CUDA-core route): every other shape, f32 or
+  bf16. Products in f32 on CUDA cores from shared memory.
 
-Both are bound by bytes on an H100: at the ChunkFormer-large segment
-(N = 209, H = 8) a bf16 call moves about 55 MB, 16.6 us at 3.35 TB/s. Each
+At the ChunkFormer-large segment (N = 209, H = 8) a bf16 call moves about
+55 MB, 16.6 us at 3.35 TB/s, and is bound by bytes; an f32 call's split
+products (39 GFLOP of TF32) bind it by operations at about 79 us. Each
 route counts its launches: ``chunk_attention.launches`` (CUDA-core) and
-``chunk_attention.tc_launches`` (tensor-core).
+``chunk_attention.tc_launches`` (tensor-core, both dtypes).
 """
 
 from __future__ import annotations
@@ -99,14 +103,15 @@ def _check(q, kv, p, u, v, meta, chunk, left, right):
 
 def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor) -> str:
     """Which kernel a CUDA call launches, from dtype, shapes and strides
-    alone: "tensor_core" for bf16 with head_dim 64 or 128, a chunk of a
-    multiple of 64 rows and every row of q, kv and p 16-byte aligned (the
-    kernel copies 16 bytes a thread); "cuda_core" otherwise."""
+    alone: "tensor_core" for f32 or bf16 with head_dim 64 or 128, a chunk of
+    a multiple of 64 rows and every row of q, kv and p 16-byte aligned (the
+    kernels copy 16 bytes a thread); "cuda_core" otherwise."""
     n, c, heads, d_k = q.shape
-    if q.dtype != torch.bfloat16 or d_k not in (64, 128) or c % 64 != 0:
+    if q.dtype not in _DTYPES or d_k not in (64, 128) or c % 64 != 0:
         return "cuda_core"
+    per16 = 16 // q.element_size()
     for t in (q, kv, p):
-        if t.data_ptr() % 16 != 0 or any(s % 8 != 0 for s in t.stride()[:-1]):
+        if t.data_ptr() % 16 != 0 or any(s % per16 != 0 for s in t.stride()[:-1]):
             return "cuda_core"
     return "tensor_core"
 
@@ -147,13 +152,14 @@ def chunk_attention_cuda_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *, c
 
 def chunk_attention_tensor_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *, chunk: int,
                                 left: int, right: int) -> torch.Tensor:
-    """Launch the tensor-core kernel (``csrc/chunk_attention_tc.cu``) on CUDA
-    tensors that ``route`` sends to it; raises on any other."""
+    """Launch the tensor-core kernel of q's dtype (``csrc/chunk_attention_tc.cu``
+    for bf16, ``csrc/chunk_attention_tc_f32.cu`` for f32) on CUDA tensors
+    that ``route`` sends to it; raises on any other."""
     if route(q, kv, p) != "tensor_core":
-        raise ValueError("the tensor-core kernel takes bf16, head_dim 64 or 128, a chunk of "
-                         "a multiple of 64 and 16-byte-aligned rows")
-    out = _launch("cf_chunk_attention_tc", (), q, kv, p, u, v, chunk_idx, offsets, max_lens,
-                  chunk=chunk, left=left, right=right)
+        raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128, a "
+                         "chunk of a multiple of 64 and 16-byte-aligned rows")
+    out = _launch("cf_chunk_attention_tc", (_DTYPES[q.dtype],), q, kv, p, u, v, chunk_idx,
+                  offsets, max_lens, chunk=chunk, left=left, right=right)
     chunk_attention.tc_launches += 1
     return out
 
@@ -175,4 +181,4 @@ def chunk_attention(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
 
 
 chunk_attention.launches = 0     # CUDA-core kernel launches since the last reset
-chunk_attention.tc_launches = 0  # tensor-core kernel launches since the last reset
+chunk_attention.tc_launches = 0  # tensor-core launches (both dtypes) since the last reset

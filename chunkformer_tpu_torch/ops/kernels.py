@@ -102,7 +102,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     lib.cf_chunk_attention.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
     lib.cf_chunk_attention.restype = _I
-    lib.cf_chunk_attention_tc.argtypes = [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
+    lib.cf_chunk_attention_tc.argtypes = [_I] + [_P] * 9 + [_I] * 6 + [_L] * 10 + [_P]
     lib.cf_chunk_attention_tc.restype = _I
     lib.cf_fbank.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.cf_fbank.restype = _I

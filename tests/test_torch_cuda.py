@@ -67,7 +67,8 @@ def test_chunk_attention_kernel_matches_plain(cuda_device, dtype, n, c, L, R, d_
 
 
 def test_chunk_attention_kernel_takes_head_major_views(cuda_device):
-    """The TPU kernel's head-major layout, passed as transposed views."""
+    """The TPU kernel's head-major layout, passed as transposed views (f32 at
+    this shape takes the tensor-core route)."""
     args = _attention_args(8, 64, 128, 128, 8, 64, torch.float32, cuda_device, seed=1)
     q_hm = args[0].transpose(1, 2).contiguous()    # [N, H, c, dk]
     kv_hm = args[1].transpose(0, 1).contiguous()   # [H, L + N*c + R, 2dk]
@@ -82,10 +83,13 @@ def test_chunk_attention_kernel_takes_head_major_views(cuda_device):
 def _segment_meta(n, c, segment, device):
     """chunk_idx, offsets and max_lens of one utterance's macro-segment:
     "first" (offset 0, so the first rows' left context is invalid, the last
-    chunk ragged) or "last" (a decode offset, and max_len halfway, so whole
-    chunk rows lie past it and give 0 where they see no valid key)."""
+    chunk ragged), "middle" (a decode offset, the last rows' lookahead past
+    max_len) or "last" (a decode offset, and max_len halfway, so whole chunk
+    rows lie past it and give 0 where they see no valid key)."""
     if segment == "first":
         off, ml = 0, n * c - 5
+    elif segment == "middle":
+        off, ml = 300, n * c - 37
     else:
         off, ml = 300, max(1, n * c // 2 - 7)
     return [torch.tensor(a, dtype=torch.int32, device=device)
@@ -134,6 +138,44 @@ def test_tensor_core_kernel_takes_head_major_views(cuda_device, d_k):
                                atol=1e-2, rtol=2.0 ** -7)
 
 
+@pytest.mark.parametrize("segment", ["first", "middle", "last"])
+@pytest.mark.parametrize("L,R", [(128, 128), (64, 0), (0, 64)])
+@pytest.mark.parametrize("c,d_k", [(64, 64), (64, 128), (128, 64), (128, 128)])
+def test_f32_tensor_core_kernel_matches_plain(cuda_device, c, d_k, L, R, segment):
+    """The f32 tensor-core route (3xTF32 split products) against the plain
+    f32 version: atol 1e-5, rtol 0, the f32 bar of the CUDA-core kernel and
+    of the JAX kernels (tests/test_pallas_attention.py:100-101)."""
+    n = 13
+    args = _attention_args(n, c, L, R, 8, d_k, torch.float32, cuda_device, seed=n + d_k + c)
+    args[5:] = _segment_meta(n, c, segment, cuda_device)
+    assert route(*args[:3]) == "tensor_core"
+    kw = dict(chunk=c, left=L, right=R)
+    launches = (chunk_attention.launches, chunk_attention.tc_launches)
+    got = chunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (chunk_attention.launches, chunk_attention.tc_launches) == (launches[0],
+                                                                       launches[1] + 1)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, chunk_attention_plain(*args, **kw), atol=1e-5, rtol=0.0)
+    if segment == "last":
+        assert not bool(got[-1].any())  # past max_len with no valid key: zero rows
+
+
+@pytest.mark.parametrize("d_k", [64, 128])
+def test_f32_tensor_core_kernel_takes_head_major_views(cuda_device, d_k):
+    """The head-major layout as transposed views, f32 on the tensor cores:
+    the row-major result exactly, and the plain version within 1e-5."""
+    args = _attention_args(8, 64, 128, 128, 8, d_k, torch.float32, cuda_device, seed=4)
+    q = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    kv = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+    p = args[2].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not q.is_contiguous() and route(q, kv, p) == "tensor_core"
+    kw = dict(chunk=64, left=128, right=128)
+    got = chunk_attention(q, kv, p, *args[3:], **kw)
+    torch.testing.assert_close(got, chunk_attention(*args, **kw), atol=0.0, rtol=0.0)
+    torch.testing.assert_close(got, chunk_attention_plain(*args, **kw), atol=1e-5, rtol=0.0)
+
+
 def test_cuda_core_kernel_takes_bf16_main_path_shapes(cuda_device):
     """The CUDA-core kernel stays right on the bf16 shapes that now route to
     the tensor cores (it is their yardstick in chip_smoke.py)."""
@@ -142,6 +184,14 @@ def test_cuda_core_kernel_takes_bf16_main_path_shapes(cuda_device):
     got = chunk_attention_cuda_core(*args, **kw)
     torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
                                atol=1e-2, rtol=2.0 ** -7)
+
+
+def test_cuda_core_kernel_takes_f32_main_path_shapes(cuda_device):
+    """The same for f32, whose main path shapes now take the 3xTF32 kernel."""
+    args = _attention_args(16, 64, 128, 128, 8, 64, torch.float32, cuda_device, seed=3)
+    kw = dict(chunk=64, left=128, right=128)
+    got = chunk_attention_cuda_core(*args, **kw)
+    torch.testing.assert_close(got, chunk_attention_plain(*args, **kw), atol=1e-5, rtol=0.0)
 
 
 def test_fbank_kernel_matches_plain(cuda_device):

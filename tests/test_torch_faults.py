@@ -122,15 +122,19 @@ def test_causal_dynamic_conv_matches_per_chunk_conv(k, c):
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0.0)
 
 
-@pytest.mark.parametrize("dtype,c,want", [
-    (torch.bfloat16, 64, "tensor_core"),
-    (torch.float32, 64, "cuda_core"),
-    (torch.bfloat16, 8, "cuda_core"),
+@pytest.mark.parametrize("dtype,c,d_k,want", [
+    (torch.bfloat16, 64, 64, "tensor_core"),
+    (torch.float32, 64, 64, "tensor_core"),
+    (torch.bfloat16, 8, 64, "cuda_core"),
+    (torch.float32, 8, 64, "cuda_core"),
+    (torch.float32, 64, 128, "tensor_core"),
+    (torch.float32, 64, 32, "cuda_core"),
 ])
-def test_chunk_attention_route_choice(dtype, c, want):
-    """bf16 at c = 64, dk = 64 takes the tensor cores; f32, or a chunk that is
-    not a multiple of 64, the CUDA-core kernel. Nothing is launched."""
-    n, heads, d_k, left, right = 3, 8, 64, 2 * c, 2 * c
+def test_chunk_attention_route_choice(dtype, c, d_k, want):
+    """f32 or bf16 at head_dim 64 or 128 and a chunk of a multiple of 64 takes
+    the tensor cores (3xTF32 for f32); another chunk or head_dim the
+    CUDA-core kernel. Nothing is launched."""
+    n, heads, left, right = 3, 8, 2 * c, 2 * c
     q = torch.zeros(n, c, heads, d_k, dtype=dtype)
     kv = torch.zeros(left + n * c + right, heads, 2 * d_k, dtype=dtype)
     p = torch.zeros(2 * c - 1 + left + right, heads, d_k, dtype=dtype)
@@ -140,3 +144,24 @@ def test_chunk_attention_route_choice(dtype, c, want):
     assert route(q.transpose(1, 2).contiguous().transpose(1, 2),
                  kv.transpose(0, 1).contiguous().transpose(0, 1), p) == want
     assert (chunk_attention.launches, chunk_attention.tc_launches) == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_attention_route_needs_16_byte_rows(dtype):
+    """A row stride that is not a multiple of 16 bytes, or a storage offset
+    that misaligns the rows, sends the main path's shape to the CUDA-core
+    kernel, in either dtype (4 f32 or 8 bf16 elements make 16 bytes)."""
+    n, c, heads, d_k, left, right = 3, 64, 8, 64, 128, 128
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    kv = torch.zeros(left + n * c + right, heads, 2 * d_k, dtype=dtype)
+    p = torch.zeros(2 * c - 1 + left + right, heads, d_k, dtype=dtype)
+    # q rows one element wider than dk: a stride off the 16-byte grid
+    wide = torch.zeros(n, c, heads, d_k + 1, dtype=dtype)[..., :d_k]
+    assert wide.stride(2) % per16 != 0 and route(wide, kv, p) == "cuda_core"
+    # rows 16 bytes wider: aligned again
+    padded = torch.zeros(n, c, heads, d_k + per16, dtype=dtype)[..., :d_k]
+    assert route(padded, kv, p) == "tensor_core"
+    # a storage offset of one element: misaligned data pointer
+    flat = torch.zeros(n * c * heads * d_k + 1, dtype=dtype)
+    shifted = flat[1:].view(n, c, heads, d_k)
+    assert shifted.data_ptr() % 16 != 0 and route(shifted, kv, p) == "cuda_core"
