@@ -32,17 +32,17 @@ non-zero exit code and no result line:
 5. the training attention kernels (forward and backward) against their plain
    versions at the flagship train shape (B = 32, 199 subsampled frames,
    c = 64, L = R = 128, H = 8, dk = 64), at dropout 0 and 0.1 (identical
-   keep masks): f32 on the CUDA-core kernels, bf16 on the tensor-core
-   kernels (backward run twice, bitwise equal), timed in turns with the
-   CUDA-core kernels and the plain version on the same inputs;
+   keep masks), in f32 and bf16, each on the tensor-core kernels (f32:
+   3xTF32; backward run twice, bitwise equal) and on the CUDA-core kernels,
+   timed in turns with the plain version on the same inputs;
 6. the train path: three bf16 steps of the hybrid CTC/AED configuration of
    bench.py:149-177 (ChunkFormer-large encoder with gradient checkpointing,
    bitransformer decoder 3 + 3, vocab 6992, adamw) on 32 seeded synthetic
    utterances of 16 s, with the training attention's launch counts read
-   around them (tensor-core kernels only); one f32 step through the kernels
-   (CUDA-core only) against the same step through the plain attention; one
-   bf16 step with dropout 0 through the tensor-core route and through the
-   CUDA-core route, each against the plain attention;
+   around them (tensor-core kernels only); one f32 step through the
+   tensor-core route (its kernels only) and one through the CUDA-core route,
+   each against the same step through the plain attention; one bf16 step
+   with dropout 0 through each route, each against the plain attention;
 7. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
@@ -593,7 +593,7 @@ def train_attention_inputs(dtype, gen, dev):
             rnd(h, dk), rnd(h, dk), lens]
 
 
-def train_attention_bounds(args, backward: bool):
+def train_attention_bounds(args, backward: bool, peak=None):
     """Least time on an H100 SXM. Bytes: each input read once over the rows
     the function needs, each output written once whole. Of utterance b the
     function needs the key stream's rows of frames [0, lens[b]) only (the L
@@ -604,7 +604,9 @@ def train_attention_bounds(args, backward: bool):
     Operations over this data's valid (query, key) pairs, 2 per multiply-add:
     the forward's three dk-long products (content, position, context), the
     backward's eight (recomputed content and position scores, dA, dq from
-    both branches, dK, dV, dP)."""
+    both branches, dK, dV, dP), at the peak of the operands' dtype, or with
+    ``peak="tf32"`` as the three TF32 passes of the split products at the
+    TF32 tensor-core peak (f32-accurate work on the tensor cores)."""
     q, kv, p, u, v, lens = args
     b, tp, h, dk = q.shape
     item = q.element_size()
@@ -623,7 +625,8 @@ def train_attention_bounds(args, backward: bool):
             keys = max(0, min(LEFT + C + RIGHT, ln - ci * C + LEFT) - max(0, LEFT - ci * C))
             pairs += rows * keys
     ops = pairs * h * dk * 2 * (8 if backward else 3)
-    t_bytes, t_ops = (reads + writes) / H100_BYTES_PER_S, ops / H100_PEAK[q.dtype]
+    t_bytes = (reads + writes) / H100_BYTES_PER_S
+    t_ops = 3 * ops / H100_PEAK["tf32"] if peak == "tf32" else ops / H100_PEAK[q.dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -642,27 +645,28 @@ def train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, path):
 
 def phase_train_kernels(device):
     """B4 (forward) and B5 (backward) against their plain versions at the
-    flagship train shape, f32 and bf16 at p = 0 and 0.1: f32 on the CUDA-core
-    route (its only route), bf16 on the tensor-core route (the main path's)
-    and on the CUDA-core route (the other bf16 shapes' route, and the
-    tensor cores' yardstick), both held to the bf16 bars. Forward:
+    flagship train shape, f32 and bf16 at p = 0 and 0.1, each on the
+    tensor-core route (the main path's: bf16 kernels, or the 3xTF32 f32
+    kernels) and on the CUDA-core route (the other shapes' route, and the
+    tensor cores' yardstick), both held to the bars of the dtype. Forward:
     ctx f32 atol 1e-5 (bf16 atol 1e-2 + one bf16 ulp relative), m and den
     rtol 1e-5 (bf16 1e-2). Backward: the gradients of q, kv, p, u and v
     through the kernels against autograd through the plain forward, f32 atol
     1e-4 rtol 1e-5, bf16 relative L2 1e-2. At p = 0.1 a single keep-mask
     difference would move a context row by a whole weight, far above these
-    bounds, so agreement means identical masks. bf16 times are taken in
-    turns on the same inputs (tensor cores, CUDA cores, plain)."""
+    bounds, so agreement means identical masks. The tensor-core backward runs
+    twice, bitwise equal. Times are taken in turns on the same inputs
+    (tensor cores, CUDA cores, plain)."""
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     results = {}
     seed = 20260
+    path = "tensor_core"
     for dtype, drop in ((torch.float32, 0.0), (torch.bfloat16, 0.0), (torch.float32, 0.1),
                         (torch.bfloat16, 0.1)):
         label = f"train attention {'bf16' if dtype == torch.bfloat16 else 'f32'} p={drop}"
         bf16 = dtype == torch.bfloat16
-        path = "tensor_core" if bf16 else "cuda_core"
         args = train_attention_inputs(dtype, gen, device)
         require(cat.route(*args[:3], C) == path,
                 f"{label}: routed to {cat.route(*args[:3], C)}")
@@ -671,10 +675,10 @@ def phase_train_kernels(device):
         dctx = torch.randn(want[0].shape, generator=gen, device=device).to(dtype)
         leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
         want_g = torch.autograd.grad(cat.forward_plain(*leaves, args[5], *st)[0], leaves, dctx)
-        # bf16: the CUDA-core kernels (the route of the other bf16 shapes) are
-        # held to the same bars on the same inputs
+        # the CUDA-core kernels (the route of the other shapes) are held to the
+        # same bars on the same inputs
         errs, fwd_out = {}, {}
-        for route in ((path, "cuda_core") if bf16 else (path,)):
+        for route in (path, "cuda_core"):
             tag = f"{label} ({route.replace('_', '-')} route)"
             ctx, m, den = fwd_out[route] = cat.forward_kernel(*args, *st, path=route)
             torch.cuda.synchronize()
@@ -715,14 +719,18 @@ def phase_train_kernels(device):
             errs[route] = (fwd_err, bwd_err, rels)
             del out, got_g
         ctx, m, den = fwd_out[path]
-        fwd_err, bwd_err, _ = errs[path]
         kept = (float(cat.window_keep_mask(seed, args[5], args[0].shape[1] // C, 8, C,
                                            LEFT + C + RIGHT, drop).float().mean())
                 if drop else 1.0)
-        fb, fb_by = train_attention_bounds(args, backward=False)
-        bb, bb_by = train_attention_bounds(args, backward=True)
+        # the tensor cores' bound: bf16 at its peak; f32 as three TF32 passes
+        # (the same work at the f32 CUDA-core peak is the CUDA-core kernels' bound)
+        bounds = {r: (train_attention_bounds(args, False, "tf32" if r == path and not bf16
+                                             else None),
+                      train_attention_bounds(args, True, "tf32" if r == path and not bf16
+                                             else None))
+                  for r in (path, "cuda_core")}
         scratch_mb = train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, path) / 1e6
-        require(scratch_mb <= 25.0 or not bf16,
+        require(scratch_mb <= 25.0,
                 f"{label}: the tensor-core backward allocates {scratch_mb:.2f} MB of f32 "
                 "partials and delta")
         msg = (f"{label}: B={TRAIN_BATCH} T'={args[0].shape[1]} H=8 c={C} dk=64 L=R={LEFT}, "
@@ -731,65 +739,56 @@ def phase_train_kernels(device):
                    f"backward max|kernel-plain| {e[1]:.3g}" + (", relative L2 " + ", ".join(
                        f"d{k} {x:.3g}" for k, x in e[2].items()) if e[2] else "")
                    for r, e in errs.items())
-               + f"; f32 scratch of the {path.replace('_', '-')} backward (partials and "
-               f"delta, allocator count) {scratch_mb:.2f} MB")
-        if bf16:
-            # determinism: the same backward twice, bitwise
-            b1 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
-            b2 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
-            require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
-                    f"{label}: two tensor-core backward runs differ")
-            del b1, b2
-            # in turns on the same inputs: tensor cores, CUDA cores, plain
-            times = {k: [] for k in ("tc_f", "cc_f", "pl_f", "tc_b", "cc_b", "pl_b")}
-            for _ in range(2):
-                times["tc_f"].append(cuda_ms(lambda: cat.forward_kernel(
-                    *args, *st, path="tensor_core"), iters=20))
-                times["cc_f"].append(cuda_ms(lambda: cat.forward_kernel(
-                    *args, *st, path="cuda_core"), iters=10))
-                times["pl_f"].append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3,
-                                             warmup=1))
-                times["tc_b"].append(cuda_ms(lambda: cat.backward_kernel(
-                    *args, ctx, m, den, dctx, *st, path="tensor_core"), iters=20))
-                times["cc_b"].append(cuda_ms(lambda: cat.backward_kernel(
-                    *args, ctx, m, den, dctx, *st, path="cuda_core"), iters=10))
-                times["pl_b"].append(cuda_ms(lambda: cat.backward_plain(
-                    *args, m, den, dctx, *st), iters=3, warmup=1))
-            mean = {k: sum(v) / len(v) for k, v in times.items()}
-            results[label] = {
-                "fwd": dict(max_abs_err=fwd_err, ms=mean["tc_f"], plain_ms=mean["pl_f"],
-                            bound_ms=fb, bound_by=fb_by),
-                "bwd": dict(max_abs_err=bwd_err, ms=mean["tc_b"], plain_ms=mean["pl_b"],
-                            bound_ms=bb, bound_by=bb_by),
-                "cuda_core_ms": (mean["cc_f"], mean["cc_b"])}
-            for part, t, c, pl, bound, by in (("forward", "tc_f", "cc_f", "pl_f", fb, fb_by),
-                                              ("backward", "tc_b", "cc_b", "pl_b", bb, bb_by)):
-                msg += (f"; {part} in turns (2 rounds): tensor cores {mean[t]:.4f} ms "
-                        f"({', '.join(f'{x:.4f}' for x in times[t])}), CUDA cores "
-                        f"{mean[c]:.4f} ms ({', '.join(f'{x:.4f}' for x in times[c])}), plain "
-                        f"{mean[pl]:.4f} ms, bound {bound:.4f} ms by {by}: tensor cores "
-                        f"{mean[c] / mean[t]:.1f}x faster than CUDA cores, "
-                        f"{mean[t] / bound:.1f}x the bound")
-            cc_mb = train_bwd_scratch_bytes(args, ctx, m, den, dctx, st, "cuda_core") / 1e6
-            msg += (f"; f32 scratch of the CUDA-core backward {cc_mb:.2f} MB; backward "
-                    "bitwise deterministic over two runs")
-        else:
-            fwd_ms = cuda_ms(lambda: cat.forward_kernel(*args, *st, path=path), iters=10)
-            bwd_ms = cuda_ms(lambda: cat.backward_kernel(*args, ctx, m, den, dctx, *st,
-                                                         path=path), iters=10)
-            plain_fwd_ms = cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3, warmup=1)
-            plain_bwd_ms = cuda_ms(lambda: cat.backward_plain(*args, m, den, dctx, *st),
-                                   iters=3, warmup=1)
-            results[label] = {
-                "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=fb,
-                            bound_by=fb_by),
-                "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bb,
-                            bound_by=bb_by)}
-            msg += (f"; forward kernel {fwd_ms:.4f} ms, plain {plain_fwd_ms:.4f} ms, bound "
-                    f"{fb:.4f} ms by {fb_by}; backward kernel {bwd_ms:.4f} ms, plain "
-                    f"{plain_bwd_ms:.4f} ms, bound {bb:.4f} ms by {bb_by}")
+               + f"; f32 scratch of the tensor-core backward (partials and delta, allocator "
+               f"count) {scratch_mb:.2f} MB")
+        # determinism: the same backward twice, bitwise
+        b1 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+        b2 = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+        require(all(torch.equal(x, y) for x, y in zip(b1, b2)),
+                f"{label}: two tensor-core backward runs differ")
+        del b1, b2
+        # in turns on the same inputs: tensor cores, CUDA cores, plain
+        cc_ctx, cc_m, cc_den = fwd_out["cuda_core"]
+        times = {k: [] for k in ("tc_f", "cc_f", "pl_f", "tc_b", "cc_b", "pl_b")}
+        for _ in range(2):
+            times["tc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                *args, *st, path="tensor_core"), iters=20))
+            times["cc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                *args, *st, path="cuda_core"), iters=10))
+            times["pl_f"].append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3,
+                                         warmup=1))
+            times["tc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                *args, ctx, m, den, dctx, *st, path="tensor_core"), iters=20))
+            times["cc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                *args, cc_ctx, cc_m, cc_den, dctx, *st, path="cuda_core"), iters=10))
+            times["pl_b"].append(cuda_ms(lambda: cat.backward_plain(
+                *args, m, den, dctx, *st), iters=3, warmup=1))
+        mean = {k: sum(v) / len(v) for k, v in times.items()}
+        results[label] = {
+            r: {part: dict(max_abs_err=errs[r][i], ms=mean[f"{x}_{part[0]}"],
+                           plain_ms=mean[f"pl_{part[0]}"], bound_ms=bounds[r][i][0],
+                           bound_by=bounds[r][i][1])
+                for i, part in enumerate(("fwd", "bwd"))}
+            for r, x in ((path, "tc"), ("cuda_core", "cc"))}
+        for i, (part, t, c) in enumerate((("forward", "tc_f", "cc_f"),
+                                          ("backward", "tc_b", "cc_b"))):
+            (bound, by), (cc_bound, cc_by) = bounds[path][i], bounds["cuda_core"][i]
+            pl = "pl_" + t[-1]
+            msg += (f"; {part} in turns (2 rounds): tensor cores {mean[t]:.4f} ms "
+                    f"({', '.join(f'{x:.4f}' for x in times[t])}), CUDA cores "
+                    f"{mean[c]:.4f} ms ({', '.join(f'{x:.4f}' for x in times[c])}), plain "
+                    f"{mean[pl]:.4f} ms, bound {bound:.4f} ms by {by}"
+                    + ("" if bf16 else f" at the TF32 peak for the three split passes (at the "
+                       f"f32 CUDA-core peak: {cc_bound:.4f} ms by {cc_by})")
+                    + f": tensor cores {mean[c] / mean[t]:.1f}x faster than CUDA cores, "
+                    f"{mean[t] / bound:.1f}x the bound")
+            require(mean[t] < mean[c], f"{label}: the tensor-core {part} ({mean[t]:.4f} ms) is "
+                    f"not faster than the CUDA-core one ({mean[c]:.4f} ms)")
+        cc_mb = train_bwd_scratch_bytes(args, cc_ctx, cc_m, cc_den, dctx, st, "cuda_core") / 1e6
+        msg += (f"; f32 scratch of the CUDA-core backward {cc_mb:.2f} MB; tensor-core backward "
+                "bitwise deterministic over two runs")
         log(msg)
-        del args, ctx, m, den, want, dctx, want_g, leaves, fwd_out
+        del args, ctx, m, den, want, dctx, want_g, leaves, fwd_out, cc_ctx, cc_m, cc_den
         torch.cuda.empty_cache()
     return results
 
@@ -902,12 +901,120 @@ def bf16_step_routes(train_dict, device, batch, n_layers, recompute):
     return stats
 
 
+def f32_step_routes(train_dict, device, batch, n_layers, recompute):
+    """One f32 step (TF32 off, dropout 0) through each route of the training
+    attention, the tensor cores (the main path's, 3xTF32) and the CUDA cores,
+    against the same step through the plain attention. Each route's
+    sensitivity baseline is the plain route with its encoder output scaled by
+    (1 + eps * z), z ~ N(0, 1) from a seed and eps that route's measured
+    relative difference at the encoder output. Bars, each route: loss 1e-5;
+    whole gradient and each of encoder, CTC head, decoder 1e-4 relative L2;
+    each parameter within 1e-4, or, where the step's f32 sensitivity is
+    larger, within 3x its own baseline difference + 1e-5, never above 1e-2.
+    Launches: the tensor-core route's kernels only on each route. Returns
+    the tensor-core route's launch counts."""
+    from chunkformer_tpu_torch.nn import attention as attention_module
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    f32_dict = no_dropout(train_dict)
+    runs, enc_out = {}, {}
+
+    def run(route, eps=0.0):
+        _, model, step = new_trainer(f32_dict, device, None)
+        if route.startswith("plain"):
+            for layer in model.encoder.encoders:
+                layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
+        forward_train = model.encoder.forward_train
+
+        def watched(*a, **k):
+            out, mask = forward_train(*a, **k)
+            if eps:
+                z = torch.randn(out.shape, generator=torch.Generator(device=out.device)
+                                .manual_seed(SEED + 4), device=out.device)
+                out = out * (1 + eps * z)
+            enc_out[route] = out.detach().clone()
+            return out, mask
+
+        model.encoder.forward_train = watched
+        routed = attention_module.chunk_train_attention
+        if route == "cuda_core":
+            attention_module.chunk_train_attention = cat.chunk_train_attention_cuda_core
+        reset_train_counts()
+        try:
+            m = step(*batch)
+        finally:
+            attention_module.chunk_train_attention = routed
+        unclip = max(1.0, float(m["grad_norm"]) / GRAD_CLIP)   # .grad is clipped in place
+        grads = {n: p.grad.detach() * unclip for n, p in model.named_parameters()}
+        runs[route] = (float(m["loss"]), grads, read_train_counts())
+        del model, step
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    run("plain")
+    loss_p, g_p, counts_p = runs["plain"]
+    none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+    require(counts_p == none or device.type != "cuda", f"plain f32 step launched {counts_p}")
+    groups = {g: [n for n in g_p if n.startswith(g + ".")] for g in ("encoder", "ctc", "decoder")}
+    # per parameter, relative to its own gradient norm floored at 1e-6 of the
+    # whole gradient's: the key biases' gradients are zero in exact arithmetic
+    # (a shift shared by all keys of a softmax row), float noise on any route
+    floor = 1e-6 * float(torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+
+    def per_param(a):
+        return sorted(((float((a[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), floor), n)
+                       for n in g_p), reverse=True)
+
+    for route in ("tensor_core", "cuda_core"):
+        name = route.replace("_", "-")
+        run(route)
+        eps = float((enc_out[route] - enc_out["plain"]).norm() / enc_out["plain"].norm())
+        base_route = f"plain, perturbed as the {name} route"
+        run(base_route, eps)
+        loss_k, g_k, counts_k = runs[route]
+        g_n = runs[base_route][1]
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        group_rel = {g: rel_l2(g_k, g_p, names) for g, names in groups.items()}
+        whole_rel = rel_l2(g_k, g_p, list(g_p))
+        worst_k, worst_n = per_param(g_k), per_param(g_n)
+        base = {n: r for r, n in worst_n}
+        over = [(r, n) for r, n in worst_k if r > 1e-4]
+        unexplained = [(r, n, base[n]) for r, n in over if r > 3 * base[n] + 1e-5 or r > 1e-2]
+        log(f"train f32 step, {name} route vs plain attention: loss {loss_k:.8g} vs "
+            f"{loss_p:.8g}, relative difference {loss_rel:.3g} (limit 1e-5); encoder output "
+            f"relative L2 difference {eps:.3g}; gradient relative L2 difference: whole "
+            f"{whole_rel:.3g}, " + ", ".join(f"{g} {v:.3g}" for g, v in group_rel.items())
+            + f" (limit 1e-4 each); per parameter worst {worst_k[0][0]:.3g} at {worst_k[0][1]}, "
+            f"{len(over)} of {len(worst_k)} above 1e-4, each within 3x its baseline + 1e-5 and "
+            f"1e-2; launches {counts_k} vs {counts_p}")
+        log(f"  sensitivity baseline, plain route with its encoder output perturbed by relative "
+            f"{eps:.3g}: gradient relative L2 difference whole {rel_l2(g_n, g_p, list(g_p)):.3g}, "
+            f"per parameter worst {worst_n[0][0]:.3g} at {worst_n[0][1]}, "
+            f"{sum(1 for r, _ in worst_n if r > 1e-4)} of {len(worst_n)} above 1e-4")
+        for r, n in worst_k[:5]:
+            log(f"  {name} route vs plain {r:.3g} (baseline {base[n]:.3g}) {n}")
+        require(np.isfinite(loss_k) and loss_rel <= 1e-5,
+                f"f32 loss on the {name} route differs by {loss_rel}")
+        require(whole_rel <= 1e-4 and max(group_rel.values()) <= 1e-4,
+                f"f32 gradients on the {name} route differ: whole {whole_rel}, groups {group_rel}")
+        require(not unexplained, f"f32 gradients on the {name} route differ beyond 1e-4 and "
+                "their baselines (difference, name, baseline): " + ", ".join(
+                    f"{r:.3g} {n} {b:.3g}" for r, n, b in unexplained[:5]))
+        if device.type == "cuda":
+            key = "_tc" if route == "tensor_core" else ""
+            want = {**none, f"fwd{key}": n_layers * recompute, f"bwd{key}": n_layers}
+            require(counts_k == want, f"f32 step on the {name} route launched {counts_k}, "
+                    f"expected {want}")
+    return runs["tensor_core"][2]
+
+
 def phase_train(card, device, train_dict=TRAIN):
     """The train path: TRAIN_STEPS bf16 steps of the flagship configuration
     (dropout on, from a seeded generator), with the training attention's
-    launch counts read around them (tensor-core kernels only); then one f32
-    step (TF32 off, dropout 0) through the kernels (CUDA-core only) against
-    the same step through the plain attention; then ``bf16_step_routes``.
+    launch counts read around them (tensor-core kernels only); then
+    ``f32_step_routes`` (the f32 step through each route against the plain
+    attention; the main path's route, the tensor cores, launched alone);
+    then ``bf16_step_routes``.
     Returns the bf16 and the f32 launch counts, the bf16 step time and the
     peak memory."""
     from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention
@@ -966,87 +1073,7 @@ def phase_train(card, device, train_dict=TRAIN):
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    # f32, TF32 off, dropout 0: kernels against the plain attention, and a
-    # sensitivity baseline: the plain route with its encoder output scaled by
-    # (1 + eps * z), z ~ N(0, 1) from a seed and eps the kernels' measured
-    # relative difference at the encoder output
-    f32_dict = no_dropout(train_dict)
-    runs, enc_out = {}, {}
-    for route in ("kernel", "plain", "plain, perturbed encoder output"):
-        cfg, model, step = new_trainer(f32_dict, device, None)
-        if route != "kernel":
-            for layer in model.encoder.encoders:
-                layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
-        forward_train = model.encoder.forward_train
-
-        def watched(*a, route=route, forward_train=forward_train, **k):
-            out, mask = forward_train(*a, **k)
-            if route.endswith("perturbed encoder output"):
-                z = torch.randn(out.shape, generator=torch.Generator(device=out.device)
-                                .manual_seed(SEED + 4), device=out.device)
-                out = out * (1 + eps * z)
-            enc_out[route] = out.detach().clone()
-            return out, mask
-
-        if route != "kernel":
-            eps = float((enc_out["kernel"] - enc_out["plain"]).norm() / enc_out["plain"].norm()) \
-                if "plain" in enc_out else 0.0
-        model.encoder.forward_train = watched
-        reset_train_counts()
-        m = step(*batch)
-        unclip = max(1.0, float(m["grad_norm"]) / GRAD_CLIP)   # .grad is clipped in place
-        grads = {n: p.grad.detach() * unclip for n, p in model.named_parameters()}
-        runs[route] = (float(m["loss"]), grads, read_train_counts())
-        del model, step
-    (loss_k, g_k, counts_k), (loss_p, g_p, counts_p) = runs["kernel"], runs["plain"]
-    g_n = runs["plain, perturbed encoder output"][1]
-    eps = float((enc_out["kernel"] - enc_out["plain"]).norm() / enc_out["plain"].norm())
-    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-
-    groups = {g: [n for n in g_p if n.startswith(g + ".")] for g in ("encoder", "ctc", "decoder")}
-    group_rel = {g: rel_l2(g_k, g_p, names) for g, names in groups.items()}
-    whole_rel = rel_l2(g_k, g_p, list(g_p))
-    # per parameter, relative to its own gradient norm floored at 1e-6 of the
-    # whole gradient's: the key biases' gradients are zero in exact arithmetic
-    # (a shift shared by all keys of a softmax row), float noise on any route
-    floor = 1e-6 * float(torch.sqrt(sum(g.square().sum() for g in g_p.values())))
-
-    def per_param(a):
-        return sorted(((float((a[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), floor), n)
-                       for n in g_p), reverse=True)
-
-    worst_k, worst_n = per_param(g_k), per_param(g_n)
-    # each parameter within 1e-4, or, where the f32 sensitivity of the step
-    # is larger, within 3x its own perturbed-route difference + 1e-5; never
-    # above 1e-2
-    base = {n: r for r, n in worst_n}
-    over = [(r, n) for r, n in worst_k if r > 1e-4]
-    unexplained = [(r, n, base[n]) for r, n in over if r > 3 * base[n] + 1e-5 or r > 1e-2]
-    log(f"train f32 step, kernels vs plain attention: loss {loss_k:.8g} vs {loss_p:.8g}, relative "
-        f"difference {loss_rel:.3g} (limit 1e-5); encoder output relative L2 difference "
-        f"{eps:.3g}; gradient relative L2 difference: whole {whole_rel:.3g}, "
-        + ", ".join(f"{g} {v:.3g}" for g, v in group_rel.items())
-        + f" (limit 1e-4 each); per parameter worst {worst_k[0][0]:.3g} at {worst_k[0][1]}, "
-        f"{len(over)} of {len(worst_k)} above 1e-4, each within 3x its baseline + 1e-5 and "
-        f"1e-2; launches {counts_k} vs {counts_p}")
-    log(f"  sensitivity baseline, plain route with its encoder output perturbed by relative "
-        f"{eps:.3g}: gradient relative L2 difference whole {rel_l2(g_n, g_p, list(g_p)):.3g}, "
-        f"per parameter worst {worst_n[0][0]:.3g} at {worst_n[0][1]}, "
-        f"{sum(1 for r, _ in worst_n if r > 1e-4)} of {len(worst_n)} above 1e-4")
-    for r, n in worst_k[:5]:
-        log(f"  kernels vs plain {r:.3g} (baseline {base[n]:.3g}) {n}")
-    require(np.isfinite(loss_k) and loss_rel <= 1e-5, f"f32 loss differs by {loss_rel}")
-    require(whole_rel <= 1e-4 and max(group_rel.values()) <= 1e-4,
-            f"f32 gradients differ: whole {whole_rel}, groups {group_rel}")
-    require(not unexplained, "f32 gradients differ beyond 1e-4 and their baselines "
-            "(difference, name, baseline): " + ", ".join(f"{r:.3g} {n} {b:.3g}"
-                                                        for r, n, b in unexplained[:5]))
-    if device.type == "cuda":
-        # f32 training attention goes through the CUDA cores only
-        none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
-        require(counts_p == none and counts_k == {**none, "fwd": n_layers * recompute,
-                                                  "bwd": n_layers},
-                f"f32 launches {counts_k} (kernel), {counts_p} (plain)")
+    counts_k = f32_step_routes(train_dict, device, batch, n_layers, recompute)
     bf16_step_routes(train_dict, device, batch, n_layers, recompute)
     return counts, counts_k, step_s, peak_gib
 
@@ -1119,29 +1146,44 @@ def main() -> int:
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
          "launches": train_launches["fwd_tc"],
-         **train_results["train attention bf16 p=0.0"]["fwd"], "library_ms": None},
+         **train_results["train attention bf16 p=0.0"]["tensor_core"]["fwd"],
+         "library_ms": None},
         {"name": "chunk_train_attention_tc_bwd", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
          "launches": train_launches["bwd_tc"],
-         **train_results["train attention bf16 p=0.0"]["bwd"], "library_ms": None},
+         **train_results["train attention bf16 p=0.0"]["tensor_core"]["bwd"],
+         "library_ms": None},
+        {"name": "chunk_train_attention_tc_f32_fwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": f32_train_launches["fwd_tc"],
+         **train_results["train attention f32 p=0.0"]["tensor_core"]["fwd"],
+         "library_ms": None},
+        {"name": "chunk_train_attention_tc_f32_bwd", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
+         "launches": f32_train_launches["bwd_tc"],
+         **train_results["train attention f32 p=0.0"]["tensor_core"]["bwd"],
+         "library_ms": None},
         {"name": "chunk_train_attention_f32_fwd", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
          "launches": f32_train_launches["fwd"],
-         **train_results["train attention f32 p=0.0"]["fwd"], "library_ms": None},
+         **train_results["train attention f32 p=0.0"]["cuda_core"]["fwd"], "library_ms": None},
         {"name": "chunk_train_attention_f32_bwd", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
          "launches": f32_train_launches["bwd"],
-         **train_results["train attention f32 p=0.0"]["bwd"], "library_ms": None},
+         **train_results["train attention f32 p=0.0"]["cuda_core"]["bwd"], "library_ms": None},
     ]
     log(f"kernels at the main paths' shapes (attention: N={capacity}, the tensor-core kernels "
         f"in bf16 and f32 with launches from the bf16 and the f32 decode, the CUDA-core kernel "
         f"timed in f32 with launches from the f32 decode (0: not the route of the main path's "
-        f"shapes); train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in "
-        f"bf16 with launches from the bf16 steps, the CUDA-core kernels in f32 with launches "
-        f"from the f32 step); card {card}")
+        f"shapes); train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in bf16 "
+        f"and f32 with launches from the bf16 steps and the f32 step, the CUDA-core kernels "
+        f"timed in f32 with launches from the f32 step (0: not the route of the main path's "
+        f"shapes); card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

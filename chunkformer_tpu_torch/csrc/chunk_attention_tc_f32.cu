@@ -14,22 +14,13 @@
 //   out[r]    = softmax_j(s[r, j] | valid) . v[j]      (all-masked row -> 0)
 // to the f32 bar (1e-5 absolute against the plain f32 version).
 //
-// The split. One TF32 product keeps 10 mantissa bits (about 5e-4
-// relative), far from that bar. Each operand is split as a = hi + lo with
-// hi = tf32(a) and lo = tf32(a - hi) (both rounded to nearest, ties away
-// from zero, as cvt.rna.tf32.f32 rounds, in two integer operations; so the
-// tensor cores read them exactly), and a.b is taken as
-// hi.lo' + lo.hi' + hi.hi' (lo.lo' is below 2^-22): about 21 bits,
-// f32-class (tests/test_torch_tf32_split.py emulates the three products on
-// the CPU against the f64 result).
-//
-// Accumulation. The tensor cores' f32 sums truncate. Summed into one
+// The split and the accumulation are tf32_split.cuh's: each operand as two
+// TF32 parts, three products (hi.lo' + lo.hi' + hi.hi', about 21 bits, where
+// one TF32 product keeps 10), each from fresh accumulators added in f32 on
+// the CUDA cores, since the tensor cores' sums truncate. Summed into one
 // accumulator over the three passes, and into O over every tile, the
 // truncations of some 120 wgmma steps missed the 1e-5 bar on the card (a
-// first version). So the small products go into one fresh accumulator and
-// hi.hi' into another, each product of a tile starts from zero, and the
-// partial results are added in f32 on the CUDA cores, which round to
-// nearest.
+// first version).
 //
 // What bounds it on an H100: at the ChunkFormer-large segment (N = 209,
 // H = 8, c = 64, dk = 64, L = R = 128) one call must move about 110 MB of
@@ -79,7 +70,7 @@
 // products, was slower.
 // Not done: TMA, a persistent grid, a second consumer warpgroup.
 
-#include "hopper_tc.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
@@ -91,9 +82,6 @@ constexpr int kBarProd = 2;    // the producer warpgroup alone
 constexpr int kBarCons = 3;    // the consumer warpgroup alone
 constexpr int kBarFull = 4;    // + slot (< 2): the slot's pair holds the next element
 constexpr int kBarEmpty = 8;   // + slot (< 2): the consumer is done with the slot's pair
-
-template <int DK>
-constexpr int kPart = DK / 4 + 4;  // row stride of the dot shares: 16-byte aligned, padded
 
 template <int DK>
 struct Smem {
@@ -112,152 +100,6 @@ struct Smem {
   static constexpr int kPt = kVp + 2 * 64 * 4;            // f32 dot shares [64][kPart]
   static constexpr int kBytes = kPt + 64 * kPart<DK> * 4 + 1024;  // + 1024-byte alignment
 };
-
-__device__ __forceinline__ void split4(const float4 x, float4& h, float4& l) {
-  h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
-  l = make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y), tf32_rna(x.z - h.z),
-                  tf32_rna(x.w - h.w));
-}
-
-// Split a landed [64][DK] tile into its hi and lo tiles (the same swizzled
-// layout). With DOT, also each 16-byte chunk's share of row r . w (w: shared
-// f32 [DK]) in f32 from the unsplit values, into part[r][ch] (rows kPart
-// floats apart; sum_parts adds them up). The kChunks lanes of a row are
-// consecutive, so each 8-lane phase of a 16-byte access touches one row's 8
-// distinct chunks.
-template <int DK, bool DOT>
-__device__ __forceinline__ void split_rows(const uint8_t* src, uint8_t* hi, uint8_t* lo,
-                                           const float* w, float* part, int tid) {
-  constexpr int kChunks = DK / 4;
-  const int ch = tid % kChunks;
-  float4 w4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (DOT) w4 = reinterpret_cast<const float4*>(w)[ch];
-#pragma unroll
-  for (int k = 0; k < 64 * kChunks / kThreads; ++k) {
-    const int r = (tid + k * kThreads) / kChunks;
-    const uint32_t off = swz(r, ch);
-    const float4 x = *reinterpret_cast<const float4*>(src + off);
-    float4 h, l;
-    split4(x, h, l);
-    *reinterpret_cast<float4*>(hi + off) = h;
-    *reinterpret_cast<float4*>(lo + off) = l;
-    if (DOT) {
-      float acc = x.x * w4.x;
-      acc = fmaf(x.y, w4.y, acc);
-      acc = fmaf(x.z, w4.z, acc);
-      acc = fmaf(x.w, w4.w, acc);
-      part[r * kPart<DK> + ch] = acc;
-    }
-  }
-}
-
-// dot[r] = sum over ch of part[r][ch], for the 64 rows (threads 0-63)
-template <int DK>
-__device__ __forceinline__ void sum_parts(const float* part, float* dot, int tid) {
-  if (tid < 64) {
-    const float4* row = reinterpret_cast<const float4*>(part + tid * kPart<DK>);
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < DK / 16; ++i) {
-      const float4 x = row[i];
-      acc += (x.x + x.y) + (x.z + x.w);
-    }
-    dot[tid] = acc;
-  }
-}
-
-__device__ __forceinline__ float pick(const float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Transpose a landed V tile [64 keys][DK] into the hi and lo tiles of V^T,
-// the K-major B operand of O += P V: [DK rows][64 keys] as two [DK][32]
-// sub-tiles DK * 128 bytes apart. Columns 4cg .. 4cg + 3 hold keys
-// 8(cg / 2) + 2m + cg % 2 (m = 0..3), the key order of P's A fragments.
-// An item is 4 keys x 4 dk; an 8-lane phase reads one key row's 8 distinct
-// chunks, and writes rows whose d % 8 differ (the rr rotation), so neither
-// side has bank conflicts.
-template <int DK>
-__device__ __forceinline__ void split_vt(const uint8_t* src, uint8_t* hi, uint8_t* lo, int tid) {
-  constexpr int kDg = DK / 4;  // groups of 4 dk
-  constexpr uint32_t kSub = DK * 128;
-#pragma unroll
-  for (int k = 0; k < kDg * 16 / kThreads; ++k) {
-    const int i = tid + k * kThreads;
-    const int dg = i % kDg, cg = i / kDg;
-    const int key0 = 8 * (cg >> 1) + (cg & 1);
-    float4 x[4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-      x[m] = *reinterpret_cast<const float4*>(src + swz(key0 + 2 * m, dg));
-#pragma unroll
-    for (int mm = 0; mm < 4; ++mm) {
-      const int rr = ((dg >> 1) + mm) & 3;
-      const int d = 4 * dg + rr;
-      const float4 v = make_float4(pick(x[0], rr), pick(x[1], rr), pick(x[2], rr),
-                                   pick(x[3], rr));
-      const uint32_t off = (cg >> 3) * kSub + d * 128 + (((cg & 7) ^ (d & 7)) << 4);
-      float4 h, l;
-      split4(v, h, l);
-      *reinterpret_cast<float4*>(hi + off) = h;
-      *reinterpret_cast<float4*>(lo + off) = l;
-    }
-  }
-}
-
-// d[64 x 64] = Q B^T over the split pairs (Q and B [64][DK], K-major): the
-// small products Qhi.Blo + Qlo.Bhi into one fresh accumulator, Qhi.Bhi into
-// another, summed in f32 at the end ("Accumulation" above)
-template <int DK>
-__device__ __forceinline__ void split_product(float (&d)[32], uint32_t qh, uint32_t ql,
-                                              uint32_t bh, uint32_t bl) {
-  float dc[32];
-  fence_regs(d);
-  fence_regs(dc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DK / 8; ++kk)
-    wgmma_tf32_ss_n64(dc, desc_kmajor(qh, kk), desc_kmajor(bl, kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < DK / 8; ++kk)
-    wgmma_tf32_ss_n64(dc, desc_kmajor(ql, kk), desc_kmajor(bh, kk), 1);
-#pragma unroll
-  for (int kk = 0; kk < DK / 8; ++kk)
-    wgmma_tf32_ss_n64(d, desc_kmajor(qh, kk), desc_kmajor(bh, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(d);
-  fence_regs(dc);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] += dc[i];
-}
-
-// o += sum over passes of A_pass V^T_pass, the 64 keys of one tile, from a
-// fresh accumulator added to o in f32
-template <int DK, int PASSES>
-__device__ __forceinline__ void pv_product(float (&o)[DK / 2], const uint32_t (&a0)[8][4],
-                                           uint32_t b0, const uint32_t (&a1)[8][4],
-                                           uint32_t b1) {
-  float ot[DK / 2];
-  fence_regs(ot);
-  wgmma_fence();
-#pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t db = desc_kmajor_tf32(pass ? b1 : b0, kk, DK * 128);
-      if constexpr (DK == 64)
-        wgmma_tf32_rs_n64(ot, pass ? a1[kk] : a0[kk], db, pass + kk > 0);
-      else
-        wgmma_tf32_rs_n128(ot, pass ? a1[kk] : a0[kk], db, pass + kk > 0);
-    }
-  }
-  wgmma_commit();
-  wgmma_wait_all();
-  fence_regs(ot);
-#pragma unroll
-  for (int i = 0; i < DK / 2; ++i) o[i] += ot[i];
-}
 
 // ---------------------------------------------------------------- kernel
 
@@ -420,21 +262,10 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
     // P's split A fragments: k-step kk takes keys [8kk, 8kk + 8) in the
     // order 0, 2, 4, 6, 1, 3, 5, 7 (A columns t, t + 4 <- keys 2t, 2t + 1)
     uint32_t ph[8][4], pl[8][4];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const float v4[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float hv = tf32_rna(v4[x]);
-        ph[kk][x] = __float_as_uint(hv);
-        pl[kk][x] = __float_as_uint(tf32_rna(v4[x] - hv));
-      }
-    }
+    acc_to_tf32(s, ph, pl);
 
     bh = acquire(e + 2);  // V_t transposed
-    // the small products Phi.Vlo + Plo.Vhi, then Phi.Vhi
-    pv_product<DK, 2>(o, ph, bh + kTile, pl, bh);
-    pv_product<DK, 1>(o, ph, bh, ph, bh);
+    split_product_rs<DK>(o, ph, pl, bh, bh + kTile);
     release(e + 2);
   }
 

@@ -5,8 +5,9 @@
 // rows, the TPU kernels of chunkformer_tpu/ops/pallas/chunk_attention_train.py:
 // the forward _attn_fwd_call (:316; its pallas_call at :359, kernel
 // _fwd_kernel :78) and the backward _attn_core_bwd (:390; its pallas_call at
-// :448, kernel _bwd_kernel :161, overlap-add :469-482). f32 and other shapes
-// stay on the CUDA-core kernels of chunk_attention_train.cu;
+// :448, kernel _bwd_kernel :161, overlap-add :469-482). f32 at these shapes
+// goes to chunk_attention_train_tc_f32.cu (this file's C entries dispatch it
+// there), other shapes to the CUDA-core kernels of chunk_attention_train.cu;
 // ops/chunk_attention_train.py routes by dtype, shape and stride alone. The
 // function is that of chunk_attention_train.cu: for utterance b, chunk ci,
 // head h, query row r and window position j < W = L + c + R (stream row
@@ -89,41 +90,12 @@
 // products, five block-wide barriers and the read-modify-write of the slab
 // rows; the 25 MB budget of partials caps its blocks at H x B / 2.
 
+#include "chunk_attention_train_tc.cuh"
 #include "hopper_tc.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // one warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// The dropout hash of chunk_attention_train.cu and window_keep_mask.
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x2c1b3c6du;
-  x ^= x >> 12;
-  x *= 0x297a2d39u;
-  x ^= x >> 15;
-  return x;
-}
-// hash state of a query frame fq of (seed, b, h); keep key stream row fk
-// iff mix32(row_state ^ fk) >= thresh
-__device__ __forceinline__ uint32_t drop_row(uint32_t seed, int b, int h, int H, int fq) {
-  return mix32(mix32(mix32(static_cast<uint32_t>(b * H + h)) ^ seed) ^ static_cast<uint32_t>(fq));
-}
-
-struct Geom {
-  int n, H, c, L, R;
-  __host__ __device__ int W() const { return L + c + R; }
-  __host__ __device__ int P() const { return 2 * c - 1 + L + R; }
-  __host__ __device__ int T() const { return n * c; }
-};
-
-struct Drop {
-  uint32_t seed, thresh;
-  float scale;  // 1 / (1 - p)
-  int on;
-};
 
 // ---------------------------------------------------------------- forward
 
@@ -748,16 +720,6 @@ struct DkvSmem {
   static constexpr int kBytes = kRow + 2 * 3 * 64 * 4 + 1024;
 };
 
-// The next (query chunk, 64-row block) after (ci, r0) for a key tile of
-// utterance len: r0 advances within the chunk while rows remain.
-__device__ __forceinline__ void next_block(int& ci, int& r0, int c, int len) {
-  r0 += 64;
-  if (r0 >= c || ci * c + r0 >= len) {
-    ++ci;
-    r0 = 0;
-  }
-}
-
 template <int DK>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
@@ -799,9 +761,8 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   bf16* ob = dkv + b * sdb + static_cast<int64_t>(L + f0) * sdt + h * sdh;
 
   // query chunks whose window [ci*c - L, ci*c + c + R) meets [f0, f0 + 64)
-  const int num = f0 - c - g.R;
-  const int ci_lo = max(0, (num >= 0 ? num / c : -((-num + c - 1) / c)) + 1);
-  const int ci_hi = min(g.n - 1, (f0 + 63 + L) / c);
+  int ci_lo, ci_hi;
+  key_block_chunks(g, f0, ci_lo, ci_hi);
   int n_steps = 0;
   if (f0 < len) {
     for (int ci = ci_lo, r0 = 0; ci <= ci_hi && ci * c < len; next_block(ci, r0, c, len))
@@ -1019,71 +980,6 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   }
 }
 
-// ------------------------------------------ backward (c): sum the partials
-
-// dp = (sum over groups of the dP slabs + (sum of the band column sums) v)
-// / sqrt(dk), one thread an element of dp [P, H, DK]
-__global__ void __launch_bounds__(256)
-train_bwd_dp_tc_kernel(const float* __restrict__ dp_part, const float* __restrict__ cs_part,
-                       const bf16* __restrict__ bias_v, bf16* __restrict__ dp, int groups,
-                       int H, int P, int DK) {
-  const float scale = rsqrtf(static_cast<float>(DK));
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= static_cast<int64_t>(P) * H * DK) return;
-  const int d = i % DK, h = (i / DK) % H, pr = i / (static_cast<int64_t>(DK) * H);
-  float a = 0.f, cs = 0.f;
-  for (int gi = 0; gi < groups; ++gi) {
-    const int64_t cell = static_cast<int64_t>(gi) * H + h;
-    a += dp_part[(cell * P + pr) * DK + d];
-    cs += cs_part[cell * P + pr];
-  }
-  dp[i] = __float2bfloat16((a + cs * __bfloat162float(bias_v[h * DK + d])) * scale);
-}
-
-// du = sum over the dK/dV blocks of their partials / sqrt(dk) (blockIdx.y 1);
-// dv = sum_m (sum over groups of the band column sums)[m] p[m] / sqrt(dk)
-// (blockIdx.y 0); one block of 1024 threads a head, 1024 / DK threads a
-// column, each summing a strided share, combined in a fixed order
-__global__ void __launch_bounds__(1024)
-train_bwd_duv_tc_kernel(const float* __restrict__ cs_part, const float* __restrict__ du_part,
-                        const bf16* __restrict__ pos, bf16* __restrict__ du,
-                        bf16* __restrict__ dv, int groups, int blocks, int H, int P, int DK,
-                        int64_t spp, int64_t sph) {
-  extern __shared__ float sm[];  // [P] column sums, then [1024] partials
-  const int h = blockIdx.x, tid = threadIdx.x;
-  const int parts = 1024 / DK, d = tid % DK, part = tid / DK;
-  const float scale = rsqrtf(static_cast<float>(DK));
-  float* red = sm + P;
-  float a = 0.f;
-  if (blockIdx.y == 0) {
-    for (int m = tid; m < P; m += 1024) {
-      float cs = 0.f;
-      for (int gi = 0; gi < groups; ++gi) cs += cs_part[(static_cast<int64_t>(gi) * H + h) * P + m];
-      sm[m] = cs;
-    }
-    __syncthreads();
-    const bf16* ph = pos + h * sph + d;
-    for (int m = part; m < P; m += parts) a = fmaf(sm[m], __bfloat162float(ph[m * spp]), a);
-  } else {
-    for (int blk = part; blk < blocks; blk += parts)
-      a += du_part[(static_cast<int64_t>(blk) * H + h) * DK + d];
-  }
-  red[tid] = a;
-  __syncthreads();
-  if (part == 0) {
-    for (int k = 1; k < parts; ++k) a += red[k * DK + d];
-    (blockIdx.y == 0 ? dv : du)[h * DK + d] = __float2bfloat16(a * scale);
-  }
-}
-
-// ---------------------------------------------------------------- launch
-
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
 template <int DK>
 int launch_fwd(const void* q, const void* kv, const void* pos, const void* u, const void* v,
                const int* lens, void* ctx, float* m, float* den, int B, Geom g, Drop drop,
@@ -1131,31 +1027,49 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
-  const int64_t n_dp = static_cast<int64_t>(g.P()) * g.H * DK;
-  train_bwd_dp_tc_kernel<<<static_cast<unsigned>((n_dp + 255) / 256), 256, 0, stream>>>(
-      dp_part, cs_part, vb, static_cast<bf16*>(dp), groups, g.H, g.P(), DK);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  train_bwd_duv_tc_kernel<<<dim3(g.H, 2), 1024, (g.P() + 1024) * sizeof(float), stream>>>(
-      cs_part, du_part, pb, static_cast<bf16*>(du), static_cast<bf16*>(dv), groups, kv_blocks,
-      g.H, g.P(), DK, s[6], s[7]);
-  return static_cast<int>(cudaGetLastError());
+  return launch_partial_sums<bf16>(dp_part, cs_part, du_part, pb, vb, static_cast<bf16*>(dp),
+                                   static_cast<bf16*>(du), static_cast<bf16*>(dv), groups,
+                                   kv_blocks, g, DK, s[6], s[7], stream);
 }
 
 }  // namespace
 
-// bf16 only; dk 64 or 128; c a multiple of 64; every row 16-byte aligned;
-// ctx, dctx, dq contiguous [B, n*c, H, dk]; m, den, delta contiguous
-// [B, H, n*c] (checked by the Python wrapper). Strides: q (b, t, h), kv
-// (b, t, h), p (p, h), dkv (b, t, h). Return a cudaError_t (0 = launched).
-extern "C" int cf_chunk_train_attn_tc_fwd(const void* q, const void* kv, const void* pos,
-                                          const void* u, const void* v, const int* lens,
-                                          void* ctx, float* m, float* den, int B, int n, int H,
-                                          int c, int dk, int L, int R, uint32_t seed,
-                                          uint32_t thresh, float drop_scale, int use_drop,
-                                          int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
-                                          int64_t skt, int64_t skh, int64_t spp, int64_t sph,
-                                          void* stream) {
+extern "C" int cf_chunk_train_attn_tc_f32_fwd(const void* q, const void* kv, const void* pos,
+                                              const void* u, const void* v, const int* lens,
+                                              void* ctx, float* m, float* den, int B, int n,
+                                              int H, int c, int dk, int L, int R, uint32_t seed,
+                                              uint32_t thresh, float drop_scale, int use_drop,
+                                              int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
+                                              int64_t skt, int64_t skh, int64_t spp, int64_t sph,
+                                              void* stream);
+extern "C" int cf_chunk_train_attn_tc_f32_bwd(
+    const void* q, const void* kv, const void* pos, const void* u, const void* v,
+    const int* lens, const void* ctx, const float* m, const float* den, const void* dctx,
+    float* delta, void* dq, void* dkv, float* dp_part, float* cs_part, float* du_part, void* dp,
+    void* du, void* dv, int B, int n, int H, int c, int dk, int L, int R, int group,
+    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int64_t sqb, int64_t sqt,
+    int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph, int64_t sdb,
+    int64_t sdt, int64_t sdh, void* stream);
+
+// dtype: 0 = float32 (the 3xTF32 kernels of chunk_attention_train_tc_f32.cu),
+// 1 = bfloat16 (this file's kernels); dk 64 or 128; c a multiple of 64; every
+// row 16-byte aligned; ctx, dctx, dq contiguous [B, n*c, H, dk]; m, den,
+// delta contiguous [B, H, n*c] (checked by the Python wrapper). Strides: q
+// (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h). Return a cudaError_t (0 =
+// launched).
+extern "C" int cf_chunk_train_attn_tc_fwd(int dtype, const void* q, const void* kv,
+                                          const void* pos, const void* u, const void* v,
+                                          const int* lens, void* ctx, float* m, float* den,
+                                          int B, int n, int H, int c, int dk, int L, int R,
+                                          uint32_t seed, uint32_t thresh, float drop_scale,
+                                          int use_drop, int64_t sqb, int64_t sqt, int64_t sqh,
+                                          int64_t skb, int64_t skt, int64_t skh, int64_t spp,
+                                          int64_t sph, void* stream) {
+  if (dtype == 0)
+    return cf_chunk_train_attn_tc_f32_fwd(q, kv, pos, u, v, lens, ctx, m, den, B, n, H, c, dk,
+                                          L, R, seed, thresh, drop_scale, use_drop, sqb, sqt,
+                                          sqh, skb, skt, skh, spp, sph, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
@@ -1170,7 +1084,7 @@ extern "C" int cf_chunk_train_attn_tc_fwd(const void* q, const void* kv, const v
 // group: utterances per dq block. Partials, f32: dp_part [ceil(B / group),
 // H, P, dk] and cs_part [ceil(B / group), H, P], both zero; du_part
 // [B * n*c / 64, H, dk].
-extern "C" int cf_chunk_train_attn_tc_bwd(const void* q, const void* kv, const void* pos,
+extern "C" int cf_chunk_train_attn_tc_bwd(int dtype, const void* q, const void* kv, const void* pos,
                                           const void* u, const void* v, const int* lens,
                                           const void* ctx, const float* m, const float* den,
                                           const void* dctx, float* delta, void* dq, void* dkv,
@@ -1181,6 +1095,13 @@ extern "C" int cf_chunk_train_attn_tc_bwd(const void* q, const void* kv, const v
                                           int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                                           int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                           int64_t sdb, int64_t sdt, int64_t sdh, void* stream) {
+  if (dtype == 0)
+    return cf_chunk_train_attn_tc_f32_bwd(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq,
+                                          dkv, dp_part, cs_part, du_part, dp, du, dv, B, n, H,
+                                          c, dk, L, R, group, seed, thresh, drop_scale,
+                                          use_drop, sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb,
+                                          sdt, sdh, stream);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};

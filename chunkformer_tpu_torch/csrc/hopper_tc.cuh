@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
 // kernels (chunk_attention_tc.cu and chunk_attention_tc_f32.cu for decode,
-// chunk_attention_train_tc.cu for training): shared-memory addresses and the
-// 128-byte swizzle, cp.async, the wgmma fences, shared-memory descriptors
-// and products (bf16, and TF32 for the split f32 products), bf16 packing,
-// and the swizzled tile copies, dot products and rel-shift staging that
-// those kernels build on.
+// chunk_attention_train_tc.cu and chunk_attention_train_tc_f32.cu for
+// training; the f32 kernels' split is in tf32_split.cuh): shared-memory
+// addresses and the 128-byte swizzle, cp.async, the wgmma fences,
+// shared-memory descriptors and products (bf16, and TF32 for the split f32
+// products), bf16 packing, and the swizzled tile copies, dot products and
+// rel-shift staging that those kernels build on.
 //
 // Tile layout: a [64][DK] bf16 tile is stored as DK/64 sub-tiles of
 // [64 rows][64 bf16] (8 KB, 128-byte rows) in the 128-byte swizzle that
@@ -180,13 +181,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DK / 2], const uint32_t (&a)
 // (columns [8kk, 8kk + 8)) of it. The A fragment in registers of m64k8
 // holds, per thread, rows ra and ra + 8 at columns t and t + 4 (t = lane
 // % 4): a0 (ra, t), a1 (ra + 8, t), a2 (ra, t + 4), a3 (ra + 8, t + 4).
-
-// f32 rounded to the nearest TF32 (ties away from zero), low 13 bits zero:
-// what cvt.rna.tf32.f32 gives a finite input, in two integer operations
-// (the sign and magnitude bits of a float round like an unsigned integer)
-__device__ __forceinline__ float tf32_rna(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
 
 // named barriers: bar_sync waits until n threads (a multiple of 32) have
 // reached barrier id by bar_sync or bar_arrive; bar_arrive does not wait

@@ -35,18 +35,22 @@ selective-checkpoint policy can name the forward's outputs (the encoder's
 CUDA tensor it launches the kernels of the route that ``route`` picks from
 dtype, shapes and strides alone, or raises:
 
-- ``csrc/chunk_attention_train_tc.cu`` (tensor-core route): bf16 with
-  head_dim 64 or 128, a chunk of a multiple of 64 rows and 16-byte-aligned
-  rows, as the main path gives it (the flagship step: dk = 64, c = 64).
-  wgmma products, the decode kernel's staged rel-shift, a deterministic
-  FlashAttention-2 backward. Counters ``chunk_train_attention.fwd_tc_launches``
-  and ``.bwd_tc_launches``.
-- ``csrc/chunk_attention_train.cu`` (CUDA-core route): everything else, f32
-  among it. Counters ``chunk_train_attention.fwd_launches`` and
+- the tensor-core route: f32 or bf16 with head_dim 64 or 128, a chunk of a
+  multiple of 64 rows and 16-byte-aligned rows, as the main path gives it
+  (the flagship step: dk = 64, c = 64). ``csrc/chunk_attention_train_tc.cu``
+  in bf16 and ``csrc/chunk_attention_train_tc_f32.cu`` in f32 (one C entry
+  a direction picks by dtype): wgmma products, the decode kernel's staged
+  rel-shift, a deterministic FlashAttention-2 backward; in f32 every
+  product is split into three TF32 passes (hi.lo + lo.hi + hi.hi), about
+  21 mantissa bits, which holds the f32 bars that one TF32 pass (10 bits)
+  cannot. Counters ``chunk_train_attention.fwd_tc_launches`` and
+  ``.bwd_tc_launches`` (both dtypes).
+- ``csrc/chunk_attention_train.cu`` (CUDA-core route): every other shape,
+  f32 or bf16. Counters ``chunk_train_attention.fwd_launches`` and
   ``.bwd_launches``.
 
 ``chunk_train_attention_cuda_core`` and ``chunk_train_attention_tensor_core``
-launch one route directly, so both can run on the same bf16 inputs.
+launch one route directly, so both can run on the same inputs.
 """
 
 from __future__ import annotations
@@ -219,15 +223,17 @@ def _check(q, kv, p, u, v, lens, chunk, left, right):
 
 def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, chunk: int) -> str:
     """Which kernels a CUDA call launches, from dtype, shapes and strides
-    alone: "tensor_core" (``csrc/chunk_attention_train_tc.cu``) for bf16 with
-    head_dim 64 or 128, a chunk of a multiple of 64 rows and every row of q,
-    kv and p 16-byte aligned (the kernels copy 16 bytes a thread);
-    "cuda_core" (``csrc/chunk_attention_train.cu``) otherwise."""
+    alone: "tensor_core" (``csrc/chunk_attention_train_tc.cu``, f32 through
+    ``csrc/chunk_attention_train_tc_f32.cu``) for f32 or bf16 with head_dim
+    64 or 128, a chunk of a multiple of 64 rows and every row of q, kv and p
+    16-byte aligned (the kernels copy 16 bytes a thread); "cuda_core"
+    (``csrc/chunk_attention_train.cu``) otherwise."""
     d_k = q.shape[-1]
-    if q.dtype != torch.bfloat16 or d_k not in (64, 128) or chunk <= 0 or chunk % 64 != 0:
+    if q.dtype not in _DTYPES or d_k not in (64, 128) or chunk <= 0 or chunk % 64 != 0:
         return "cuda_core"
+    per16 = 16 // q.element_size()
     for t in (q, kv, p):
-        if t.data_ptr() % 16 != 0 or any(s % 8 != 0 for s in t.stride()[:-1]):
+        if t.data_ptr() % 16 != 0 or any(s % per16 != 0 for s in t.stride()[:-1]):
             return "cuda_core"
     return "tensor_core"
 
@@ -242,8 +248,8 @@ def _check_path(path, q, kv, p, chunk, d_k):
     if path not in _PATHS:
         raise ValueError(f"path must be one of {_PATHS}, got {path!r}")
     if path == "tensor_core" and route(q, kv, p, chunk) != "tensor_core":
-        raise ValueError("the tensor-core kernels take bf16, head_dim 64 or 128, a chunk of a "
-                         "multiple of 64 and 16-byte-aligned rows")
+        raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128, a chunk "
+                         "of a multiple of 64 and 16-byte-aligned rows")
     if path == "cuda_core" and (chunk * d_k > 4096 or d_k > 128):
         raise ValueError(f"chunk * head_dim = {chunk * d_k} exceeds the CUDA-core kernels' "
                          f"4096 (or head_dim {d_k} > 128)")
@@ -269,11 +275,11 @@ def dp_group(b: int, heads: int, p_len: int, d_k: int) -> int:
 def partial_shapes(path, b, n, heads, chunk, p_len, d_k):
     """(shape, zeroed) of each f32 partial buffer a backward launch of
     ``path`` allocates, in the order its entry takes them; ``zeroed`` marks
-    the buffers the kernels add into. Tensor cores: per (group of
-    ``dp_group`` utterances, h) a dP slab [P, dk] and the band's column sums
-    [P] (the v terms of dP and dv), both added into, and per (64 key frames,
-    h) a du partial [dk]. CUDA cores: per (b, ci, h) a dP slab [P, dk] and
-    du | dv [2, dk]."""
+    the buffers the kernels add into. Tensor cores (f32 and bf16 alike): per
+    (group of ``dp_group`` utterances, h) a dP slab [P, dk] and the band's
+    column sums [P] (the v terms of dP and dv), both added into, and per (64
+    key frames, h) a du partial [dk]. CUDA cores: per (b, ci, h) a dP slab
+    [P, dk] and du | dv [2, dk]."""
     if path == "tensor_core":
         cells = -(-b // dp_group(b, heads, p_len, d_k))
         return [((cells, heads, p_len, d_k), True), ((cells, heads, p_len), True),
@@ -292,11 +298,10 @@ def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *,
     den = torch.empty_like(m)
     lib = kernels.library()
     tc = path == "tensor_core"
-    lead = () if tc else (_DTYPES[q.dtype],)
     entry = lib.cf_chunk_train_attn_tc_fwd if tc else lib.cf_chunk_train_attn_fwd
     with torch.cuda.device(q.device):
         err = entry(
-            *lead, q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
             v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
             b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF, drop_threshold(drop_rate),
             float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
@@ -336,12 +341,11 @@ def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, 
     du = torch.empty((heads, d_k), dtype=u.dtype, device=dev)
     dv = torch.empty((heads, d_k), dtype=v.dtype, device=dev)
     lib = kernels.library()
-    lead = () if tc else (_DTYPES[q.dtype],)
     entry = lib.cf_chunk_train_attn_tc_bwd if tc else lib.cf_chunk_train_attn_bwd
     shape = (b, n, heads, chunk, d_k, left, right) + ((group,) if tc else ())
     with torch.cuda.device(dev):
         err = entry(
-            *lead, q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
+            _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
             v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
             dctx.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
             *(t.data_ptr() for t in parts), dp.data_ptr(), du.data_ptr(),
@@ -435,7 +439,8 @@ def chunk_train_attention_tensor_core(q, kv, p, u, v, lens, seed: int = 0, *, ch
                                       left: int, right: int,
                                       drop_rate: float = 0.0) -> torch.Tensor:
     """``chunk_train_attention`` through the tensor-core kernels
-    (``csrc/chunk_attention_train_tc.cu``) on CUDA tensors that ``route``
+    (``csrc/chunk_attention_train_tc.cu``, f32 through
+    ``csrc/chunk_attention_train_tc_f32.cu``) on CUDA tensors that ``route``
     sends to them; raises on others."""
     return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
                    "tensor_core")[0]
@@ -443,5 +448,5 @@ def chunk_train_attention_tensor_core(q, kv, p, u, v, lens, seed: int = 0, *, ch
 
 chunk_train_attention.fwd_launches = 0     # CUDA-core forward launches since the last reset
 chunk_train_attention.bwd_launches = 0     # CUDA-core backward launches (dq, dkv, reduction)
-chunk_train_attention.fwd_tc_launches = 0  # tensor-core forward launches
-chunk_train_attention.bwd_tc_launches = 0  # tensor-core backward launches (dq, dkv, reduction)
+chunk_train_attention.fwd_tc_launches = 0  # tensor-core forward launches, f32 and bf16
+chunk_train_attention.bwd_tc_launches = 0  # tensor-core backward launches (dq, dkv, sums)

@@ -112,10 +112,10 @@ def library() -> ctypes.CDLL:
     lib.cf_chunk_train_attn_bwd.argtypes = ([_I] + [_P] * 18 + [_I] * 7 + [_U, _U, _F, _I]
                                             + [_L] * 11 + [_P])
     lib.cf_chunk_train_attn_bwd.restype = _I
-    lib.cf_chunk_train_attn_tc_fwd.argtypes = ([_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_tc_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
                                                + [_L] * 8 + [_P])
     lib.cf_chunk_train_attn_tc_fwd.restype = _I
-    lib.cf_chunk_train_attn_tc_bwd.argtypes = ([_P] * 19 + [_I] * 8 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_tc_bwd.argtypes = ([_I] + [_P] * 19 + [_I] * 8 + [_U, _U, _F, _I]
                                                + [_L] * 11 + [_P])
     lib.cf_chunk_train_attn_tc_bwd.restype = _I
     return lib

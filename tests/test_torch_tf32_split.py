@@ -124,3 +124,112 @@ def test_tf32_rounding():
     hi = tf32(a)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert float(((a - hi).abs() / a.abs()).max()) <= 2.0 ** -11
+
+
+# ---------------------------------------------------------------- training backward
+#
+# The f32 tensor-core backward of the training attention
+# (``csrc/chunk_attention_train_tc_f32.cu``) runs eight split products per
+# key tile: the recomputed S = Q K^T and BD = Q P^T, dA = dctx V^T, dq = dS K
+# and band P, dK = dS^T Q, dV = A^T dctx and dP = band^T Q (band: dS
+# un-shifted onto the positional rows). The bias terms u.k and v.p, the
+# softmax statistics, delta = rowsum(dctx * ctx), dS = A (dA - delta), the
+# column sums of dS (the u term of dK and du, the v term of dP and dv) and
+# 1/sqrt(dk) stay in f32, as in the kernels. Here each product goes through
+# ``product`` (three TF32 passes, or one), at the flagship train shape
+# (199 subsampled frames, H = 8, c = 64, dk = 64, L = R = 128) for three
+# utterances of the batch of 32 (a cut for CPU time only), against
+# ``backward_plain`` at the f32 bar of the card's kernels: atol 1e-4 + rtol
+# 1e-5 on every gradient.
+
+TB, TN, TLEN = 3, 4, 199
+
+
+def emulated_backward(q, kv, p, u, v, lens, ctx, m, den, dctx, mode: str):
+    """The kernels' backward algorithm with its products formed as ``mode``
+    says: (dq, dkv, dp, du, dv) in f32 (f64 for "f64")."""
+    from chunkformer_tpu_torch.ops.chunk_attention_train import _valid
+
+    f = torch.float64 if mode == "f64" else torch.float32
+    b, tp, heads, d_k = q.shape
+    scale = 1.0 / math.sqrt(d_k)
+    win = kv.unfold(1, W, C)                                       # [B, n, H, 2dk, W]
+    k = win[:, :, :, :d_k].transpose(-1, -2)                       # [B, n, H, W, dk]
+    vals = win[:, :, :, d_k:].transpose(-1, -2)
+    qc = q.reshape(b, TN, C, heads, d_k).permute(0, 1, 3, 2, 4)   # [B, n, H, c, dk]
+    g = dctx.reshape(b, TN, C, heads, d_k).permute(0, 1, 3, 2, 4)
+    ph = p.permute(1, 0, 2)[None, None].expand(b, TN, -1, -1, -1)  # [B, n, H, P, dk]
+    uk = k.to(f) @ u.to(f)[None, None, :, :, None]                 # [B, n, H, W, 1]
+    vp = ph.to(f) @ v.to(f)[None, None, :, :, None]                # [B, n, H, P, 1]
+    s = (product(qc, k, mode).to(f) + uk.transpose(-1, -2)
+         + rel_shift(product(qc, ph, mode).to(f) + vp.transpose(-1, -2), L, R)) * scale
+    valid = _valid(lens, TN, C, L, W)
+    stat = lambda x: x.reshape(b, heads, TN, C).permute(0, 2, 1, 3)[..., None].to(f)  # noqa: E731
+    attn = torch.exp(s.masked_fill(~valid, -1e30) - stat(m)) / stat(den)
+    delta = (dctx.to(f) * ctx.to(f)).sum(-1).reshape(b, TN, C, heads).permute(0, 1, 3, 2)
+    ds = attn * (product(g, vals, mode).to(f) - delta[..., None])  # [B, n, H, c, W]
+    idx = C - 1 - torch.arange(C)[:, None] + torch.arange(W)[None, :]
+    band = ds.new_zeros(b, TN, heads, C, ph.shape[-2])
+    band.scatter_(-1, idx.expand(b, TN, heads, C, W), ds)          # [B, n, H, c, P]
+    dq = (product(ds, k.transpose(-1, -2), mode).to(f)
+          + product(band, ph.transpose(-1, -2), mode).to(f)) * scale
+    cs = ds.sum(-2)                                                # [B, n, H, W]
+    dkeys = (product(ds.transpose(-1, -2), qc.transpose(-1, -2), mode).to(f)
+             + cs[..., None] * u.to(f)[None, None, :, None, :]) * scale
+    dvals = product(attn.transpose(-1, -2), g.transpose(-1, -2), mode).to(f)
+    cs_band = band.sum(-2)                                         # [B, n, H, P]
+    dp = (product(band.transpose(-1, -2), qc.transpose(-1, -2), mode).to(f).sum((0, 1))
+          + cs_band.sum((0, 1))[..., None] * v.to(f)[:, None, :]) * scale   # [H, P, dk]
+    du = (cs[..., None] * k.to(f)).sum((0, 1, 3)) * scale
+    dv = (cs_band[..., None] * ph.to(f)).sum((0, 1, 3)) * scale
+    dwin = torch.cat([dkeys, dvals], -1)                           # [B, n, H, W, 2dk]
+    dkv = torch.zeros(kv.shape, dtype=f)
+    for i in range(TN):
+        dkv[:, i * C:i * C + W] += dwin[:, i].transpose(1, 2)
+    dkv[:, :L] = 0.0
+    dkv[:, L + TN * C:] = 0.0
+    return (dq.permute(0, 1, 3, 2, 4).reshape(q.shape), dkv, dp.transpose(0, 1), du, dv)
+
+
+@pytest.fixture(scope="module")
+def train_case():
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    rng = np.random.default_rng(20261018)
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    kv = rnd(TB, L + TN * C + R, H, 2 * DK)
+    kv[:, :L] = 0
+    kv[:, L + TN * C:] = 0
+    args = [rnd(TB, TN * C, H, DK), kv, rnd(2 * C - 1 + L + R, H, DK), rnd(H, DK), rnd(H, DK),
+            torch.full((TB,), TLEN, dtype=torch.int32)]
+    ctx, m, den = cat.forward_plain(*args, 0, C, L, R, 0.0)
+    dctx = rnd(*ctx.shape)
+    plain = cat.backward_plain(*args, m, den, dctx, 0, C, L, R, 0.0)
+    return args, (ctx, m, den, dctx), plain
+
+
+def _misses(got, want):
+    """max over the gradients of |got - want| - (1e-4 + 1e-5 |want|): <= 0 holds the bar"""
+    return max(float(((a.double() - e.double()).abs() - (1e-4 + 1e-5 * e.double().abs())).max())
+               for a, e in zip(got, want))
+
+
+def test_backward_split_holds_the_f32_bar(train_case):
+    args, (ctx, m, den, dctx), plain = train_case
+    got = emulated_backward(*args, ctx, m, den, dctx, "split")
+    exact = emulated_backward(*args, ctx, m, den, dctx, "f64")
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert _misses(got, plain) <= 0.0
+    assert _misses(got, exact) <= 0.0
+    assert _misses(plain, exact) <= 0.0   # the plain version itself, for scale
+
+
+def test_backward_single_tf32_pass_misses_the_f32_bar(train_case):
+    args, (ctx, m, den, dctx), plain = train_case
+    got = emulated_backward(*args, ctx, m, den, dctx, "single")
+    worst = max(float((a.double() - e.double()).abs().max()) for a, e in zip(got, plain))
+    assert _misses(got, plain) > 0.0, worst
+    assert worst < 1.0, worst  # still the same function: the error is rounding, not a fault

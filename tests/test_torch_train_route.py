@@ -1,10 +1,10 @@
 """Route choice of the training attention, on the CPU (no JAX, no card).
 
-``ops/chunk_attention_train.py:route`` sends bf16 with head_dim 64 or 128, a
-chunk of a multiple of 64 and 16-byte-aligned rows to the tensor-core
-kernels, everything else to the CUDA-core kernels; it decides from dtype,
-shapes and strides alone. A CPU tensor runs the plain versions and never
-builds or loads the kernel library.
+``ops/chunk_attention_train.py:route`` sends f32 or bf16 with head_dim 64 or
+128, a chunk of a multiple of 64 and 16-byte-aligned rows to the tensor-core
+kernels (bf16 kernels, or the 3xTF32 f32 kernels), everything else to the
+CUDA-core kernels; it decides from dtype, shapes and strides alone. A CPU
+tensor runs the plain versions and never builds or loads the kernel library.
 """
 
 import math
@@ -35,7 +35,11 @@ def _counts():
     (torch.bfloat16, 128, 64, 128, 128, "tensor_core"),
     (torch.bfloat16, 64, 128, 64, 0, "tensor_core"),
     (torch.bfloat16, 64, 64, 0, 64, "tensor_core"),
-    (torch.float32, 64, 64, 128, 128, "cuda_core"),      # f32 stays off the tensor cores
+    (torch.float32, 64, 64, 128, 128, "tensor_core"),    # f32 at the flagship shape: 3xTF32
+    (torch.float32, 128, 128, 64, 0, "tensor_core"),
+    (torch.float32, 32, 64, 128, 128, "cuda_core"),      # f32, head_dim not 64 or 128
+    (torch.float32, 64, 32, 64, 64, "cuda_core"),        # f32, chunk not a multiple of 64
+    (torch.float32, 16, 8, 16, 16, "cuda_core"),
     (torch.bfloat16, 32, 64, 128, 128, "cuda_core"),     # head_dim not 64 or 128
     (torch.bfloat16, 16, 8, 16, 16, "cuda_core"),        # the CPU tests' small shapes
     (torch.bfloat16, 64, 32, 64, 64, "cuda_core"),       # chunk not a multiple of 64
@@ -62,6 +66,22 @@ def test_train_route_misaligned_storage_offset():
     p_flat = torch.zeros(p.numel() + 8, dtype=torch.bfloat16)
     assert cat.route(q, kv, p_flat[8:].view(p.shape), 64) == "tensor_core"   # 16 bytes in
     assert cat.route(q, kv, p_flat[4:p.numel() + 4].view(p.shape), 64) == "cuda_core"
+
+
+def test_train_route_f32_misaligned_rows():
+    """f32 rows take 16-byte copies too: a view 4 bytes into its storage, or
+    row strides that are not a multiple of 4 elements, go to the CUDA cores;
+    16 bytes in, or a 16-byte-multiple stride, stays on the tensor cores."""
+    q, kv, p = _operands(torch.float32, 64, 64)
+    flat = torch.zeros(q.numel() + 4, dtype=torch.float32)
+    assert cat.route(flat[1:q.numel() + 1].view(q.shape), kv, p, 64) == "cuda_core"
+    assert cat.route(flat[4:].view(q.shape), kv, p, 64) == "tensor_core"
+    wide = torch.zeros(*kv.shape[:3], 2 * 64 + 4, dtype=torch.float32)
+    assert cat.route(q, wide[..., :128], p, 64) == "tensor_core"   # rows 528 bytes apart
+    odd = torch.zeros(*kv.shape[:3], 2 * 64 + 2, dtype=torch.float32)
+    assert cat.route(q, odd[..., :128], p, 64) == "cuda_core"      # rows 520 bytes apart
+    odd_p = torch.zeros(*p.shape[:2], 64 + 1, dtype=torch.float32)
+    assert cat.route(q, kv, odd_p[..., :64], 64) == "cuda_core"
 
 
 def test_train_route_strided_views():
@@ -95,7 +115,7 @@ def test_train_attention_on_cpu_never_loads_kernels(monkeypatch, dtype):
     u, v = torch.randn(heads, d_k, generator=g).to(dtype), torch.randn(heads, d_k,
                                                                        generator=g).to(dtype)
     lens = torch.tensor([128, 70], dtype=torch.int32)
-    assert cat.route(q, kv, p, c) == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert cat.route(q, kv, p, c) == "tensor_core"
     leaves = [t.clone().requires_grad_() for t in (q, kv, p, u, v)]
     launches = _counts()
     out = cat.chunk_train_attention(*leaves, lens, 5, chunk=c, left=left, right=right,
@@ -120,10 +140,16 @@ def test_train_route_entries_raise_on_cpu(monkeypatch, entry):
 
 def test_tensor_core_route_refuses_what_it_cannot_take():
     """Naming the tensor-core route for operands it cannot take raises (no
-    fallback to the CUDA cores); the CUDA-core route refuses c * dk > 4096."""
-    q, kv, p = _operands(torch.float32, 64, 64)
+    fallback to the CUDA cores), in f32 as in bf16; the CUDA-core route
+    refuses c * dk > 4096."""
+    q, kv, p = _operands(torch.float32, 32, 64)
     with pytest.raises(ValueError, match="tensor-core"):
-        cat._check_path("tensor_core", q, kv, p, 64, 64)
+        cat._check_path("tensor_core", q, kv, p, 64, 32)
+    q, kv, p = _operands(torch.bfloat16, 64, 32)
+    with pytest.raises(ValueError, match="tensor-core"):
+        cat._check_path("tensor_core", q, kv, p, 32, 64)
+    q, kv, p = _operands(torch.float32, 64, 64)
+    cat._check_path("tensor_core", q, kv, p, 64, 64)
     q, kv, p = _operands(torch.bfloat16, 128, 128)
     cat._check_path("tensor_core", q, kv, p, 128, 128)
     with pytest.raises(ValueError, match="4096"):

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where the device time of the port's train step goes, on one NVIDIA card.
 
-    python3 tools/profile_torch_train.py
+    python3 tools/profile_torch_train.py [--part bf16|f32|all]
 
 Builds the flagship hybrid CTC/AED trainer of ``chip_smoke.py`` (bench.py:149-177:
 ChunkFormer-large encoder with gradient checkpointing, bitransformer decoder
 3 + 3, vocab 6992, adamw; random weights from a seed) and its seeded batch of
-32 utterances of 16 s, once for each checkpoint policy (``remat_policy``
-"dots", the configuration's, and "nothing", full recompute). For each it
-times three bf16 steps without the profiler (wall time a step and peak device
-memory), then runs one more under ``torch.profiler``. Last, with both
-trainers built, it alternates ROUNDS unprofiled steps of each policy, so
-that both see the same state of the machine, and prints each policy's step
+32 utterances of 16 s. Part bf16: a bf16 trainer for each checkpoint policy
+(``remat_policy`` "dots", the configuration's, and "nothing", full
+recompute). Part f32: an f32 trainer (TF32 off, as the smoke's f32 step) of
+the "dots" policy for each route of the training attention, the tensor cores
+(the route of these shapes, 3xTF32) and the CUDA-core kernels swapped in.
+For each trainer it times three steps without the profiler (wall time a step
+and peak device memory), then runs one more under ``torch.profiler``. Last,
+with a part's trainers built, it alternates ROUNDS unprofiled steps of each,
+so that all see the same state of the machine, and prints each one's step
 times with their median. Prints the card's name and power limit, and per
-policy the step's wall time, the summed kernel time and the device busy
+trainer the step's wall time, the summed kernel time and the device busy
 share (summed kernel time over the profiled wall time, one stream), kernel
 time by group, the top kernels by device time and the host operations by
 self time.
@@ -21,6 +24,7 @@ self time.
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -48,49 +52,81 @@ def group(name: str) -> str:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--part", choices=("bf16", "f32", "all"), default="all")
+    part = parser.parse_args().part
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 1
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    # f32 runs in full f32, as the smoke's f32 step: no TF32 in cuBLAS or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     print(f"card: {card}")
-    steps = {}
-    for remat in ("dots", "nothing"):
-        print(f"== remat_policy {remat!r}")
-        train = {**smoke.TRAIN, "encoder_conf": {**smoke.TRAIN["encoder_conf"],
-                                                 "remat_policy": remat}}
-        steps[remat] = profile_step(train)
-        if steps[remat] is None:
-            return 1
+    trainers = {}
+    if part in ("bf16", "all"):
+        for remat in ("dots", "nothing"):
+            train = {**smoke.TRAIN, "encoder_conf": {**smoke.TRAIN["encoder_conf"],
+                                                     "remat_policy": remat}}
+            trainers[f"bf16 {remat}"] = (train, torch.bfloat16, None)
+    if part in ("f32", "all"):
+        trainers["f32 dots, tensor-core attention"] = (smoke.TRAIN, None, None)
+        trainers["f32 dots, CUDA-core attention"] = (smoke.TRAIN, None,
+                                                      cat.chunk_train_attention_cuda_core)
+    for parts in ([k for k in trainers if k.startswith("bf16")],
+                  [k for k in trainers if k.startswith("f32")]):
+        if not parts:
+            continue
+        steps = {}
+        for label in parts:
+            print(f"== {label}")
+            steps[label] = profile_step(label, *trainers[label])
+            if steps[label] is None:
+                return 1
+            torch.cuda.empty_cache()
+        times = {label: [] for label in steps}
+        for _ in range(ROUNDS):
+            for label, run in steps.items():
+                t0 = time.time()
+                run()
+                times[label].append(time.time() - t0)
+        print(f"== {ROUNDS} alternating unprofiled steps of each; {card}")
+        for label, ts in times.items():
+            print(f"  {label}: median {1e3 * sorted(ts)[len(ts) // 2]:.1f} ms a step; "
+                  + ", ".join(f"{1e3 * t:.1f}" for t in ts) + " ms")
+        del steps
         torch.cuda.empty_cache()
-    times = {remat: [] for remat in steps}
-    for _ in range(ROUNDS):
-        for remat, run in steps.items():
-            t0 = time.time()
-            run()
-            times[remat].append(time.time() - t0)
-    print(f"== {ROUNDS} alternating unprofiled steps of each policy; {card}")
-    for remat, ts in times.items():
-        print(f"  {remat}: median {1e3 * sorted(ts)[len(ts) // 2]:.1f} ms a step; "
-              + ", ".join(f"{1e3 * t:.1f}" for t in ts) + " ms")
     return 0
 
 
-def profile_step(train):
-    """Times and profiles the trainer of ``train``; returns a function that
-    runs one more step, or None if the trace holds no device events."""
+def profile_step(label, train, autocast, attention):
+    """Times and profiles the trainer of ``train`` under ``autocast`` (None:
+    f32), with ``attention`` in place of the routed training attention if
+    given; returns a function that runs one more step, or None if the trace
+    holds no device events."""
     from torch.profiler import ProfilerActivity, profile
+
+    from chunkformer_tpu_torch.nn import attention as attention_module
 
     dev = torch.device("cuda")
     torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()   # an earlier trainer's, not this one's
-    cfg, model, step = smoke.new_trainer(train, dev, torch.bfloat16)
+    resident = torch.cuda.memory_allocated()   # earlier trainers', not this one's
+    cfg, model, step = smoke.new_trainer(train, dev, autocast)
     batch = smoke.train_batch(cfg, dev, smoke.SEED + 2)
     gen = torch.Generator().manual_seed(smoke.SEED + 3)
 
     def run():
-        return float(step(*batch, gen)["loss"])
+        routed = attention_module.chunk_train_attention
+        if attention is not None:
+            attention_module.chunk_train_attention = attention
+        try:
+            return float(step(*batch, gen)["loss"])
+        finally:
+            attention_module.chunk_train_attention = routed
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -121,7 +157,7 @@ def profile_step(train):
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         by_group[group(e.name)] = by_group.get(group(e.name), 0.0) + us
     total_ms = sum(by_name.values()) / 1e3
-    print(f"train step bf16, {audio_s:.0f} audio-s: wall {wall * 1e3:.1f} ms "
+    print(f"train step {label}, {audio_s:.0f} audio-s: wall {wall * 1e3:.1f} ms "
           f"({audio_s / wall:.1f} audio-s/s) under the profiler; kernels {total_ms:.1f} ms, "
           f"{len(kernels)} launches; device busy {total_ms / (wall * 1e3):.3f}")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
