@@ -14,18 +14,24 @@ non-zero exit code and no result line:
    an odd N, in bf16 and at head_dim 32, the shape it is the route of; the
    tensor-core kernels in bf16 and in f32 (3xTF32) at N = 209, 13 and 1, on
    a middle, a first and a last macro-segment, in f32 also at dk = 128,
-   c = 128 and head-major; fbank on 120 s of audio), with CUDA-event times
-   (each tensor-core kernel, the CUDA-core kernel and the plain version in
-   turns on the same inputs, bf16 and f32);
+   c = 128 and head-major; fbank's FFT kernel and DFT kernel on 120 s and on
+   the main path's 2040 s of audio), with CUDA-event times (each tensor-core
+   kernel, the CUDA-core kernel and the plain version in turns on the same
+   inputs, bf16 and f32; the FFT kernel, the DFT kernel and the plain
+   version in turns, with ``torch.fft.rfft`` of the same windowed frames on
+   a log line as the FFT stage's yardstick);
 4. the main path at ChunkFormer-large width (512 d, 8 heads, 17 blocks,
    vocab 6992, c = 64, L = R = 128) with random weights from a seed:
    ``endless_decode`` of 34 minutes of synthetic audio (3 macro-segments) and
    ``batch_decode`` of three files of mixed lengths, in bf16, with every
    kernel's launch count read around that run (all attention on the
-   tensor-core route); then in f32 (the 3xTF32 tensor-core kernel, its
-   launches read around that run) the endless-vs-single-shot token mismatch,
+   tensor-core route, all features on the FFT kernel); then in f32 (the
+   3xTF32 tensor-core kernel, its launches read around that run) the
+   endless-vs-single-shot token mismatch,
    the tokens against the same f32 ``endless_decode`` with the CUDA-core
    kernel swapped in (no flip where the top-1/top-2 gap is 1e-3 or more),
+   the tokens against the same decode from the DFT kernel's features (the
+   same rule),
    the bf16-vs-f32 CTC token-flip rate of ``endless_decode``, held on frames
    that are not near ties and against the same bf16 model through the plain
    attention, and the card's encoder against the CPU's on a small input;
@@ -203,7 +209,30 @@ def attention_bound(args, peak=None):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fbank_bound(wave, n_frames):
+def fbank_bound(wave, n_frames, n_mels=80, win=400, padded=512, sample_rate=16000):
+    """Least time on an H100 SXM for the fbank function: the larger of its
+    bytes (the waveform read once, the features written once, and the
+    tables it needs counted in float32: twiddles and split factors, the
+    window, the band table and its weights) over 3.35 TB/s, and its
+    operations at the 67 TFLOP/s f32 peak,
+    counted a frame as the real FFT's (5/2) padded log2(padded), the
+    pre-processing (mean, its subtraction, preemphasis, window: 5 a sample),
+    the power of the padded / 2 bins the mel bank weighs (3 each), the
+    sparse mel product (2 a non-zero weight) and the log (1 a band)."""
+    from chunkformer_tpu_torch.ops.fbank import band_table
+
+    nnz = int(band_table(n_mels, padded, float(sample_rate))[1].sum())
+    half = padded // 2
+    nbytes = (wave.numel() + n_frames * n_mels) * 4 + (4 * half + win + 3 * n_mels + nnz) * 4
+    ops = n_frames * (2.5 * padded * np.log2(padded) + 5 * win + 3 * half + 2 * nnz + n_mels)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_PEAK[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fbank_dft_bound(wave, n_frames):
+    """The bound counted with the TPU kernel's algorithm (the DFT as a dense
+    product with cos/sin tables and a dense mel product), printed beside
+    ``fbank_bound`` so that records made with it stay comparable."""
     win, n_bins, n_mels = 400, 257, 80
     nbytes = wave.numel() * 4 + n_frames * n_mels * 4 + (2 * win * n_bins + win
                                                          + n_bins * n_mels) * 4
@@ -235,7 +264,6 @@ def phase_kernels(sizing, device):
                                                            chunk_attention_cuda_core,
                                                            chunk_attention_plain,
                                                            chunk_attention_tensor_core, route)
-    from chunkformer_tpu_torch.ops.fbank import fbank, fbank_plain, num_frames
 
     trunc, rel_right, step_raw, seg_raw, capacity = sizing
     # a middle macro-segment: offset trunc, lookahead rows partly past max_len
@@ -333,26 +361,117 @@ def phase_kernels(sizing, device):
                         f"faster than the CUDA-core kernel ({cc_ms:.4f} ms)")
             log(msg)
 
-    rng = np.random.default_rng(SEED)
-    wave = torch.from_numpy(speechlike(rng, 120.0).astype(np.float32)).to(device)
-    got = fbank(wave)
-    torch.cuda.synchronize()
-    want = fbank_plain(wave)
-    require(got.shape == want.shape == (num_frames(wave.numel()), 80),
-            f"fbank shape {tuple(got.shape)}")
-    err = (got - want).abs()
-    max_err = float(err.max())
-    require(bool(torch.isfinite(got).all()), "fbank: non-finite output")
-    require(bool((err <= 2e-3 + 1e-3 * want.abs()).all()),
-            f"fbank: max |kernel - plain| {max_err:.3g} above atol 2e-3 rtol 1e-3")
-    ms = cuda_ms(lambda: fbank(wave), iters=20)
-    plain_ms = cuda_ms(lambda: fbank_plain(wave), iters=5, warmup=1)
-    bound_ms, bound_by = fbank_bound(wave, got.shape[0])
-    results["fbank"] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by)
-    log(f"fbank: 120 s at 16 kHz ({got.shape[0]} frames): max|kernel-plain| {max_err:.3g} "
-        f"(atol 2e-3, rtol 1e-3); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by}")
+    results.update(check_fbank(device))
+    return results
+
+
+def check_fbank(device):
+    """Both fbank kernels against the plain version (float64 inside), held
+    to atol 2e-3 + rtol 1e-3 |plain| on 120 s of ``speechlike`` audio from
+    ``SEED``, the main path's own 2040 s file (the same draw
+    at ``LONG_SECONDS``) and 120 s from ``SEED + 5``. Beside them, the same
+    steps in float32 (a plain version with a float32 FFT) against the plain
+    version, which is why the plain version computes in float64. On the
+    first two the FFT kernel, the DFT kernel and the plain version are timed
+    in turns on the same inputs (2 rounds), with ``torch.fft.rfft`` of the
+    same float32 windowed frames as a yardstick for the FFT stage (a log line
+    only); then both kernels at the lengths of ``batch_decode``'s files, for
+    their sums over the main path's four launches. Returns the 2040 s numbers
+    of each kernel."""
+    from chunkformer_tpu_torch.ops.fbank import (_EPSILON, _PREEMPHASIS, fbank, fbank_dft,
+                                                 fbank_fft, fbank_plain, mel_banks, num_frames,
+                                                 povey_window)
+    from chunkformer_tpu_torch.ops.fbank import route as fbank_route
+
+    require(fbank_route() == "fft", f"16 kHz fbank routed to {fbank_route()}")
+    window = torch.from_numpy(povey_window(400)).to(device)
+    banks = torch.from_numpy(mel_banks(80, 512, 16000.0)).to(device)
+    results = {}
+    for seconds, seed, timed in ((120.0, SEED, True), (LONG_SECONDS, SEED, True),
+                                 (120.0, SEED + 5, False)):
+        wave = torch.from_numpy(speechlike(np.random.default_rng(seed), seconds)
+                                .astype(np.float32)).to(device)
+        n = num_frames(wave.numel())
+        want = fbank_plain(wave)
+        bar = 2e-3 + 1e-3 * want.abs()
+        tag = f"{seconds:.0f} s of seed {seed}"
+        errs = {}
+        for name, fn in (("FFT", fbank_fft), ("DFT", fbank_dft)):
+            got = fn(wave)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (n, 80), f"fbank {name} shape {tuple(got.shape)}")
+            require(bool(torch.isfinite(got).all()), f"fbank {name}: non-finite output")
+            err = (got - want).abs()
+            errs[name] = float(err.max())
+            require(bool((err <= bar).all()), f"fbank {name} kernel, {tag}: max |kernel - plain| "
+                    f"{errs[name]:.3g} above atol 2e-3 rtol 1e-3")
+        launches = (fbank.launches, fbank.fft_launches)
+        routed = fbank(wave)
+        require((fbank.launches, fbank.fft_launches) == (launches[0], launches[1] + 1),
+                "fbank() did not launch the FFT kernel")
+        # the plain steps in float32, and the FFT stage's yardstick on their frames
+        frames = wave[: (n - 1) * 160 + 400].unfold(0, 400, 160)
+        frames = frames - frames.mean(dim=1, keepdim=True)
+        prev = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
+        frames = (frames - _PREEMPHASIS * prev) * window
+        f32 = torch.log(torch.clamp_min(
+            torch.fft.rfft(frames, n=512, dim=1).abs().square() @ banks, _EPSILON))
+        f32_err = (f32 - want).abs()
+        del routed, f32, prev
+        log(f"fbank: {tag} at 16 kHz ({n} frames): max|kernel-plain| FFT kernel "
+            f"{errs['FFT']:.3g}, DFT kernel {errs['DFT']:.3g} (atol 2e-3, rtol 1e-3); the same "
+            f"steps in float32 (a float32 FFT): {float(f32_err.max()):.3g}, "
+            f"{int((f32_err > bar).sum())} of {f32_err.numel()} values past the bar")
+        del want, bar, f32_err
+        if not timed:
+            del wave, frames
+            continue
+        long = seconds == LONG_SECONDS
+        fft_t, dft_t, plain_t = [], [], []
+        for _ in range(2):
+            fft_t.append(cuda_ms(lambda: fbank_fft(wave), iters=10 if long else 50))
+            dft_t.append(cuda_ms(lambda: fbank_dft(wave), iters=3 if long else 20))
+            plain_t.append(cuda_ms(lambda: fbank_plain(wave), iters=2 if long else 5, warmup=1))
+        ms, dft_ms, plain_ms = (sum(x) / len(x) for x in (fft_t, dft_t, plain_t))
+        bound_ms, bound_by = fbank_bound(wave, n)
+        old_bound, old_by = fbank_dft_bound(wave, n)
+        rfft_ms = cuda_ms(lambda: torch.fft.rfft(frames, n=512, dim=1), iters=3 if long else 20)
+        del frames
+        log(f"  {tag}, in turns (2 rounds): FFT kernel {ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in fft_t)}), DFT kernel {dft_ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in dft_t)}), plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} (the TPU kernel's algorithm, a dense DFT product: "
+            f"{old_bound:.4f} ms by {old_by}): FFT kernel {dft_ms / ms:.1f}x faster than the DFT "
+            f"kernel, {ms / bound_ms:.1f}x the bound; yardstick, not a port: torch.fft.rfft of "
+            f"the same float32 windowed frames, 512 points, {rfft_ms:.4f} ms")
+        if long:
+            require(ms < dft_ms, f"the FFT fbank kernel ({ms:.4f} ms) is not faster than the DFT "
+                    f"kernel ({dft_ms:.4f} ms) at {seconds:.0f} s")
+            results["fbank_fft"] = dict(max_abs_err=errs["FFT"], ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by)
+            results["fbank"] = dict(max_abs_err=errs["DFT"], ms=dft_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+            path = [(seconds, ms, dft_ms, bound_ms)]
+        del wave
+        torch.cuda.empty_cache()
+    # the main path's other launches (batch_decode's files), for the kernels'
+    # time over the path: sum of time and of time - bound over the 4 launches
+    rng = np.random.default_rng(SEED + 6)
+    for seconds in BATCH_SECONDS:
+        wave = torch.from_numpy(speechlike(rng, seconds).astype(np.float32)).to(device)
+        fft_t, dft_t = [], []
+        for _ in range(2):
+            fft_t.append(cuda_ms(lambda: fbank_fft(wave), iters=50))
+            dft_t.append(cuda_ms(lambda: fbank_dft(wave), iters=20))
+        path.append((seconds, sum(fft_t) / 2, sum(dft_t) / 2,
+                     fbank_bound(wave, num_frames(wave.numel()))[0]))
+    log("fbank over the main path's launches (" + ", ".join(f"{p[0]:g} s" for p in path)
+        + "): FFT kernel " + ", ".join(f"{p[1]:.4f}" for p in path) + " ms, DFT kernel "
+        + ", ".join(f"{p[2]:.4f}" for p in path) + " ms, bound "
+        + ", ".join(f"{p[3]:.4f}" for p in path) + f" ms; sums: FFT kernel "
+        f"{sum(p[1] for p in path):.4f} ms (time - bound {sum(p[1] - p[3] for p in path):.4f}), "
+        f"DFT kernel {sum(p[2] for p in path):.4f} ms (time - bound "
+        f"{sum(p[2] - p[3] for p in path):.4f})")
     return results
 
 
@@ -370,6 +489,7 @@ def reset_counts():
     chunk_attention.launches = 0
     chunk_attention.tc_launches = 0
     fbank.launches = 0
+    fbank.fft_launches = 0
 
 
 def read_counts():
@@ -377,7 +497,8 @@ def read_counts():
     from chunkformer_tpu_torch.ops.fbank import fbank
 
     return {"chunk_attention": chunk_attention.launches,
-            "chunk_attention_tc": chunk_attention.tc_launches, "fbank": fbank.launches}
+            "chunk_attention_tc": chunk_attention.tc_launches, "fbank": fbank.launches,
+            "fbank_fft": fbank.fft_launches}
 
 
 def phase_main_path(tmp, card, device):
@@ -448,10 +569,12 @@ def phase_main_path(tmp, card, device):
             and endless_counts["chunk_attention"] == 0,
             f"endless_decode launched chunk attention {endless_counts}, expected "
             f"{n_layers} x {n_seg} on the tensor cores and none on the CUDA cores")
-    require(endless_counts["fbank"] >= 1, "endless_decode never launched the fbank kernel")
+    # features through the FFT kernel only: one launch for the file, one a batch file
+    require(endless_counts["fbank_fft"] == 1 and endless_counts["fbank"] == 0,
+            f"endless_decode launched fbank {endless_counts}, expected the FFT kernel once")
     require(batch_counts["chunk_attention_tc"] == n_layers
-            and batch_counts["chunk_attention"] == 0 and batch_counts["fbank"] == 3,
-            f"batch_decode launches {batch_counts}")
+            and batch_counts["chunk_attention"] == 0 and batch_counts["fbank_fft"] == 3
+            and batch_counts["fbank"] == 0, f"batch_decode launches {batch_counts}")
     require(len(texts) == 3 and all(isinstance(t, str) for t in texts), "batch_decode output")
     require(len(segments) > 0 and all(s["decode"] for s in segments), "endless_decode output")
     # the bf16 frame tokens of the same endless_decode, for the flip rate below:
@@ -491,7 +614,7 @@ def phase_main_path(tmp, card, device):
     # f32 attention at the main path's shapes goes through the tensor cores
     # (the 3xTF32 kernel) only
     require(counts == {"chunk_attention": 0, "chunk_attention_tc": n_layers * (n_seg + 1),
-                       "fbank": 2}, f"f32 launches {counts}")
+                       "fbank": 0, "fbank_fft": 2}, f"f32 launches {counts}")
     require(endless.shape == single.shape == bf16_tokens.shape
             == (int(chunk_ops.calc_length(t_total)),),
             f"token counts {endless.shape} {single.shape} {bf16_tokens.shape}")
@@ -517,7 +640,7 @@ def phase_main_path(tmp, card, device):
         attention_module.chunk_attention = routed
     cc_counts = read_counts()
     require(cc_counts == {"chunk_attention": n_layers * n_seg, "chunk_attention_tc": 0,
-                          "fbank": 0}, f"f32 CUDA-core route launches {cc_counts}")
+                          "fbank": 0, "fbank_fft": 0}, f"f32 CUDA-core route launches {cc_counts}")
     require(cc_tokens.shape == endless.shape, f"token counts {cc_tokens.shape} {endless.shape}")
     route_flips = cc_tokens != endless
     clear_flips = int((route_flips & (gap >= 1e-3)).sum())
@@ -527,7 +650,34 @@ def phase_main_path(tmp, card, device):
         f"below 1e-3: {int((gap < 1e-3).sum())}; CUDA-core route launches {cc_counts}")
     require(clear_flips == 0, f"{clear_flips} f32 tokens differ between the attention routes on "
             "frames whose top-1/top-2 gap is at least 1e-3")
-    del feats
+
+    # the same f32 endless_decode from the DFT kernel's features: the FFT
+    # kernel may move a token only where the f32 top-1/top-2 gap is below 1e-3
+    from chunkformer_tpu_torch import api as api_module
+    from chunkformer_tpu_torch.ops.fbank import fbank_dft
+
+    routed_fbank = api_module.fbank
+    api_module.fbank = fbank_dft
+    reset_counts()
+    try:
+        dft_feats = f32.extract_features(long_wav)
+        dft_tokens = f32.endless_encode_tokens(dft_feats, C, LEFT, RIGHT, BUDGET)
+    finally:
+        api_module.fbank = routed_fbank
+    dft_counts = read_counts()
+    require(dft_counts == {"chunk_attention": 0, "chunk_attention_tc": n_layers * n_seg,
+                           "fbank": 1, "fbank_fft": 0}, f"f32 DFT-feature launches {dft_counts}")
+    feat_err = float((dft_feats - feats).abs().max())
+    fbank_flips = dft_tokens != endless
+    clear_fbank_flips = int((fbank_flips & (gap >= 1e-3)).sum())
+    log(f"f32 endless_decode CTC tokens, FFT-kernel features vs DFT-kernel features (max "
+        f"|FFT - DFT| {feat_err:.3g} over {tuple(feats.shape)}): {int(fbank_flips.sum())} of "
+        f"{fbank_flips.size} frames differ, {clear_fbank_flips} of them where the f32 "
+        f"top-1/top-2 log-prob gap is 1e-3 or more (limit 0); launches {dft_counts}")
+    require(dft_tokens.shape == endless.shape, f"token counts {dft_tokens.shape} {endless.shape}")
+    require(clear_fbank_flips == 0, f"{clear_fbank_flips} f32 tokens differ between FFT and DFT "
+            "features on frames whose top-1/top-2 gap is at least 1e-3")
+    del feats, dft_feats
 
     # bf16 against f32 tokens of endless_decode, PARITY.md round 4's 1% bar;
     # the f32 reference runs its attention on the 3xTF32 tensor-core kernel.
@@ -1030,7 +1180,8 @@ def phase_train(card, device, train_dict=TRAIN):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_train_counts()
-    decode_counts = (chunk_attention.launches, chunk_attention.tc_launches, fbank.launches)
+    decode_counts = (chunk_attention.launches, chunk_attention.tc_launches, fbank.launches,
+                     fbank.fft_launches)
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.time()
@@ -1066,8 +1217,8 @@ def phase_train(card, device, train_dict=TRAIN):
         want = {"fwd": 0, "bwd": 0, "fwd_tc": n_layers * TRAIN_STEPS * recompute,
                 "bwd_tc": n_layers * TRAIN_STEPS}
         require(counts == want, f"train launches {counts}, expected {want}")
-        require((chunk_attention.launches, chunk_attention.tc_launches, fbank.launches)
-                == decode_counts,
+        require((chunk_attention.launches, chunk_attention.tc_launches, fbank.launches,
+                 fbank.fft_launches) == decode_counts,
                 "the train path launched a decode kernel")
     del model, step, before
     if device.type == "cuda":
@@ -1139,6 +1290,9 @@ def main() -> int:
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
          "launches": f32_launches["chunk_attention"], **results["attention f32"],
          "library_ms": None},
+        {"name": "fbank_fft", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+         "launches": launches["fbank_fft"], **results["fbank_fft"], "library_ms": None},
         {"name": "fbank", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": launches["fbank"], **results["fbank"], "library_ms": None},
@@ -1177,7 +1331,10 @@ def main() -> int:
          "launches": f32_train_launches["bwd"],
          **train_results["train attention f32 p=0.0"]["cuda_core"]["bwd"], "library_ms": None},
     ]
-    log(f"kernels at the main paths' shapes (attention: N={capacity}, the tensor-core kernels "
+    log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
+        f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
+        f"from the bf16 decode (0: not the route of the main path's geometry); "
+        f"attention: N={capacity}, the tensor-core kernels "
         f"in bf16 and f32 with launches from the bf16 and the f32 decode, the CUDA-core kernel "
         f"timed in f32 with launches from the f32 decode (0: not the route of the main path's "
         f"shapes); train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in bf16 "

@@ -8,6 +8,13 @@ snip_edges, per-frame DC removal, preemphasis 0.97, povey window, power
 spectrum of the frame zero-padded to a power of two, Kaldi mel bank (the
 Nyquist column is zero) and log. Dither is 0, as at decode time. The
 waveform is float32 at int16 scale.
+
+Two kernels compute it on the card, and ``route`` picks one from the
+geometry alone: ``csrc/fbank_fft.cu`` (a warp per frame, an FFT in float64
+written in the kernel and a sparse mel product; padded window 256 or 512
+points, an even shift of at most the padded window, at most 128 mel bins)
+and ``csrc/fbank.cu`` (the DFT as a product with cos/sin tables; every other
+geometry).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 from . import kernels
 
 _EPSILON = 1.1920928955078125e-07  # float32 eps, matches torch EPSILON
-_PREEMPHASIS = 0.97
+_PREEMPHASIS = float(np.float32(0.97))  # Kaldi's float coefficient, as float32 pipelines apply it
 
 
 def _mel_scale(freq):
@@ -83,19 +90,133 @@ def _geometry(sample_rate: int, frame_length: float, frame_shift: float):
 
 def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
                 frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
-    """Plain PyTorch version: [S] float32 -> [T, num_mel_bins] float32 (FFT power spectrum)."""
+    """Plain PyTorch version: [S] float32 -> [T, num_mel_bins] float32.
+
+    It computes in float64 from the float32 samples, window and mel bank:
+    a frame's quietest bands (the DC-removed, preemphasised low bins) can
+    lie 120 dB under its loudest bins, where a float32 FFT's rounding moves
+    their log by more than the kernels' bar of 2e-3."""
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
     n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
     dev = waveform.device
     if n == 0:
         return torch.zeros((0, num_mel_bins), dtype=torch.float32, device=dev)
-    frames = waveform.float()[: (n - 1) * shift + win].unfold(0, win, shift)  # [n, win]
+    frames = waveform.float()[: (n - 1) * shift + win].unfold(0, win, shift).double()
     frames = frames - frames.mean(dim=1, keepdim=True)
     prev = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
-    frames = (frames - _PREEMPHASIS * prev) * torch.from_numpy(povey_window(win)).to(dev)
+    window = torch.from_numpy(povey_window(win)).to(dev).double()
+    frames = (frames - _PREEMPHASIS * prev) * window
     spectrum = torch.fft.rfft(frames, n=padded, dim=1).abs().square()
     banks = torch.from_numpy(mel_banks(num_mel_bins, padded, float(sample_rate))).to(dev)
-    return torch.log(torch.clamp_min(spectrum @ banks, _EPSILON))
+    return torch.log(torch.clamp_min(spectrum @ banks.double(), _EPSILON)).float()
+
+
+# The FFT kernel's Stockham stages after its first radix-8 one, as (radix R,
+# points combined before it P), by padded window (csrc/fbank_fft.cu later_stages)
+FFT_STAGES = {512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
+MAX_FFT_MELS = 128
+
+
+def route(num_mel_bins: int = 80, frame_length: float = 25.0, frame_shift: float = 10.0,
+          sample_rate: int = 16000) -> str:
+    """Which kernel a CUDA call launches, from the geometry alone: "fft"
+    (``csrc/fbank_fft.cu``) for a padded window the FFT kernel is
+    instantiated for, an even shift of at most that window and at most
+    ``MAX_FFT_MELS`` bins; "dft" (``csrc/fbank.cu``) otherwise."""
+    win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
+    if (padded in FFT_STAGES and 0 < shift <= padded and shift % 2 == 0
+            and 0 < num_mel_bins <= MAX_FFT_MELS):
+        return "fft"
+    return "dft"
+
+
+@functools.lru_cache(maxsize=8)
+def fft_twiddles(padded: int) -> tuple[np.ndarray, np.ndarray]:
+    """The FFT kernel's twiddle tables in float64, [rows, 2] (re, im): for
+    each stage (R, P) of ``FFT_STAGES`` in turn, exp(-2 pi i k j / (P R)) at
+    row (j - 1) P + k, j = 1..R-1, k < P; and exp(-2 pi i k / padded),
+    k < padded / 2, for the real split."""
+    k = np.arange(padded // 2, dtype=np.float64)
+    stages = np.concatenate([np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(p))
+                                    / (p * r)).reshape(-1)
+                             for r, p in FFT_STAGES[padded]])
+    split = np.exp(-2j * np.pi * k / padded)
+    return tuple(np.ascontiguousarray(np.stack([w.real, w.imag], axis=1))
+                 for w in (stages, split))
+
+
+@functools.lru_cache(maxsize=8)
+def band_table(num_bins: int, padded_window_size: int, sample_rate: float):
+    """The mel bank as contiguous bands: for band m, the bins
+    [first[m], first[m] + count[m]) with weights
+    weights[offset[m]:offset[m] + count[m]], copied from ``mel_banks``
+    (every other entry of its column is an exact zero). Returns int32
+    first, count, offset [num_bins] and float32 weights [sum(count)]."""
+    banks = mel_banks(num_bins, padded_window_size, sample_rate)
+    first = np.zeros(num_bins, np.int32)
+    count = np.zeros(num_bins, np.int32)
+    weights = []
+    for m in range(num_bins):
+        nz = np.flatnonzero(banks[:, m])
+        if nz.size:
+            first[m], count[m] = nz[0], nz[-1] - nz[0] + 1
+            weights.append(banks[nz[0]:nz[-1] + 1, m])
+    offset = np.concatenate([[0], np.cumsum(count)[:-1]]).astype(np.int32)
+    weights = np.concatenate(weights) if weights else np.zeros(0, np.float32)
+    return first, count, offset, np.ascontiguousarray(weights, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def mel_lanes(num_bins: int, padded_window_size: int, sample_rate: float) -> np.ndarray:
+    """The band table dealt to the 32 lanes of a warp for the FFT kernel:
+    int32 [steps, 32, 2]. Whole bands go to lanes by best-fit decreasing,
+    widest band first, each to the fullest lane it still fits under a
+    budget of steps a lane; the budget starts at the larger of the widest
+    band and the mean share and grows until every band fits. A lane walks
+    its bands in ascending order, each band's bins in ascending order. A
+    step is (bin, the float32 weight's bits), with band + 1 in the bin's
+    high 16 bits at a band's last bin (where the kernel stores the sum); a
+    band without bins is one step of weight 0. Lanes with fewer steps end
+    in (0, 0.0)."""
+    lanes = 32
+    first, count, offset, weights = band_table(num_bins, padded_window_size, sample_rate)
+    if int((first + count).max()) > padded_window_size // 2:
+        raise ValueError("a mel band reaches the Nyquist bin, which the FFT kernel does "
+                         "not compute")
+    steps = np.maximum(count, 1)
+    depth = max(int(steps.max()), -(-int(steps.sum()) // lanes))
+    while True:
+        load, bands = [0] * lanes, [[] for _ in range(lanes)]
+        for m in sorted(range(num_bins), key=lambda b: (-steps[b], b)):
+            fits = [i for i in range(lanes) if load[i] + steps[m] <= depth]
+            if not fits:
+                break
+            lane = max(fits, key=lambda i: (load[i], -i))
+            load[lane] += steps[m]
+            bands[lane].append(m)
+        else:
+            break
+        depth += 1
+    bits = weights.view(np.int32)
+    table = np.zeros((depth, lanes, 2), np.int32)
+    for lane, ms in enumerate(bands):
+        cells = []
+        for m in sorted(ms):
+            band = [[first[m] + b, bits[offset[m] + b]] for b in range(count[m])] or [[0, 0]]
+            band[-1][0] |= (m + 1) << 16
+            cells += band
+        table[:len(cells), lane] = np.asarray(cells, np.int32).reshape(-1, 2)
+    return table
+
+
+@functools.lru_cache(maxsize=4)
+def _fft_tables(win: int, padded: int, num_mel_bins: int, sample_rate: int,
+                device: torch.device):
+    """FFT kernel constants on the device: both twiddle tables, the window
+    and the mel lane table."""
+    host = (*fft_twiddles(padded), povey_window(win),
+            mel_lanes(num_mel_bins, padded, float(sample_rate)))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host)
 
 
 @functools.lru_cache(maxsize=4)
@@ -108,19 +229,17 @@ def _tables(win: int, padded: int, num_mel_bins: int, sample_rate: int, device: 
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host)
 
 
-def fbank(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
-          frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
-    """Log-mel features [T, num_mel_bins] float32 of a float32 waveform [S].
-
-    On a CPU tensor this is the plain version; on a CUDA tensor it launches
-    the kernel of ``csrc/fbank.cu`` or raises.
-    """
-    if waveform.device.type == "cpu":
-        return fbank_plain(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
+def _check_waveform(waveform: torch.Tensor) -> None:
     if waveform.device.type != "cuda":
-        raise ValueError(f"fbank runs on cpu or cuda, not {waveform.device}")
+        raise ValueError(f"the fbank kernels run on cuda, not {waveform.device}")
     if waveform.dtype != torch.float32 or waveform.dim() != 1 or not waveform.is_contiguous():
         raise TypeError("fbank takes a contiguous 1-D float32 waveform")
+
+
+def fbank_dft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
+              frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
+    """Launch the DFT kernel (``csrc/fbank.cu``) on a CUDA waveform."""
+    _check_waveform(waveform)
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
     n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
     out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
@@ -139,4 +258,48 @@ def fbank(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 
     return out
 
 
-fbank.launches = 0  # kernel launches since the last reset
+def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
+              frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
+    """Launch the FFT kernel (``csrc/fbank_fft.cu``) on a CUDA waveform of a
+    geometry ``route`` sends to it; raises on any other. The waveform may
+    start at any 4-byte address: the kernel copies 16 bytes a thread from a
+    16-byte-aligned one and 4 bytes a thread otherwise."""
+    _check_waveform(waveform)
+    if route(num_mel_bins, frame_length, frame_shift, sample_rate) != "fft":
+        raise ValueError(f"the FFT kernel takes a padded window of {tuple(FFT_STAGES)} "
+                         f"points, an even shift of at most that and at most "
+                         f"{MAX_FFT_MELS} mel bins")
+    win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
+    n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
+    out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
+    if n == 0:
+        return out
+    twiddle, split, window, mel = _fft_tables(win, padded, num_mel_bins, sample_rate,
+                                              waveform.device)
+    lib = kernels.library()
+    with torch.cuda.device(waveform.device):
+        err = lib.cf_fbank_fft(waveform.data_ptr(), twiddle.data_ptr(), split.data_ptr(),
+                               window.data_ptr(), mel.data_ptr(), out.data_ptr(), n, win,
+                               shift, padded, num_mel_bins, mel.shape[0],
+                               torch.cuda.current_stream(waveform.device).cuda_stream)
+    kernels.check(err, "fbank_fft")
+    fbank.fft_launches += 1
+    return out
+
+
+def fbank(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
+          frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
+    """Log-mel features [T, num_mel_bins] float32 of a float32 waveform [S].
+
+    On a CPU tensor this is the plain version; on a CUDA tensor it launches
+    the kernel that ``route`` names, or raises.
+    """
+    if waveform.device.type == "cpu":
+        return fbank_plain(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
+    launch = fbank_fft if route(num_mel_bins, frame_length, frame_shift,
+                                sample_rate) == "fft" else fbank_dft
+    return launch(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
+
+
+fbank.launches = 0      # DFT kernel launches (csrc/fbank.cu) since the last reset
+fbank.fft_launches = 0  # FFT kernel launches (csrc/fbank_fft.cu) since the last reset

@@ -14,7 +14,8 @@ from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention,
                                                        chunk_attention_cuda_core,
                                                        chunk_attention_plain, route)
-from chunkformer_tpu_torch.ops.fbank import fbank, fbank_plain
+from chunkformer_tpu_torch.ops.fbank import (fbank, fbank_dft, fbank_fft, fbank_plain, num_frames,
+                                             route as fbank_route)
 
 pytestmark = pytest.mark.cuda
 
@@ -195,14 +196,82 @@ def test_cuda_core_kernel_takes_f32_main_path_shapes(cuda_device):
 
 
 def test_fbank_kernel_matches_plain(cuda_device):
-    """atol 2e-3 / rtol 1e-3, the bar the JAX package holds its kernel to."""
+    """atol 2e-3 / rtol 1e-3, the bar the JAX package holds its kernel to.
+    At 16 kHz the routed kernel is the FFT kernel."""
     wave = torch.from_numpy((np.random.default_rng(6).normal(size=16000 * 30 + 123) * 8000)
                             .astype(np.float32)).to(cuda_device)
-    launches = fbank.launches
+    launches = (fbank.launches, fbank.fft_launches)
     got = fbank(wave)
     torch.cuda.synchronize()
-    assert fbank.launches == launches + 1
+    assert (fbank.launches, fbank.fft_launches) == (launches[0], launches[1] + 1)
     torch.testing.assert_close(got, fbank_plain(wave), atol=2e-3, rtol=1e-3)
+
+
+def _wave(n_samples, device, seed=8):
+    return torch.from_numpy((np.random.default_rng(seed).normal(size=n_samples) * 8000)
+                            .astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("sample_rate", [16000, 8000])
+@pytest.mark.parametrize("frames", [0, 1, 15, 16, 17, 33, 12000])
+def test_fbank_fft_kernel_matches_plain(cuda_device, sample_rate, frames):
+    """The FFT kernel at 0 and 1 frames, one tile of 16 frames and one frame
+    either side of it, two tiles and a frame, and 120 s; atol 2e-3 / rtol
+    1e-3."""
+    shift, win = sample_rate // 100, sample_rate // 40
+    n_samples = (frames - 1) * shift + win + 7 if frames else win - 1
+    wave = _wave(n_samples, cuda_device)
+    got = fbank_fft(wave, sample_rate=sample_rate)
+    torch.cuda.synchronize()
+    want = fbank_plain(wave, sample_rate=sample_rate)
+    assert got.shape == want.shape == (frames, 80) == (num_frames(n_samples, sample_rate), 80)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+def test_fbank_fft_and_dft_kernels_agree(cuda_device):
+    """The same waveform through both kernels, each within the bar of the
+    plain version and of each other."""
+    wave = _wave(16000 * 20 + 55, cuda_device, seed=9)
+    fft, dft = fbank_fft(wave), fbank_dft(wave)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fft, dft, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(dft, fbank_plain(wave), atol=2e-3, rtol=1e-3)
+
+
+def test_fbank_route_counters(cuda_device):
+    """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows) and
+    the DFT kernel at a 40 ms shift (640 samples, more than the padded 512);
+    each counter moves once per launch of its kernel and never for the
+    other."""
+    wave = _wave(16000 * 3, cuda_device)
+    cases = [({}, "fft"), ({"sample_rate": 8000}, "fft"), ({"frame_shift": 40.0}, "dft")]
+    for kwargs, want in cases:
+        assert fbank_route(**kwargs) == want
+        before = (fbank.launches, fbank.fft_launches)
+        got = fbank(wave, **kwargs)
+        torch.cuda.synchronize()
+        moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
+        assert moved == ((0, 1) if want == "fft" else (1, 0)), (kwargs, moved)
+        torch.testing.assert_close(got, fbank_plain(wave, **kwargs), atol=2e-3, rtol=1e-3)
+    with pytest.raises(ValueError):
+        fbank_fft(wave, frame_shift=40.0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_fbank_fft_takes_unaligned_waveforms(cuda_device, offset):
+    """A waveform that starts off a 16-byte boundary (a view at 1-3 floats
+    in) takes the kernel's 4-byte copies; the values move, the arithmetic
+    does not, so the result equals the aligned copy's bit for bit."""
+    base = _wave(16000 * 5 + 200, cuda_device, seed=10)
+    view = base[offset:]
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    aligned = view.clone()
+    assert aligned.data_ptr() % 16 == 0
+    got = fbank_fft(view)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fbank_fft(aligned))
+    torch.testing.assert_close(got, fbank_plain(view), atol=2e-3, rtol=1e-3)
 
 
 def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0, lens=None):
