@@ -49,14 +49,31 @@ non-zero exit code and no result line:
    tensor-core route (its kernels only) and one through the CUDA-core route,
    each against the same step through the plain attention; one bf16 step
    with dropout 0 through each route, each against the plain attention;
-7. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+7. the search path: an export directory of ChunkFormer-large with the 3 + 3
+   bitransformer decoder (random weights from a seed) that ``from_pretrained``
+   loads; ``bin/recognize.py`` ``main(argv)`` with its five CTC/AED modes on
+   8 files of 4-40 s in one batch at (64, 128, 128), beam 10, once as a
+   warm-up, then in f32 and bf16, with wall times by mode and the kernels'
+   launch counts (B4's forward in eval only, 17 an encode batch; the FFT
+   fbank kernel once a file); the encoder against the plain attention, the
+   R = 0 encode against the parallel-chunk route, the token and beam
+   checks, B4's eval forward timed against its bound; ``bin/decode.py`` on
+   one file and ``bin/alignment.py`` on two;
+8. other geometries: the CUDA-core attention kernels (decode and training)
+   at chunks of 96, 48 and 72 against their plain versions, a 120 s f32
+   ``endless_decode`` at c = 96 against the plain attention, fbank at a
+   50 ms window (1024 points) on both routes;
+9. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
 import os
 import shutil
 import subprocess
@@ -743,7 +760,7 @@ def train_attention_inputs(dtype, gen, dev):
             rnd(h, dk), rnd(h, dk), lens]
 
 
-def train_attention_bounds(args, backward: bool, peak=None):
+def train_attention_bounds(args, backward: bool, peak=None, c=C, left=LEFT, right=RIGHT):
     """Least time on an H100 SXM. Bytes: each input read once over the rows
     the function needs, each output written once whole. Of utterance b the
     function needs the key stream's rows of frames [0, lens[b]) only (the L
@@ -770,9 +787,9 @@ def train_attention_bounds(args, backward: bool, peak=None):
         writes = b * tp * row + kv.numel() * item + params   # dq, dkv, dp, du, dv
     pairs = 0
     for ln in lens.tolist():
-        for ci in range(tp // C):
-            rows = min(C, max(0, ln - ci * C))
-            keys = max(0, min(LEFT + C + RIGHT, ln - ci * C + LEFT) - max(0, LEFT - ci * C))
+        for ci in range(tp // c):
+            rows = min(c, max(0, ln - ci * c))
+            keys = max(0, min(left + c + right, ln - ci * c + left) - max(0, left - ci * c))
             pairs += rows * keys
     ops = pairs * h * dk * 2 * (8 if backward else 3)
     t_bytes = (reads + writes) / H100_BYTES_PER_S
@@ -1229,6 +1246,532 @@ def phase_train(card, device, train_dict=TRAIN):
     return counts, counts_k, step_s, peak_gib
 
 
+# ---- the search path: recognize at ChunkFormer-large width with the 3 + 3
+# bitransformer decoder of the flagship train config
+SEARCH = {**LARGE, "decoder": TRAIN["decoder"], "decoder_conf": TRAIN["decoder_conf"],
+          "model_conf": TRAIN["model_conf"]}
+SEARCH_SECONDS = (4.0, 9.5, 13.2, 17.8, 22.1, 27.4, 33.6, 40.0)
+SEARCH_MODES = ("ctc_greedy_search", "ctc_prefix_beam_search",
+                "ctc_prefix_beam_search_batched", "attention", "attention_rescoring")
+BEAM, CTC_WEIGHT, REVERSE_WEIGHT = 10, 0.3, 0.3
+
+
+class LogLines(logging.Handler):
+    """Collects the messages the CLIs log (their wall-time line)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def write_search_export(tmp, device):
+    """A reference-format export directory of the search model (random
+    weights from SEED + 7, CMVN from the features of the longest search
+    file, a 6992-symbol vocabulary), the search files and their test list.
+    config.yaml is written as JSON, which YAML reads."""
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
+    from chunkformer_tpu_torch.ops.fbank import fbank
+
+    rng = np.random.default_rng(SEED + 7)
+    wavs = [write_wav(os.path.join(tmp, f"search{i}.wav"), speechlike(rng, sec))
+            for i, sec in enumerate(SEARCH_SECONDS)]
+    cfg = ChunkFormerConfig.from_dict(SEARCH)
+    sd = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED + 7)).state_dict()
+    from scipy.io import wavfile
+
+    feats = fbank(torch.from_numpy(wavfile.read(wavs[-1])[1].astype(np.float32)).to(device))
+    sd["encoder.global_cmvn.mean"] = feats.mean(0).cpu()
+    sd["encoder.global_cmvn.istd"] = (1.0 / feats.std(0).clamp_min(1e-3)).cpu()
+    model_dir = os.path.join(tmp, "search_export")
+    os.makedirs(model_dir)
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    with open(os.path.join(model_dir, "config.yaml"), "w") as f:
+        json.dump(SEARCH, f)
+    symbols = ["<blank>"] + [chr(0x4E00 + i) for i in range(1, cfg.vocab_size)]
+    with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.writelines(f"{sym} {i}\n" for i, sym in enumerate(symbols))
+    test_list = os.path.join(tmp, "search.list")
+    with open(test_list, "w", encoding="utf-8") as f:
+        for i, wav in enumerate(wavs):
+            ref = "".join(symbols[j] for j in rng.integers(1, min(400, len(symbols) - 1), 8))
+            f.write(f"utt{i}\t{wav}\t{ref[:4]} {ref[4:]}\n")
+    return model_dir, test_list, wavs
+
+
+def run_recognize(model_dir, test_list, out_dir, dtype, grab):
+    """``bin/recognize.py`` main(argv) with the five modes; returns (wall
+    seconds of the call, its logged wall seconds by part, the kernels'
+    launch counts, peak device memory in GiB)."""
+    from chunkformer_tpu_torch.bin import recognize
+
+    argv = ["--model_checkpoint", model_dir, "--test_data", test_list, "--result_dir", out_dir,
+            "--modes", *SEARCH_MODES, "--beam_size", str(BEAM), "--chunk_size", str(C),
+            "--left_context_size", str(LEFT), "--right_context_size", str(RIGHT),
+            "--ctc_weight", str(CTC_WEIGHT), "--reverse_weight", str(REVERSE_WEIGHT),
+            "--dtype", dtype]
+    grab.lines.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    reset_train_counts()
+    t0 = time.time()
+    rc = recognize.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    require(rc == 0, f"recognize {dtype} returned {rc}")
+    counts = {**read_counts(), **read_train_counts()}
+    line = [x for x in grab.lines if x.startswith("wall seconds:")]
+    require(len(line) == 1, f"recognize logged no wall-time line: {grab.lines[-3:]}")
+    parts = {}
+    for item in line[0][len("wall seconds: "):].replace(";", ",").split(", "):
+        key, _, value = item.rpartition(" ")
+        parts[key] = float(value)
+    for mode in SEARCH_MODES:
+        with open(os.path.join(out_dir, f"{mode}.txt"), encoding="utf-8") as f:
+            rows = f.read().splitlines()
+        require(len(rows) == len(SEARCH_SECONDS) and all("\t" in r for r in rows),
+                f"recognize {dtype} {mode}: {len(rows)} result lines")
+        require(os.path.exists(os.path.join(out_dir, f"{mode}.wer")), f"no {mode}.wer")
+    return wall, parts, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def padded_batch(model, wavs):
+    feats = [model.extract_features(w) for w in wavs]
+    xs = torch.zeros((len(feats), max(f.shape[0] for f in feats), feats[0].shape[1]),
+                     device=model.device)
+    for i, f in enumerate(feats):
+        xs[i, :f.shape[0]] = f
+    return feats, xs, torch.tensor([f.shape[0] for f in feats], dtype=torch.int32)
+
+
+class CaptureTrainAttention:
+    """Swaps the encoder's training attention: records the operands of the
+    first call (B4 at the encode batch's shape) and optionally computes it
+    with the plain forward instead of the kernels."""
+
+    def __init__(self, plain=False):
+        self.plain, self.args = plain, None
+
+    def __enter__(self):
+        from chunkformer_tpu_torch.nn import attention as attention_module
+        from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+        self.module, self.routed = attention_module, attention_module.chunk_train_attention
+
+        def call(q, kv, p, u, v, lens, seed=0, *, chunk, left, right, drop_rate=0.0):
+            if self.args is None:
+                self.args = [q, kv, p, u, v, lens]
+            if self.plain:
+                return cat.forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right,
+                                         drop_rate)[0]
+            return self.routed(q, kv, p, u, v, lens, seed, chunk=chunk, left=left, right=right,
+                               drop_rate=drop_rate)
+
+        attention_module.chunk_train_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        self.module.chunk_train_attention = self.routed
+
+
+def frame_tokens_and_gap(model, out, lens):
+    """Frame argmax tokens and f32 top-1/top-2 log-prob gaps over the valid frames."""
+    logp = model.ctc_logprobs(out)
+    top2 = logp.topk(2, dim=-1).values
+    valid = torch.arange(out.shape[1], device=out.device)[None, :] < lens.to(out.device)[:, None]
+    return (logp.argmax(-1)[valid].cpu().numpy(),
+            (top2[..., 0] - top2[..., 1])[valid].cpu().numpy())
+
+
+def time_eval_forward(label, args, dtype, card):
+    """B4's forward kernel (tensor cores) at the encode batch's shape against
+    the plain forward on the captured operands: max error and times in turns
+    (2 rounds), bound as ``train_attention_bounds``."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    f32 = dtype == torch.float32
+    st = (0, C, LEFT, RIGHT, 0.0)
+    with torch.inference_mode():
+        require(cat.route(*args[:3], C) == "tensor_core", f"{label}: not the tensor-core route")
+        got = cat.forward_kernel(*args, *st, path="tensor_core")[0]
+        want = cat.forward_plain(*args, *st)[0]
+        err = float((got.float() - want.float()).abs().max())
+        require(err <= (1e-5 if f32 else 1e-2 + 2.0 ** -7 * float(want.float().abs().max())),
+                f"{label}: max |kernel - plain| {err:.3g}")
+        ks, ps = [], []
+        for _ in range(2):
+            ks.append(cuda_ms(lambda: cat.forward_kernel(*args, *st, path="tensor_core"),
+                              iters=50))
+            ps.append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=5, warmup=1))
+    ms, plain_ms = sum(ks) / 2, sum(ps) / 2
+    bound_ms, bound_by = train_attention_bounds(args, False, "tf32" if f32 else None)
+    q = args[0]
+    log(f"{label}: B4 forward (eval) at the recognize batch's shape, B={q.shape[0]} x "
+        f"{q.shape[1]} frames (lens {args[5].tolist()}), H={q.shape[2]}, dk={q.shape[3]}, "
+        f"c={C}, L=R={LEFT}: max|kernel-plain| {err:.3g}; in turns (2 rounds): kernel "
+        f"{ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_search(tmp, card, device):
+    """The search path: ``bin/recognize.py`` at ChunkFormer-large width with
+    the 3 + 3 decoder (an export ``from_pretrained`` loads), the five CTC/AED
+    modes, beam 10, (c, L, R) = (64, 128, 128), ctc_weight 0.3,
+    reverse_weight 0.3, on 8 files of 4-40 s in one batch; one warm-up call,
+    then f32 and bf16, with launch counts and wall times. Then, on the same
+    batch, the checks through the API: the kernels' f32 encoder outputs
+    against the plain attention, the limited-context encode against the
+    parallel-chunk decode route at R = 0, the token bars, the beam
+    structure, B4's eval forward timed against its bound; last
+    ``bin/decode.py`` on one file and ``bin/alignment.py`` on two. Returns
+    (launch counts by dtype, B4 results by dtype, the f32 model)."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel
+    from chunkformer_tpu_torch.bin import alignment, decode
+    from chunkformer_tpu_torch.decode.batched_beam import (batched_beam_to_results,
+                                                           ctc_prefix_beam_search_batched)
+    from chunkformer_tpu_torch.decode.search import (attention_beam_search,
+                                                     attention_beam_search_device,
+                                                     attention_rescoring,
+                                                     ctc_prefix_beam_search)
+    from chunkformer_tpu_torch.ops import chunk as chunk_ops
+
+    model_dir, test_list, wavs = write_search_export(tmp, device)
+    audio_s = sum(SEARCH_SECONDS)
+    grab = LogLines()
+    logging.getLogger().addHandler(grab)
+    logging.getLogger().setLevel(logging.INFO)
+    n_layers = SEARCH["encoder_conf"]["num_blocks"]
+    counts, timing = {}, {}
+    try:
+        t_warm = run_recognize(model_dir, test_list, os.path.join(tmp, "rec_warm"), "fp32",
+                               grab)[0]
+        for dtype in ("fp32", "bf16"):
+            wall, parts, cnt, peak = run_recognize(model_dir, test_list,
+                                                   os.path.join(tmp, f"rec_{dtype}"), dtype, grab)
+            counts[dtype], timing[dtype] = cnt, (wall, parts, peak)
+    finally:
+        logging.getLogger().removeHandler(grab)
+    for dtype in ("fp32", "bf16"):
+        wall, parts, peak = timing[dtype]
+        enc = parts["features and encode"]
+        log(f"recognize {dtype}: {len(wavs)} files, {audio_s:.1f} s of audio in one batch, "
+            f"beam {BEAM}: "
+            f"main() {wall:.3f} s with the model load (warm-up call {t_warm:.3f} s); features "
+            f"and encode {enc:.4f} s; by mode, features + encode + search: " + ", ".join(
+                f"{m} {enc + parts[m]:.4f} s ({audio_s / (enc + parts[m]):.1f} audio-s/s)"
+                for m in SEARCH_MODES)
+            + f"; peak device memory {peak:.2f} GiB; launches {counts[dtype]}; card {card}")
+        want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
+                "fbank_fft": len(SEARCH_SECONDS), "fwd": 0, "bwd": 0, "fwd_tc": n_layers,
+                "bwd_tc": 0}
+        require(counts[dtype] == want, f"recognize {dtype} launches {counts[dtype]}, "
+                f"expected {want}")
+
+    f32 = ChunkFormerModel.from_pretrained(model_dir, device=device)
+    bf16 = ChunkFormerModel.from_pretrained(model_dir, dtype=torch.bfloat16, device=device)
+    cfg = f32.config
+    feats, xs, lens = padded_batch(f32, wavs)
+    with CaptureTrainAttention() as cap32:
+        out, out_lens = f32.encode(xs, lens, C, LEFT, RIGHT)
+    with CaptureTrainAttention(plain=True):
+        out_plain, _ = f32.encode(xs, lens, C, LEFT, RIGHT)
+    with CaptureTrainAttention() as cap16:
+        out16, _ = bf16.encode(xs, lens, C, LEFT, RIGHT)
+    with CaptureTrainAttention(plain=True):
+        out16_plain, _ = bf16.encode(xs, lens, C, LEFT, RIGHT)
+    valid = torch.arange(out.shape[1], device=device)[None, :] < out_lens[:, None]
+    enc_err = float((out - out_plain).abs()[valid].max())
+    log(f"f32 encode (64, 128, 128) through the kernels vs through the plain attention, "
+        f"{int(valid.sum())} frames: max abs diff {enc_err:.3g} (limit 2e-3)")
+    require(bool(torch.isfinite(out[valid]).all()) and enc_err <= 2e-3,
+            f"f32 encoder outputs differ from the plain attention's by {enc_err}")
+
+    # limited context at R = 0 against the decode route's parallel-chunk
+    # encoder, file by file as tests/test_encoder_modes.py:54 holds it: in a
+    # padded batch a shorter file's frames also see its padding (the conv
+    # module's pointwise bias survives the pad mask, in chunkformer_tpu too)
+    with torch.inference_mode():
+        packed = chunk_ops.pack_chunks(feats, [f.shape[0] for f in feats], C)
+        att, cnn = f32.model.encoder.init_caches(LEFT, torch.float32, device)
+        pc, _, _ = f32.model.encoder.parallel_chunk(
+            packed.xs, f32._meta(packed.chunk_idx), f32._meta(packed.offsets),
+            f32._meta(packed.max_lens), C, LEFT, 0, att, cnn, 0)
+    r0_err, row = 0.0, 0
+    for i, (n, enc_len) in enumerate(zip(packed.n_chunks, packed.out_lens)):
+        r0, r0_len = f32.encode(feats[i][None], [feats[i].shape[0]], C, LEFT, 0)
+        require(int(r0_len[0]) == enc_len, f"file {i}: encode length {int(r0_len[0])} vs "
+                f"{enc_len}")
+        flat = pc[row:row + n].reshape(-1, pc.shape[-1])[:enc_len]
+        r0_err = max(r0_err, float((flat - r0[0, :enc_len]).abs().max()))
+        row += n
+    log(f"f32 encode (64, 128, 0) of each file vs batch_decode's parallel-chunk encoder at "
+        f"R = 0 on the same {len(wavs)} files: max abs diff {r0_err:.3g} (limit 2e-3)")
+    require(r0_err <= 2e-3, f"limited-context encode vs parallel chunk at R=0: {r0_err}")
+
+    # token bars: f32 kernels vs plain attention; bf16 vs f32. These random
+    # weights give flat posteriors (median f32 top-1/top-2 gap about 0.07 on
+    # these files), where the bf16 model itself, through the plain attention
+    # or the decode route, flips more than 1% of the frames whose gap is at
+    # least 1e-2 (the PARITY.md round-4 bar; printed). So the bar held is the
+    # kernels' share, as on the main path: their bf16 flip rates, at gap >=
+    # 1e-2 and over all frames, at most 0.005 above the same bf16 model's
+    # through the plain attention; and no flip where the gap is 0.1 or more
+    tok, gap = frame_tokens_and_gap(f32, out, out_lens)
+    tok_plain, _ = frame_tokens_and_gap(f32, out_plain, out_lens)
+    tok16, _ = frame_tokens_and_gap(bf16, out16, out_lens)
+    tok16_plain, _ = frame_tokens_and_gap(bf16, out16_plain, out_lens)
+    flips = tok != tok_plain
+    clear = int((flips & (gap >= 1e-3)).sum())
+    wide = gap >= 1e-2
+    flips16, flips16_plain = tok16 != tok, tok16_plain != tok
+    rate16, rate16_plain = float(np.mean(flips16[wide])), float(np.mean(flips16_plain[wide]))
+    whole16, whole16_plain = float(np.mean(flips16)), float(np.mean(flips16_plain))
+    confident = int((flips16 & (gap >= 0.1)).sum())
+    log(f"ctc frame tokens, {tok.size} frames (median f32 top-1/top-2 gap "
+        f"{float(np.median(gap)):.4g}): f32 kernels vs plain attention {int(flips.sum())} "
+        f"differ, {clear} where the gap is 1e-3 or more (limit 0); bf16 vs f32 through the "
+        f"kernels {int(flips16.sum())} differ (rate {whole16:.5f}), through the plain attention "
+        f"{int(flips16_plain.sum())} ({whole16_plain:.5f}); where the gap is 1e-2 or more "
+        f"({int(wide.sum())} frames): kernels {rate16:.5f}, plain attention {rate16_plain:.5f} "
+        f"(PARITY.md round 4: < 0.01; held: kernels at most 0.005 above the plain attention); "
+        f"flips where the gap is 0.1 or more: {confident} (limit 0)")
+    require(clear == 0, f"{clear} f32 tokens flip against the plain attention at gap >= 1e-3")
+    require(rate16 <= rate16_plain + 0.005 and whole16 <= whole16_plain + 0.005,
+            f"bf16 vs f32 flip rates through the kernels ({rate16}, {whole16}) more than 0.005 "
+            f"above the plain attention's ({rate16_plain}, {whole16_plain})")
+    require(confident == 0, f"{confident} bf16 tokens flip where the f32 gap is 0.1 or more")
+
+    # beam structure, f32
+    logp = f32.ctc_logprobs(out)
+    logp_host, lens_host = logp.cpu().numpy(), out_lens.cpu().numpy()
+    # the batched prefix beam on the card against the same search on the
+    # CPU (its own algorithm); against the host prefix beam (printed): the
+    # two are one algorithm only where each frame's top 2 x beam tokens hold
+    # blank and the beams' last tokens, which the batched search always
+    # takes and the host search takes only then; these flat posteriors
+    # seldom put blank there
+    prefix = ctc_prefix_beam_search(logp_host, lens_host, BEAM)
+    batched = batched_beam_to_results(*ctc_prefix_beam_search_batched(logp, out_lens, BEAM))
+    batched_cpu = batched_beam_to_results(*ctc_prefix_beam_search_batched(
+        logp.cpu(), out_lens.cpu(), BEAM))
+    clear_b = [i for i, r in enumerate(batched_cpu)
+               if r.nbest_scores[0] - r.nbest_scores[1] >= 1e-3]
+    same_b = [i for i in clear_b if batched[i].tokens == batched_cpu[i].tokens]
+    score_err = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(batched, batched_cpu))
+    clear_h = [i for i, r in enumerate(prefix)
+               if len(r.nbest_scores) < 2 or r.nbest_scores[0] - r.nbest_scores[1] >= 1e-3]
+    same_h = [i for i in clear_h if batched[i].tokens == prefix[i].tokens]
+    blank_top = float((logp.topk(2 * BEAM, dim=-1).indices == 0).any(-1)[valid].float().mean())
+    log(f"batched prefix beam on the card vs on the CPU: top-1 equal on {len(same_b)} of the "
+        f"{len(clear_b)} utterances whose two best scores differ by 1e-3 or more (of "
+        f"{len(batched)}), largest relative top-1 score difference {score_err:.3g}; vs the host "
+        f"prefix beam: top-1 equal on {len(same_h)} of {len(clear_h)} such utterances (blank "
+        f"among a frame's top {2 * BEAM} tokens on {blank_top:.4f} of the frames)")
+    require(same_b == clear_b, f"batched prefix beam, card vs CPU, top-1 differ on "
+            f"{sorted(set(clear_b) - set(same_b))}")
+    rescored = attention_rescoring(f32.model, cfg, prefix, out, lens_host, CTC_WEIGHT,
+                                   REVERSE_WEIGHT)
+    require(all(r.tokens in p.nbest for r, p in zip(rescored, prefix)),
+            "attention_rescoring picked a hypothesis outside its prefix n-best")
+    t0 = time.time()
+    dev_beam = attention_beam_search_device(f32.model, cfg, out, valid, BEAM)
+    t_dev = time.time() - t0
+    t0 = time.time()
+    host_beam = attention_beam_search(f32.model, cfg, out, valid, BEAM)
+    t_host = time.time() - t0
+    same = [d.tokens == h.tokens and abs(d.score - h.score) <= 1e-5 * abs(h.score)
+            for d, h in zip(dev_beam, host_beam)]
+    log(f"attention_beam_search_device vs attention_beam_search (host loop), f32: equal on "
+        f"{sum(same)} of {len(same)} utterances; {t_dev:.3f} s vs {t_host:.3f} s; "
+        f"attention_rescoring picked from the n-best on all {len(rescored)}; hypothesis "
+        f"lengths {[len(d.tokens) for d in dev_beam]}")
+    require(all(same), "attention_beam_search_device differs from attention_beam_search")
+
+    b4 = {"fp32": time_eval_forward("f32", cap32.args, torch.float32, card),
+          "bf16": time_eval_forward("bf16", cap16.args, torch.bfloat16, card)}
+    del out_plain, out16, out16_plain, bf16, cap32, cap16, logp
+    torch.cuda.empty_cache()
+
+    # the other two CLIs
+    printed = io.StringIO()
+    reset_counts()
+    t0 = time.time()
+    with contextlib.redirect_stdout(printed):
+        rc = decode.main(["--model_checkpoint", model_dir, "--audio_file", wavs[-1]])
+    lines = printed.getvalue().splitlines()
+    dcounts = read_counts()
+    require(rc == 0 and len(lines) >= 2, f"decode returned {rc} with {len(lines)} lines")
+    require(dcounts["chunk_attention_tc"] == n_layers and dcounts["fbank_fft"] == 1
+            and dcounts["chunk_attention"] == 0, f"decode launches {dcounts}")
+    align_list = os.path.join(tmp, "align.list")
+    with open(test_list, encoding="utf-8") as f:
+        rows = f.read().splitlines()[:2]
+    with open(align_list, "w", encoding="utf-8") as f:
+        f.write("\n".join(rows) + "\n")
+    align_dir = os.path.join(tmp, "align")
+    rc = alignment.main(["--model_checkpoint", model_dir, "--input_file", align_list,
+                         "--result_dir", align_dir])
+    grids = sorted(os.listdir(align_dir)) if os.path.isdir(align_dir) else []
+    require(rc == 0 and grids == ["utt0.TextGrid", "utt1.TextGrid"], f"alignment wrote {grids}")
+    log(f"decode CLI on {SEARCH_SECONDS[-1]:.0f} s (bf16, c=64): {len(lines)} lines, "
+        f"launches {dcounts}; alignment CLI on 2 files: {grids}; {time.time() - t0:.1f} s")
+    return counts, b4, f32
+
+
+# ---- other geometries: the shapes the CUDA-core kernels newly take (C7) and
+# the 1024-point fbank window (C5)
+C7_DECODE = [(96, 64), (48, 128), (72, 64)]   # (c, dk); c = 72 over an odd 13 rows
+ENDLESS_C7 = (96, 120.0)                        # chunk, seconds of endless_decode
+
+
+def phase_other_geometries(card, device, f32):
+    """The CUDA-core kernels at the C7 shapes against their plain versions
+    (timed in turns), a 120 s f32 ``endless_decode`` at c = 96 on
+    ChunkFormer-large against the same decode through the plain attention,
+    and fbank at a 50 ms window (1024 points) on both routes. Returns the
+    c = 96 decode attention's results and launches."""
+    from chunkformer_tpu_torch.api import endless_sizing
+    from chunkformer_tpu_torch.nn import attention as attention_module
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+    from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention_cuda_core,
+                                                           chunk_attention_plain,
+                                                           cuda_core_slices, route)
+    from chunkformer_tpu_torch.ops.fbank import (fbank, fbank_dft, fbank_fft, fbank_plain,
+                                                 num_frames)
+    from chunkformer_tpu_torch.ops.fbank import route as fbank_route
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    enc = f32.config.encoder_conf
+    results = {}
+    for c, dk in C7_DECODE:
+        n = 13 if c == 72 else endless_sizing(enc, c, RIGHT, BUDGET)[4]
+        trunc = endless_sizing(enc, c, RIGHT, BUDGET)[0]
+        args = attention_inputs(n, torch.float32, trunc, n * c - 37, gen, device, c=c, dk=dk)
+        require(route(*args[:3]) == "cuda_core", f"c={c} dk={dk} not on the CUDA-core route")
+        label = f"attention f32 CUDA cores c={c} dk={dk} N={n}"
+        _, err = check_attention(label, chunk_attention_cuda_core, args, 1e-5, 0.0)
+        kw = dict(chunk=c, left=LEFT, right=RIGHT)
+        ks, ps = [], []
+        for _ in range(2):
+            ks.append(cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=10))
+            ps.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3, warmup=1))
+        ms, plain_ms = sum(ks) / 2, sum(ps) / 2
+        bound_ms, bound_by = attention_bound(args)
+        results[(c, dk)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by)
+        log(f"{label} (H=8, L=R={LEFT}, {cuda_core_slices(c, dk)} row slices a chunk): "
+            f"max|kernel-plain| {err:.3g} (atol 1e-5); in turns (2 rounds): kernel {ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
+        # the training kernels at the same (c, dk): 8 utterances, ragged lens
+        b, nch = 8, 4
+        lens = torch.tensor([nch * c - 7 * i - (i * i) % 5 for i in range(b)][:-1] + [1],
+                            dtype=torch.int32, device=device)
+        targs = [torch.randn(b, nch * c, 8, dk, generator=gen, device=device),
+                 torch.randn(b, LEFT + nch * c + RIGHT, 8, 2 * dk, generator=gen,
+                             device=device),
+                 torch.randn(2 * c - 1 + LEFT + RIGHT, 8, dk, generator=gen, device=device),
+                 torch.randn(8, dk, generator=gen, device=device),
+                 torch.randn(8, dk, generator=gen, device=device), lens]
+        targs[1][:, :LEFT] = 0
+        targs[1][:, LEFT + nch * c:] = 0
+        st = (5, c, LEFT, RIGHT, 0.0)
+        ctx, m, den = cat.forward_kernel(*targs, *st, path="cuda_core")
+        want = cat.forward_plain(*targs, *st)
+        f_err = float((ctx - want[0]).abs().max())
+        require(f_err <= 1e-5, f"train forward c={c} dk={dk}: {f_err:.3g}")
+        dctx = torch.randn(ctx.shape, generator=gen, device=device)
+        got = cat.backward_kernel(*targs, ctx, m, den, dctx, *st, path="cuda_core")
+        leaves = [a.detach().clone().requires_grad_() for a in targs[:5]]
+        ref = torch.autograd.grad((cat.forward_plain(*leaves, targs[5], *st)[0] * dctx).sum(),
+                                  leaves)
+        b_err = max(float(((a - e).abs() - 1e-5 * e.abs()).max()) for a, e in zip(got, ref))
+        require(b_err <= 1e-4, f"train backward c={c} dk={dk}: atol excess {b_err:.3g}")
+        fwd_ms = cuda_ms(lambda: cat.forward_kernel(*targs, *st, path="cuda_core"), iters=5)
+        bwd_ms = cuda_ms(lambda: cat.backward_kernel(*targs, ctx, m, den, dctx, *st,
+                                                     path="cuda_core"), iters=5)
+        fb, fby = train_attention_bounds(targs, False, c=c)
+        bb, bby = train_attention_bounds(targs, True, c=c)
+        log(f"train attention f32 CUDA cores c={c} dk={dk} B={b} x {nch * c} frames (lens "
+            f"{lens.tolist()}): forward max|kernel-plain| {f_err:.3g} (atol 1e-5), {fwd_ms:.4f} "
+            f"ms, bound {fb:.4f} ms by {fby}; backward within atol 1e-4 + rtol 1e-5 of autograd "
+            f"through the plain forward (largest excess over rtol {b_err:.3g}), {bwd_ms:.4f} "
+            f"ms, bound {bb:.4f} ms by {bby}")
+        del args, targs, ctx, m, den, dctx, got, ref, leaves, want
+
+    # endless_decode of 120 s at c = 96 through the CUDA-core kernel, against
+    # the plain attention: no flip where the f32 top-1/top-2 gap is 1e-3 or more
+    c, seconds = ENDLESS_C7
+    wave = speechlike(np.random.default_rng(SEED + 9), seconds)
+    feats = fbank(torch.from_numpy(wave.astype(np.float32)).to(device))
+    d = enc.output_size
+    reset_counts()
+    t0 = time.time()
+    out = f32.endless_encode(feats, c, LEFT, RIGHT, BUDGET)
+    torch.cuda.synchronize()
+    t_endless = time.time() - t0
+    c96_counts = read_counts()
+    n_seg = c96_counts["chunk_attention"] // enc.num_blocks
+    tokens, gap = frame_tokens_and_gap(f32, out[None], torch.tensor([out.shape[0]]))
+    routed = attention_module.chunk_attention
+    attention_module.chunk_attention = chunk_attention_plain
+    try:
+        plain_tokens = f32.endless_encode_tokens(feats, c, LEFT, RIGHT, BUDGET)
+    finally:
+        attention_module.chunk_attention = routed
+    flips = tokens != plain_tokens
+    clear = int((flips & (gap >= 1e-3)).sum())
+    log(f"endless_decode f32 at c={c}, L=R={LEFT}, {seconds:.0f} s ({out.shape[0]} frames of "
+        f"{d}): {t_endless:.3f} s, {seconds / t_endless:.1f} audio-s/s; launches {c96_counts}; "
+        f"tokens vs the plain attention: {int(flips.sum())} differ, {clear} where the f32 "
+        f"top-1/top-2 gap is 1e-3 or more (limit 0)")
+    require(n_seg >= 1 and c96_counts == {"chunk_attention": enc.num_blocks * n_seg,
+                                          "chunk_attention_tc": 0, "fbank": 0, "fbank_fft": 0},
+            f"c={c} endless launches {c96_counts}")
+    require(tokens.shape == plain_tokens.shape and clear == 0,
+            f"c={c} endless tokens: {clear} flips at gap >= 1e-3")
+
+    # fbank at a 50 ms window (800 samples, padded 1024): even shift on the
+    # FFT kernel, an odd shift of 161 samples on the DFT kernel
+    wave = torch.from_numpy(speechlike(np.random.default_rng(SEED + 10), 120.0)
+                            .astype(np.float32)).to(device)
+    for shift_ms, want_route in ((10.0, "fft"), (10.0625, "dft")):
+        kw = dict(frame_length=50.0, frame_shift=shift_ms)
+        require(fbank_route(**kw) == want_route, f"50 ms / {shift_ms} ms routed to "
+                f"{fbank_route(**kw)}")
+        n = num_frames(wave.numel(), 16000, 50.0, shift_ms)
+        want = fbank_plain(wave, **kw)
+        fns = {"fft": fbank_fft, "dft": fbank_dft}
+        errs, times = {}, {}
+        for name in ((want_route,) if want_route == "dft" else ("fft", "dft")):
+            got = fns[name](wave, **kw)
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            errs[name] = float(err.max())
+            require(got.shape == (n, 80) and bool((err <= 2e-3 + 1e-3 * want.abs()).all()),
+                    f"fbank {name} at 50 ms / {shift_ms} ms: max err {errs[name]:.3g}")
+        for name in errs:
+            times[name] = [cuda_ms(lambda: fns[name](wave, **kw), iters=10) for _ in range(2)]
+        plain_ms = cuda_ms(lambda: fbank_plain(wave, **kw), iters=3, warmup=1)
+        bound_ms, bound_by = fbank_bound(wave, n, win=800, padded=1024)
+        log(f"fbank 50 ms window (800 samples, padded 1024), shift {shift_ms} ms, 120 s ({n} "
+            f"frames), routed to {want_route}: " + "; ".join(
+                f"{name} kernel max|kernel-plain| {errs[name]:.3g}, {sum(t) / 2:.4f} ms "
+                f"({', '.join(f'{x:.4f}' for x in t)})" for name, t in times.items())
+            + f"; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; card {card}")
+        before = (fbank.launches, fbank.fft_launches)
+        fbank(wave, **kw)
+        moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
+        require(moved == ((0, 1) if want_route == "fft" else (1, 0)), f"fbank launches {moved}")
+    return results[(96, 64)], c96_counts["chunk_attention"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1268,6 +1811,15 @@ def main() -> int:
         t = time.time()
         train_launches, f32_train_launches, _, _ = phase_train(card, torch.device("cuda"))
         log(f"[phase train path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        search_launches, b4_eval, search_f32 = phase_search(tmp, card, torch.device("cuda"))
+        log(f"[phase search path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        c96, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32)
+        del search_f32
+        log(f"[phase other geometries] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1330,6 +1882,18 @@ def main() -> int:
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:390",
          "launches": f32_train_launches["bwd"],
          **train_results["train attention f32 p=0.0"]["cuda_core"]["bwd"], "library_ms": None},
+        {"name": "chunk_train_attention_tc_fwd_eval", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": search_launches["bf16"]["fwd_tc"], **b4_eval["bf16"], "library_ms": None},
+        {"name": "chunk_train_attention_tc_f32_fwd_eval", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": search_launches["fp32"]["fwd_tc"], **b4_eval["fp32"], "library_ms": None},
+        {"name": "chunk_attention_c96", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": c96_launches, **c96, "library_ms": None},
     ]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
@@ -1340,7 +1904,10 @@ def main() -> int:
         f"shapes); train attention: B={TRAIN_BATCH}, p=0, the tensor-core kernels in bf16 "
         f"and f32 with launches from the bf16 steps and the f32 step, the CUDA-core kernels "
         f"timed in f32 with launches from the f32 step (0: not the route of the main path's "
-        f"shapes); card {card}")
+        f"shapes); the search path: B4's forward in eval at the recognize batch's shape "
+        f"(8 files, c = 64), launches from the bf16 and the f32 recognize calls; other "
+        f"geometries: the CUDA-core decode kernel at c = 96, dk = 64, launches from the 120 s "
+        f"f32 endless_decode at c = 96; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -7,6 +7,10 @@ Counterpart of ``chunkformer_tpu/api.py`` (reference: chunkformer_model.py:58-81
   relative right-context lookahead (chunkformer_model.py:320-459).
 - ``batch_decode``   — masked-batch decoding of many files under a total-frame
   budget (chunkformer_model.py:461-552).
+- ``encode``         — full or limited-context batch forward of padded
+  features (chunkformer_model.py:256-274), with ``ctc_logprobs``;
+  ``endless_encode`` — the long-form walk of ``endless_decode`` returning
+  encoder outputs.
 
 Everything runs on ``device``, which is ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit device the constructor
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,8 +130,9 @@ class ChunkFormerModel:
                         device=None) -> "ChunkFormerModel":
         """Load a reference-format export directory: config.yaml,
         pytorch_model.bin, vocab.txt and, where the checkpoint has no CMVN
-        stats, global_cmvn. Encoder and CTC weights load with strict=True;
-        other heads in the checkpoint are not part of this package yet."""
+        stats, global_cmvn. The encoder, CTC and, when the config names one,
+        attention-decoder weights load with strict=True; other heads in the
+        checkpoint are not part of this package yet."""
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model dir not found: {model_dir}")
         config = ChunkFormerConfig.from_yaml(os.path.join(model_dir, "config.yaml"))
@@ -136,8 +141,8 @@ class ChunkFormerModel:
                      if os.path.exists(os.path.join(model_dir, n))), None)
         if ckpt is None:
             raise FileNotFoundError(f"no checkpoint found in {model_dir}")
-        sd = {k: v for k, v in load_state_dict(ckpt).items()
-              if k.startswith(("encoder.", "ctc."))}
+        heads = ("encoder.", "ctc.") + (("decoder.",) if config.decoder else ())
+        sd = {k: v for k, v in load_state_dict(ckpt).items() if k.startswith(heads)}
         if config.vocab_size == 0 and "ctc.ctc_lo.weight" in sd:
             config.vocab_size = sd["ctc.ctc_lo.weight"].shape[0]
 
@@ -205,7 +210,31 @@ class ChunkFormerModel:
     @torch.inference_mode()
     def endless_encode_tokens(self, feats: torch.Tensor, chunk_size: int, left: int,
                               right: int, total_batch_duration: int) -> np.ndarray:
-        """Stream features [T, feat] through the encoder; return frame-level CTC tokens.
+        """Stream features [T, feat] through the encoder; return frame-level CTC tokens."""
+        parts = self._endless_segments(
+            feats, chunk_size, left, right, total_batch_duration,
+            lambda out, keep: self.model.ctc.argmax(out).reshape(-1)[:keep])
+        return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int64)
+
+    @torch.inference_mode()
+    def endless_encode(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
+                       total_batch_duration: int) -> torch.Tensor:
+        """Stream features [T, feat] through the encoder; return its outputs
+        [T', D] as float32 on the model's device (``chunkformer_tpu`` returns
+        them as a numpy float32 array)."""
+        d = self.config.encoder_conf.output_size
+        parts = self._endless_segments(
+            feats, chunk_size, left, right, total_batch_duration,
+            lambda out, keep: out.reshape(-1, d)[:keep])
+        if not parts:
+            return torch.zeros((0, d), dtype=torch.float32, device=self.device)
+        return torch.cat(parts).float()
+
+    def _endless_segments(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
+                          total_batch_duration: int, segment) -> List[torch.Tensor]:
+        """The macro-segment walk of ``endless_encode`` and
+        ``endless_encode_tokens``: ``segment(out [capacity, c, D], keep)``
+        of every segment, in order.
 
         Each macro-segment's chunk rows are gathered from one zero-padded
         feature buffer on the device; the caches carry across segments, and
@@ -224,7 +253,7 @@ class ChunkFormerModel:
             if start + rel_right >= t_total:
                 break
         if not starts:
-            return np.zeros(0, np.int64)
+            return []
         buf = feats.new_zeros((max(t_total, starts[-1] + span), feats.shape[1]),
                               dtype=self.dtype)
         buf[:t_total] = feats
@@ -244,9 +273,9 @@ class ChunkFormerModel:
             enc_len = int(chunk_ops.calc_length(x_len))
             is_last = start + rel_right >= t_total
             keep = max(enc_len if is_last else min(trunc, enc_len), 0)
-            parts.append(self.model.ctc.argmax(out).reshape(-1)[:keep])
+            parts.append(segment(out, keep))
             offset += keep
-        return torch.cat(parts).cpu().numpy()
+        return parts
 
     @torch.inference_mode()
     def batch_decode(
@@ -294,3 +323,31 @@ class ChunkFormerModel:
         if self.char_dict is None:
             return hyps
         return get_output(hyps, self.char_dict)
+
+    @torch.inference_mode()
+    def encode(self, xs, xs_lens, chunk_size: int = 0, left_context_size: int = 0,
+               right_context_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full or limited-context batch forward (chunkformer_model.py:256-274).
+
+        xs [B, T, feat] padded features and xs_lens [B] (tensors or numpy
+        arrays, moved to the model's device). ``chunk_size`` > 0 runs
+        limited-context attention over (c, L, R) through the training
+        attention's forward kernel (its backward is never set up here); 0 or
+        less runs full context, whatever the contexts say (the recognize
+        CLI's default is -1 for all three; ``chunkformer_tpu``'s ``encode``
+        builds its positional slice from L = R = -1 there and raises).
+        Returns (out [B, T', D] in the model's dtype, lengths [B]) on the
+        device.
+        """
+        if chunk_size <= 0:
+            chunk_size = left_context_size = right_context_size = 0
+        xs = torch.as_tensor(xs).to(device=self.device, dtype=self.dtype)
+        xs_lens = torch.as_tensor(xs_lens).to(self.device)
+        out, mask = self.model.encoder.forward_train(xs, xs_lens, chunk_size, left_context_size,
+                                                     right_context_size, train=False)
+        return out, mask.sum(-1)
+
+    @torch.inference_mode()
+    def ctc_logprobs(self, encoder_out: torch.Tensor) -> torch.Tensor:
+        """log_softmax(ctc_lo(h)) in float32 (reference: modules/ctc.py:73-81)."""
+        return torch.log_softmax(self.model.ctc.ctc_lo(encoder_out).float(), dim=-1)

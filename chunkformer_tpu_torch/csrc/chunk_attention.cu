@@ -36,6 +36,15 @@
 // sum run in f32 on CUDA cores from shared memory; inputs are f32 or bf16.
 // Rows of shared tiles are padded to dk + 1 floats so that lanes reading
 // neighbouring rows hit different banks.
+//
+// Any chunk: a thread keeps at most kMaxOut = 16 outputs, so one block takes
+// at most 4096 / dk query rows. A third grid axis cuts the chunk into
+// slices_of(c, dk) slices of rows_per_slice(c, dk) rows; a block computes
+// its slice's rows against the whole window, with the positional rows its
+// own rows need. Each output is summed in the same order as with one slice,
+// and the shapes that fit one block (c * dk <= 4096) run the instantiation
+// kSliced = false, whose slice is the whole chunk at compile time: the
+// kernel as it was before slicing, bit for bit and in time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -46,14 +55,25 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileK = 32;      // keys per tile == warp width
-constexpr int kMaxOut = 16;     // outputs per thread: c * dk <= 4096
+constexpr int kMaxOut = 16;     // outputs per thread: (rows of a slice) * dk <= 4096
+
+// Query rows of a chunk a block takes, and the slices of a chunk: at most
+// 4096 / dk rows each, as even as the count of slices allows.
+__host__ __device__ inline int slices_of(int c, int dk) {
+  const int most = 4096 / dk;
+  return (c + most - 1) / most;
+}
+__host__ __device__ inline int rows_per_slice(int c, int dk) {
+  const int s = slices_of(c, dk);
+  return (c + s - 1) / s;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T>
+template <typename T, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                        const T* __restrict__ pos, const T* __restrict__ bias_u,
@@ -72,36 +92,41 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int tid = threadIdx.x;
   const int W = L + c + R;
   const int ld = dk + 1;                 // padded row length
-  const int p_rows = kTileK + c - 1;     // positional rows per key tile
+  // this block's query rows [r0, r0 + cs) of the chunk; local row r is r0 + r
+  const int cmax = kSliced ? rows_per_slice(c, dk) : c;
+  const int r0 = kSliced ? (int)blockIdx.z * cmax : 0;
+  const int cs = kSliced ? min(cmax, c - r0) : c;
+  const int p_rows = kTileK + cs - 1;    // positional rows per key tile
+  const int p0 = kSliced ? c - r0 - cs : 0;  // first positional row of the slice at j = 0
 
-  float* qu = smem;                      // [c][ld]
-  float* qv = qu + c * ld;               // [c][ld]
-  float* ks = qv + c * ld;               // [kTileK][ld]
+  float* qu = smem;                      // [cs][ld]
+  float* qv = qu + cs * ld;              // [cs][ld]
+  float* ks = qv + cs * ld;              // [kTileK][ld]
   float* vs = ks + kTileK * ld;          // [kTileK][ld]
   float* ps = vs + kTileK * ld;          // [p_rows][ld]
-  float* sc = ps + p_rows * ld;          // [c][kTileK + 1] scores, then probs
-  float* row_m = sc + c * (kTileK + 1);  // [c] running max
-  float* row_l = row_m + c;              // [c] running sum
-  float* row_a = row_l + c;              // [c] rescale factor of this tile
+  float* sc = ps + p_rows * ld;          // [cs][kTileK + 1] scores, then probs
+  float* row_m = sc + cs * (kTileK + 1); // [cs] running max
+  float* row_l = row_m + cs;             // [cs] running sum
+  float* row_a = row_l + cs;             // [cs] rescale factor of this tile
 
   const float scale = rsqrtf((float)dk);
   const int ci = chunk_idx[n];
   const int lo = max(0, L - ci * c - offsets[n]);
   const int hi = min(W, max_lens[n] - ci * c + L);
 
-  const T* qb = q + (int64_t)n * sqn + (int64_t)h * sqh;
-  for (int i = tid; i < c * dk; i += kThreads) {
+  const T* qb = q + (int64_t)n * sqn + (int64_t)r0 * sqr + (int64_t)h * sqh;
+  for (int i = tid; i < cs * dk; i += kThreads) {
     const int r = i / dk, d = i % dk;
     const float x = to_f32(qb[(int64_t)r * sqr + d]);
     qu[r * ld + d] = (x + to_f32(bias_u[h * dk + d])) * scale;
     qv[r * ld + d] = (x + to_f32(bias_v[h * dk + d])) * scale;
   }
-  for (int r = tid; r < c; r += kThreads) {
+  for (int r = tid; r < cs; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
   }
 
-  const int n_out = (c * dk + kThreads - 1) / kThreads;
+  const int n_out = (cs * dk + kThreads - 1) / kThreads;
   float acc[kMaxOut];
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.f;
@@ -124,23 +149,24 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       ks[jj * ld + d] = kx;
       vs[jj * ld + d] = vx;
     }
-    // positional rows [j0, j0 + kTileK + c - 1) cover c-1-r+j for this tile
+    // positional rows [j0 + p0, j0 + p0 + kTileK + cs - 1) cover c-1-(r0+r)+j
+    // for this tile and slice
     for (int i = tid; i < p_rows * dk; i += kThreads) {
       const int pr = i / dk, d = i % dk;
-      const int pidx = j0 + pr;
+      const int pidx = j0 + p0 + pr;
       ps[pr * ld + d] = pidx < W + c - 1 ? to_f32(pb[(int64_t)pidx * spp + d]) : 0.f;
     }
     __syncthreads();
 
     // scores: one warp per query row, one lane per key
-    for (int r = warp; r < c; r += kThreads / 32) {
+    for (int r = warp; r < cs; r += kThreads / 32) {
       const int j = j0 + lane;
       float s = -INFINITY;
       if (j >= lo && j < hi) {
         const float* a = qu + r * ld;
         const float* b = ks + lane * ld;
         const float* e = qv + r * ld;
-        const float* f = ps + (c - 1 - r + lane) * ld;
+        const float* f = ps + (cs - 1 - r + lane) * ld;
         float ac = 0.f, bd = 0.f;
         for (int d = 0; d < dk; ++d) {
           ac = fmaf(a[d], b[d], ac);
@@ -172,7 +198,7 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     for (int k = 0; k < kMaxOut; ++k) {
       if (k < n_out) {
         const int i = tid + k * kThreads;
-        if (i < c * dk) {
+        if (i < cs * dk) {
           const int r = i / dk, d = i % dk;
           const float* prow = sc + r * (kTileK + 1);
           float a = acc[k] * row_a[r];
@@ -184,18 +210,41 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
   __syncthreads();
 
-  T* ob = out + (int64_t)n * son + (int64_t)h * soh;
+  T* ob = out + (int64_t)n * son + (int64_t)r0 * sor + (int64_t)h * soh;
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) {
     if (k < n_out) {
       const int i = tid + k * kThreads;
-      if (i < c * dk) {
+      if (i < cs * dk) {
         const int r = i / dk, d = i % dk;
         const float l = row_l[r];
         store(ob + (int64_t)r * sor + d, l > 0.f ? acc[k] / l : 0.f);
       }
     }
   }
+}
+
+template <typename T, bool kSliced>
+int launch_as(const void* q, const void* kv, const void* pos, const void* u,
+           const void* v, const int* ci, const int* off, const int* ml,
+           void* out, int N, int H, int c, int dk, int L, int R,
+           int64_t sqn, int64_t sqr, int64_t sqh, int64_t skt, int64_t skh,
+           int64_t spp, int64_t sph, int64_t son, int64_t sor, int64_t soh,
+           cudaStream_t stream) {
+  const int ld = dk + 1;
+  const int cs = rows_per_slice(c, dk);
+  const size_t smem = sizeof(float) *
+      ((size_t)2 * cs * ld + 2 * kTileK * ld + (size_t)(kTileK + cs - 1) * ld +
+       (size_t)cs * (kTileK + 1) + 3 * cs);
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_attention_kernel<T, kSliced>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(N, H, slices_of(c, dk));
+  chunk_attention_kernel<T, kSliced><<<grid, kThreads, smem, stream>>>(
+      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, ci, off, ml,
+      (T*)out, c, dk, L, R, sqn, sqr, sqh, skt, skh, spp, sph, son, sor, soh);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -205,24 +254,16 @@ int launch(const void* q, const void* kv, const void* pos, const void* u,
            int64_t sqn, int64_t sqr, int64_t sqh, int64_t skt, int64_t skh,
            int64_t spp, int64_t sph, int64_t son, int64_t sor, int64_t soh,
            cudaStream_t stream) {
-  const int ld = dk + 1;
-  const size_t smem = sizeof(float) *
-      ((size_t)2 * c * ld + 2 * kTileK * ld + (size_t)(kTileK + c - 1) * ld +
-       (size_t)c * (kTileK + 1) + 3 * c);
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N, H);
-  chunk_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, ci, off, ml,
-      (T*)out, c, dk, L, R, sqn, sqr, sqh, skt, skh, spp, sph, son, sor, soh);
-  return (int)cudaGetLastError();
+  auto go = slices_of(c, dk) > 1 ? launch_as<T, true> : launch_as<T, false>;
+  return go(q, kv, pos, u, v, ci, off, ml, out, N, H, c, dk, L, R, sqn, sqr, sqh, skt, skh,
+            spp, sph, son, sor, soh, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
-// Shapes and strides are checked by the Python wrapper; c * dk <= 4096.
+// Shapes and strides are checked by the Python wrapper. Any c; dk up to
+// the shared memory a block may take (about 256 at f32 rows).
 extern "C" int cf_chunk_attention(int dtype, const void* q, const void* kv,
                                   const void* pos, const void* u, const void* v,
                                   const int* chunk_idx, const int* offsets,
@@ -233,6 +274,7 @@ extern "C" int cf_chunk_attention(int dtype, const void* q, const void* kv,
                                   int64_t sph, int64_t son, int64_t sor,
                                   int64_t soh, void* stream) {
   if (N == 0) return 0;
+  if (dk < 1 || dk > 4096) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H, c,

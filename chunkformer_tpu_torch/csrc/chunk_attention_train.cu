@@ -44,6 +44,18 @@
 //       those keys (at most ceil((L + c + R)/c) + 1). Only real frames get a
 //       gradient: the L and R zero rows of the stream are dropped.
 //   (c) a reduction of the dP, du and dv partials over (b, ci).
+// - Any chunk and head_dim: a thread keeps at most kMaxOut = 16 outputs. The
+//   forward and the dq kernel cut a chunk into slices_of(c, dk) slices of
+//   rows_per_slice(c, dk) query rows (a third grid axis), each against the
+//   whole window with the positional rows its own rows need; the dq kernel
+//   writes one dP / du / dv partial per slice. The dK/dV kernel cuts its
+//   32 x dk outputs into column slices of at most 128 (a third grid axis; each
+//   recomputes the tile's weights) and, past 200-odd dk, walks the queries
+//   in tiles of 16 rows so that its shared memory fits. Every output is
+//   summed in the same order whatever the slicing, and the shapes that fit
+//   one block (c * dk <= 4096, dk <= 128) run instantiations whose slice is
+//   the whole chunk (and the query tile 32 rows) at compile time: the
+//   kernels as they were before slicing, bit for bit and in time.
 // - Dropout: keep iff a counter-based hash of (seed, b, h, query frame, key
 //   stream row) >= threshold, so every kernel and the plain version
 //   regenerate the same mask from absolute positions.
@@ -57,7 +69,24 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 32;       // keys (or query rows) per tile == warp width
-constexpr int kMaxOut = 16;     // outputs per thread: c * dk <= 4096, 32 * dk <= 4096
+constexpr int kMaxOut = 16;     // outputs per thread: (rows of a slice) * dk <= 4096
+
+// Query rows of a chunk a forward or dq block takes, and the slices of a
+// chunk: at most 4096 / dk rows each, as even as the count of slices allows.
+__host__ __device__ inline int slices_of(int c, int dk) {
+  const int most = 4096 / dk;
+  return (c + most - 1) / most;
+}
+__host__ __device__ inline int rows_per_slice(int c, int dk) {
+  const int s = slices_of(c, dk);
+  return (c + s - 1) / s;
+}
+// Column slices of the dK/dV kernel's 32 x dk outputs: at most 128 columns.
+__host__ __device__ inline int col_slices(int dk) { return (dk + 127) / 128; }
+__host__ __device__ inline int cols_per_slice(int dk) {
+  const int s = col_slices(dk);
+  return (dk + s - 1) / s;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -91,7 +120,7 @@ struct Geom {
 
 // ---------------------------------------------------------------- forward
 
-template <typename T>
+template <typename T, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                  const T* __restrict__ pos, const T* __restrict__ bias_u,
@@ -105,38 +134,44 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int b = blockIdx.x / g.n, ci = blockIdx.x % g.n, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = g.c, dk = g.dk, W = g.W(), ld = dk + 1;
-  const int p_rows = kTile + c - 1;
+  // this block's query rows [r0, r0 + cs) of the chunk; local row r is r0 + r
+  const int cmax = kSliced ? rows_per_slice(c, dk) : c;
+  const int r0 = kSliced ? (int)blockIdx.z * cmax : 0;
+  const int cs = kSliced ? min(cmax, c - r0) : c;
+  const int p_rows = kTile + cs - 1;
+  const int p0 = kSliced ? c - r0 - cs : 0;  // first positional row of the slice at j = 0
 
-  float* qu = smem;                      // [c][ld]
-  float* qv = qu + c * ld;               // [c][ld]
-  float* ks = qv + c * ld;               // [kTile][ld]
+  float* qu = smem;                      // [cs][ld]
+  float* qv = qu + cs * ld;              // [cs][ld]
+  float* ks = qv + cs * ld;              // [kTile][ld]
   float* vs = ks + kTile * ld;           // [kTile][ld]
   float* ps = vs + kTile * ld;           // [p_rows][ld]
-  float* sc = ps + p_rows * ld;          // [c][kTile + 1] weights of this tile
-  float* row_m = sc + c * (kTile + 1);   // [c] running max
-  float* row_l = row_m + c;              // [c] running sum
-  float* row_a = row_l + c;              // [c] rescale factor of this tile
+  float* sc = ps + p_rows * ld;          // [cs][kTile + 1] weights of this tile
+  float* row_m = sc + cs * (kTile + 1);  // [cs] running max
+  float* row_l = row_m + cs;             // [cs] running sum
+  float* row_a = row_l + cs;             // [cs] rescale factor of this tile
 
   const float scale = rsqrtf((float)dk);
   const int len = lens[b];
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
-  const int rows = min(c, max(0, len - ci * c));   // valid query rows
+  const int rows = min(cs, max(0, len - ci * c - r0));   // valid query rows of the slice
   const uint32_t st = drop_state(seed, b, h, g.H);
+  const int64_t fq0 = (int64_t)ci * c + r0;   // the slice's first query frame
 
-  const T* qb = q + (int64_t)b * sqb + (int64_t)ci * c * sqt + (int64_t)h * sqh;
-  for (int i = tid; i < c * dk; i += kThreads) {
+  const T* qb = q + (int64_t)b * sqb + fq0 * sqt + (int64_t)h * sqh;
+  for (int i = tid; i < cs * dk; i += kThreads) {
     const int r = i / dk, d = i % dk;
     const float x = to_f32(qb[(int64_t)r * sqt + d]);
     qu[r * ld + d] = (x + to_f32(bias_u[h * dk + d])) * scale;
     qv[r * ld + d] = (x + to_f32(bias_v[h * dk + d])) * scale;
   }
-  for (int r = tid; r < c; r += kThreads) {
+  for (int r = tid; r < cs; r += kThreads) {
     row_m[r] = -INFINITY;
     row_l[r] = 0.f;
   }
 
-  const int n_out = (c * dk + kThreads - 1) / kThreads;
+  const int n_out = (cs * dk + kThreads - 1) / kThreads;
   float acc[kMaxOut];
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) acc[k] = 0.f;
@@ -158,19 +193,19 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       vs[jj * ld + d] = vx;
     }
     for (int i = tid; i < p_rows * dk; i += kThreads) {
-      const int pr = i / dk, d = i % dk, pidx = j0 + pr;
+      const int pr = i / dk, d = i % dk, pidx = j0 + p0 + pr;
       ps[pr * ld + d] = pidx < g.P() ? to_f32(pb[(int64_t)pidx * spp + d]) : 0.f;
     }
     __syncthreads();
 
-    for (int r = warp; r < c; r += kThreads / 32) {
+    for (int r = warp; r < cs; r += kThreads / 32) {
       const int j = j0 + lane;
       float s = -INFINITY;
       if (r < rows && j >= lo && j < hi) {
         const float* a = qu + r * ld;
         const float* bk = ks + lane * ld;
         const float* e = qv + r * ld;
-        const float* f = ps + (c - 1 - r + lane) * ld;
+        const float* f = ps + (cs - 1 - r + lane) * ld;
         float ac = 0.f, bd = 0.f;
         for (int d = 0; d < dk; ++d) {
           ac = fmaf(a[d], bk[d], ac);
@@ -188,7 +223,7 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
       float pw = pr;
-      if (use_drop) pw = keep(st, ci * c + r, ci * c + j, thresh) ? pr * drop_scale : 0.f;
+      if (use_drop) pw = keep(st, ci * c + r0 + r, ci * c + j, thresh) ? pr * drop_scale : 0.f;
       sc[r * (kTile + 1) + lane] = pw;
       if (lane == 0) {
         const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_old - m_new);
@@ -203,7 +238,7 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     for (int k = 0; k < kMaxOut; ++k) {
       if (k < n_out) {
         const int i = tid + k * kThreads;
-        if (i < c * dk) {
+        if (i < cs * dk) {
           const int r = i / dk, d = i % dk;
           const float* prow = sc + r * (kTile + 1);
           float a = acc[k] * row_a[r];
@@ -215,20 +250,20 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   }
   __syncthreads();
 
-  const int64_t t0 = (int64_t)b * g.T() + (int64_t)ci * c;   // first frame of the chunk
+  const int64_t t0 = (int64_t)b * g.T() + fq0;   // first frame of the slice
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) {
     if (k < n_out) {
       const int i = tid + k * kThreads;
-      if (i < c * dk) {
+      if (i < cs * dk) {
         const int r = i / dk, d = i % dk;
         const float l = row_l[r];
         store(ctx + ((t0 + r) * g.H + h) * dk + d, l > 0.f ? acc[k] / l : 0.f);
       }
     }
   }
-  for (int r = tid; r < c; r += kThreads) {
-    const int64_t o = ((int64_t)b * g.H + h) * g.T() + (int64_t)ci * c + r;
+  for (int r = tid; r < cs; r += kThreads) {
+    const int64_t o = ((int64_t)b * g.H + h) * g.T() + fq0 + r;
     m_out[o] = fmaxf(row_m[r], -1e29f);
     den_out[o] = fmaxf(row_l[r], 1e-30f);
   }
@@ -236,7 +271,7 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 
 // ------------------------------------------------------- backward (a): dq
 
-template <typename T>
+template <typename T, bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                     const T* __restrict__ pos, const T* __restrict__ bias_u,
@@ -252,32 +287,40 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int b = blockIdx.x / g.n, ci = blockIdx.x % g.n, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = g.c, dk = g.dk, W = g.W(), P = g.P(), ld = dk + 1;
-  const int p_rows = kTile + c - 1;
+  // this block's query rows [r0, r0 + cs) of the chunk; local row r is r0 + r
+  const int cmax = kSliced ? rows_per_slice(c, dk) : c;
+  const int r0 = kSliced ? (int)blockIdx.z * cmax : 0;
+  const int cs = kSliced ? min(cmax, c - r0) : c;
+  const int p_rows = kTile + cs - 1;
+  const int p0 = kSliced ? c - r0 - cs : 0;  // first positional row of the slice at j = 0
 
-  float* qu = smem;                      // [c][ld]
-  float* qv = qu + c * ld;               // [c][ld]
-  float* gs = qv + c * ld;               // [c][ld] dctx
-  float* ks = gs + c * ld;               // [kTile][ld]
+  float* qu = smem;                      // [cs][ld]
+  float* qv = qu + cs * ld;              // [cs][ld]
+  float* gs = qv + cs * ld;              // [cs][ld] dctx
+  float* ks = gs + cs * ld;              // [kTile][ld]
   float* vs = ks + kTile * ld;           // [kTile][ld]
   float* ps = vs + kTile * ld;           // [p_rows][ld]
-  float* ds = ps + p_rows * ld;          // [c][kTile + 1]
-  float* row_m = ds + c * (kTile + 1);   // [c]
-  float* row_den = row_m + c;            // [c]
-  float* row_delta = row_den + c;        // [c]
+  float* ds = ps + p_rows * ld;          // [cs][kTile + 1]
+  float* row_m = ds + cs * (kTile + 1);  // [cs]
+  float* row_den = row_m + cs;           // [cs]
+  float* row_delta = row_den + cs;       // [cs]
 
   const float scale = rsqrtf((float)dk);
   const int len = lens[b];
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
-  const int rows = min(c, max(0, len - ci * c));
+  const int rows = min(cs, max(0, len - ci * c - r0));   // valid query rows of the slice
   const uint32_t st = drop_state(seed, b, h, g.H);
-  const int64_t blk = (int64_t)blockIdx.x * g.H + h;
+  const int64_t fq0 = (int64_t)ci * c + r0;   // the slice's first query frame
+  // partials of cell (b, ci, slice), in that order
+  const int64_t blk = (kSliced ? (int64_t)blockIdx.x * gridDim.z + blockIdx.z
+                               : (int64_t)blockIdx.x) * g.H + h;
   float* slab = dp_part + blk * P * dk;
-  const int64_t t0 = (int64_t)b * g.T() + (int64_t)ci * c;
-  const int64_t s0 = ((int64_t)b * g.H + h) * g.T() + (int64_t)ci * c;
+  const int64_t t0 = (int64_t)b * g.T() + fq0;
+  const int64_t s0 = ((int64_t)b * g.H + h) * g.T() + fq0;
 
-  const T* qb = q + (int64_t)b * sqb + (int64_t)ci * c * sqt + (int64_t)h * sqh;
-  for (int i = tid; i < c * dk; i += kThreads) {
+  const T* qb = q + (int64_t)b * sqb + fq0 * sqt + (int64_t)h * sqh;
+  for (int i = tid; i < cs * dk; i += kThreads) {
     const int r = i / dk, d = i % dk;
     const float x = to_f32(qb[(int64_t)r * sqt + d]);
     qu[r * ld + d] = (x + to_f32(bias_u[h * dk + d])) * scale;
@@ -285,7 +328,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     gs[r * ld + d] = to_f32(dctx[((t0 + r) * g.H + h) * dk + d]);
   }
   for (int i = tid; i < P * dk; i += kThreads) slab[i] = 0.f;
-  for (int r = warp; r < c; r += kThreads / 32) {   // delta = rowsum(dctx * ctx)
+  for (int r = warp; r < cs; r += kThreads / 32) {   // delta = rowsum(dctx * ctx)
     const T* cr = ctx + ((t0 + r) * g.H + h) * dk;
     const T* gr = dctx + ((t0 + r) * g.H + h) * dk;
     float a = 0.f;
@@ -300,7 +343,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
   }
 
-  const int n_out = (c * dk + kThreads - 1) / kThreads;
+  const int n_out = (cs * dk + kThreads - 1) / kThreads;
   float dqu[kMaxOut], dqv[kMaxOut];
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) dqu[k] = dqv[k] = 0.f;
@@ -322,19 +365,19 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       vs[jj * ld + d] = vx;
     }
     for (int i = tid; i < p_rows * dk; i += kThreads) {
-      const int pr = i / dk, d = i % dk, pidx = j0 + pr;
+      const int pr = i / dk, d = i % dk, pidx = j0 + p0 + pr;
       ps[pr * ld + d] = pidx < P ? to_f32(pb[(int64_t)pidx * spp + d]) : 0.f;
     }
     __syncthreads();
 
-    for (int r = warp; r < c; r += kThreads / 32) {
+    for (int r = warp; r < cs; r += kThreads / 32) {
       const int j = j0 + lane;
       float dsv = 0.f;
       if (r < rows && j >= lo && j < hi) {
         const float* a = qu + r * ld;
         const float* bk = ks + lane * ld;
         const float* e = qv + r * ld;
-        const float* f = ps + (c - 1 - r + lane) * ld;
+        const float* f = ps + (cs - 1 - r + lane) * ld;
         const float* gr = gs + r * ld;
         const float* vr = vs + lane * ld;
         float ac = 0.f, bd = 0.f, da = 0.f;
@@ -344,7 +387,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
           da = fmaf(gr[d], vr[d], da);
         }
         const float att = expf(ac + bd - row_m[r]) / row_den[r];
-        if (use_drop) da = keep(st, ci * c + r, ci * c + j, thresh) ? da * drop_scale : 0.f;
+        if (use_drop) da = keep(st, ci * c + r0 + r, ci * c + j, thresh) ? da * drop_scale : 0.f;
         dsv = att * (da - row_delta[r]);
       }
       ds[r * (kTile + 1) + lane] = dsv;
@@ -355,10 +398,10 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     for (int k = 0; k < kMaxOut; ++k) {
       if (k < n_out) {
         const int i = tid + k * kThreads;
-        if (i < c * dk) {
+        if (i < cs * dk) {
           const int r = i / dk, d = i % dk;
           const float* drow = ds + r * (kTile + 1);
-          const float* prow = ps + (c - 1 - r) * ld + d;
+          const float* prow = ps + (cs - 1 - r) * ld + d;
           float au = dqu[k], av = dqv[k];
           for (int jj = 0; jj < kTile; ++jj) {
             au = fmaf(drow[jj], ks[jj * ld + d], au);
@@ -369,15 +412,15 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         }
       }
     }
-    // dP rows j0 + pr: sum over r of dS[r, pr - (c - 1) + r] * qv[r]
+    // dP rows j0 + p0 + pr: sum over r of dS[r, pr - (cs - 1) + r] * qv[r]
     for (int i = tid; i < p_rows * dk; i += kThreads) {
       const int pr = i / dk, d = i % dk;
-      if (j0 + pr >= P) continue;
-      const int r_lo = max(0, c - 1 - pr), r_hi = min(rows, c - 1 - pr + kTile);
+      if (j0 + p0 + pr >= P) continue;
+      const int r_lo = max(0, cs - 1 - pr), r_hi = min(rows, cs - 1 - pr + kTile);
       float a = 0.f;
       for (int r = r_lo; r < r_hi; ++r)
-        a = fmaf(ds[r * (kTile + 1) + pr - (c - 1) + r], qv[r * ld + d], a);
-      slab[(int64_t)(j0 + pr) * dk + d] += a;
+        a = fmaf(ds[r * (kTile + 1) + pr - (cs - 1) + r], qv[r * ld + d], a);
+      slab[(int64_t)(j0 + p0 + pr) * dk + d] += a;
     }
   }
   __syncthreads();
@@ -387,7 +430,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   for (int k = 0; k < kMaxOut; ++k) {
     if (k < n_out) {
       const int i = tid + k * kThreads;
-      if (i < c * dk) {
+      if (i < cs * dk) {
         const int r = i / dk, d = i % dk;
         store(dq + ((t0 + r) * g.H + h) * dk + d, (dqu[k] + dqv[k]) * scale);
         qu[r * ld + d] = dqu[k] * scale;
@@ -398,7 +441,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   __syncthreads();
   for (int d = tid; d < dk; d += kThreads) {
     float su = 0.f, sv = 0.f;
-    for (int r = 0; r < c; ++r) {
+    for (int r = 0; r < cs; ++r) {
       su += qu[r * ld + d];
       sv += qv[r * ld + d];
     }
@@ -409,7 +452,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 
 // -------------------------------------------------- backward (b): dk, dv
 
-template <typename T>
+template <typename T, int QT, bool kColSliced>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                      const T* __restrict__ pos, const T* __restrict__ bias_u,
@@ -421,24 +464,28 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                      int64_t sqb, int64_t sqt, int64_t sqh,
                      int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                      int64_t sdb, int64_t sdt, int64_t sdh) {
+  constexpr int qt = QT;                 // query rows a tile (32, or 16 at large dk)
   extern __shared__ float smem[];
   const int tiles = (g.T() + kTile - 1) / kTile;
   const int b = blockIdx.x / tiles, f0 = (blockIdx.x % tiles) * kTile, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int c = g.c, dk = g.dk, W = g.W(), P = g.P(), ld = dk + 1;
-  const int p_rows = 2 * kTile - 1;
+  const int p_rows = qt + kTile - 1;
+  // this block's output columns [d0, d0 + dn) of dK and dV
+  const int d0 = kColSliced ? (int)blockIdx.z * cols_per_slice(dk) : 0;
+  const int dn = kColSliced ? min(cols_per_slice(dk), dk - d0) : dk;
 
   float* ks = smem;                      // [kTile][ld] keys of this block
   float* vs = ks + kTile * ld;           // [kTile][ld]
-  float* qu = vs + kTile * ld;           // [kTile][ld] query tile
-  float* qv = qu + kTile * ld;           // [kTile][ld]
-  float* gs = qv + kTile * ld;           // [kTile][ld] dctx
-  float* ps = gs + kTile * ld;           // [p_rows][ld]
-  float* as = ps + p_rows * ld;          // [kTile][kTile + 1] dropped weights
-  float* ds = as + kTile * (kTile + 1);  // [kTile][kTile + 1]
-  float* row_m = ds + kTile * (kTile + 1);
-  float* row_den = row_m + kTile;
-  float* row_delta = row_den + kTile;
+  float* qu = vs + kTile * ld;           // [qt][ld] query tile
+  float* qv = qu + qt * ld;              // [qt][ld]
+  float* gs = qv + qt * ld;              // [qt][ld] dctx
+  float* ps = gs + qt * ld;              // [p_rows][ld]
+  float* as = ps + p_rows * ld;          // [qt][kTile + 1] dropped weights
+  float* ds = as + qt * (kTile + 1);     // [qt][kTile + 1]
+  float* row_m = ds + qt * (kTile + 1);
+  float* row_den = row_m + qt;
+  float* row_delta = row_den + qt;
 
   const float scale = rsqrtf((float)dk);
   const int len = lens[b];
@@ -457,7 +504,7 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     vs[jj * ld + d] = vx;
   }
 
-  const int n_out = (kTile * dk + kThreads - 1) / kThreads;
+  const int n_out = (kTile * dn + kThreads - 1) / kThreads;
   float dka[kMaxOut], dva[kMaxOut];
 #pragma unroll
   for (int k = 0; k < kMaxOut; ++k) dka[k] = dva[k] = 0.f;
@@ -469,11 +516,11 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const T* pb = pos + (int64_t)h * sph;
 
   for (int ci = ci_lo; ci <= ci_hi && f0 < len; ++ci) {
-    for (int r0 = 0; r0 < c && ci * c + r0 < len; r0 += kTile) {
+    for (int r0 = 0; r0 < c && ci * c + r0 < len; r0 += qt) {
       __syncthreads();
       const T* qb = q + (int64_t)b * sqb + (int64_t)(ci * c + r0) * sqt + (int64_t)h * sqh;
       const int64_t t0 = (int64_t)b * g.T() + ci * c + r0;
-      for (int i = tid; i < kTile * dk; i += kThreads) {
+      for (int i = tid; i < qt * dk; i += kThreads) {
         const int rr = i / dk, d = i % dk;
         float x = 0.f, gx = 0.f;
         if (r0 + rr < c) {
@@ -484,13 +531,13 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         qv[rr * ld + d] = (x + to_f32(bias_v[h * dk + d])) * scale;
         gs[rr * ld + d] = gx;
       }
-      // positional rows c-1-(r0+rr)+j for j = L + f0 + jj - ci*c: base at rr = 31, jj = 0
-      const int pbase = c - 1 - (r0 + kTile - 1) + g.L + f0 - ci * c;
+      // positional rows c-1-(r0+rr)+j for j = L + f0 + jj - ci*c: base at rr = qt-1, jj = 0
+      const int pbase = c - 1 - (r0 + qt - 1) + g.L + f0 - ci * c;
       for (int i = tid; i < p_rows * dk; i += kThreads) {
         const int pr = i / dk, d = i % dk, pidx = pbase + pr;
         ps[pr * ld + d] = (pidx >= 0 && pidx < P) ? to_f32(pb[(int64_t)pidx * spp + d]) : 0.f;
       }
-      for (int rr = tid; rr < kTile; rr += kThreads) {
+      for (int rr = tid; rr < qt; rr += kThreads) {
         const int64_t o = ((int64_t)b * g.H + h) * g.T() + ci * c + r0 + rr;
         const bool in = r0 + rr < c;
         row_m[rr] = in ? m_in[o] : 0.f;
@@ -499,14 +546,14 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       }
       __syncthreads();
 
-      for (int rr = warp; rr < kTile; rr += kThreads / 32) {
+      for (int rr = warp; rr < qt; rr += kThreads / 32) {
         const int r = r0 + rr, f = f0 + lane, j = g.L + f - ci * c;
         float av = 0.f, dsv = 0.f;
         if (r < c && ci * c + r < len && f < len && j >= 0 && j < W) {
           const float* a = qu + rr * ld;
           const float* bk = ks + lane * ld;
           const float* e = qv + rr * ld;
-          const float* pp = ps + (kTile - 1 - rr + lane) * ld;
+          const float* pp = ps + (qt - 1 - rr + lane) * ld;
           const float* gr = gs + rr * ld;
           const float* vr = vs + lane * ld;
           float ac = 0.f, bd = 0.f, da = 0.f;
@@ -533,10 +580,10 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       for (int k = 0; k < kMaxOut; ++k) {
         if (k < n_out) {
           const int i = tid + k * kThreads;
-          if (i < kTile * dk) {
-            const int jj = i / dk, d = i % dk;
+          if (i < kTile * dn) {
+            const int jj = i / dn, d = d0 + i % dn;
             float ak = dka[k], avv = dva[k];
-            for (int rr = 0; rr < kTile; ++rr) {
+            for (int rr = 0; rr < qt; ++rr) {
               ak = fmaf(ds[rr * (kTile + 1) + jj], qu[rr * ld + d], ak);
               avv = fmaf(as[rr * (kTile + 1) + jj], gs[rr * ld + d], avv);
             }
@@ -553,8 +600,8 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   for (int k = 0; k < kMaxOut; ++k) {
     if (k < n_out) {
       const int i = tid + k * kThreads;
-      if (i < kTile * dk) {
-        const int jj = i / dk, d = i % dk, f = f0 + jj;
+      if (i < kTile * dn) {
+        const int jj = i / dn, d = d0 + i % dn, f = f0 + jj;
         if (f < g.T()) {
           T* row = ob + (int64_t)(g.L + f) * sdt;
           store(row + d, dka[k]);
@@ -591,21 +638,32 @@ train_bwd_reduce_kernel(const float* __restrict__ dp_part, const float* __restri
 }
 
 size_t fwd_smem(const Geom& g) {
-  const int ld = g.dk + 1;
-  return sizeof(float) * ((size_t)2 * g.c * ld + 2 * kTile * ld + (size_t)(kTile + g.c - 1) * ld +
-                          (size_t)g.c * (kTile + 1) + 3 * g.c);
+  const int ld = g.dk + 1, cs = rows_per_slice(g.c, g.dk);
+  return sizeof(float) * ((size_t)2 * cs * ld + 2 * kTile * ld + (size_t)(kTile + cs - 1) * ld +
+                          (size_t)cs * (kTile + 1) + 3 * cs);
 }
 
 size_t dq_smem(const Geom& g) {
-  const int ld = g.dk + 1;
-  return sizeof(float) * ((size_t)3 * g.c * ld + 2 * kTile * ld + (size_t)(kTile + g.c - 1) * ld +
-                          (size_t)g.c * (kTile + 1) + 3 * g.c);
+  const int ld = g.dk + 1, cs = rows_per_slice(g.c, g.dk);
+  return sizeof(float) * ((size_t)3 * cs * ld + 2 * kTile * ld + (size_t)(kTile + cs - 1) * ld +
+                          (size_t)cs * (kTile + 1) + 3 * cs);
 }
 
-size_t dkv_smem(const Geom& g) {
+size_t dkv_smem(const Geom& g, int qt) {
   const int ld = g.dk + 1;
-  return sizeof(float) * ((size_t)5 * kTile * ld + (size_t)(2 * kTile - 1) * ld +
-                          (size_t)2 * kTile * (kTile + 1) + 3 * kTile);
+  return sizeof(float) * ((size_t)(2 * kTile + 3 * qt) * ld + (size_t)(qt + kTile - 1) * ld +
+                          (size_t)2 * qt * (kTile + 1) + 3 * qt);
+}
+
+// The dK/dV kernel's query tile: 32 rows where its shared memory fits a
+// block, else 16 (past about dk = 249 on an H100).
+int dkv_query_tile(const Geom& g, int* qt) {
+  int dev = 0, most = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *qt = dkv_smem(g, kTile) <= (size_t)most ? kTile : kTile / 2;
+  return (int)err;
 }
 
 template <typename K>
@@ -613,17 +671,62 @@ int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <typename T, bool kSliced>
+int launch_fwd_as(const void* q, const void* kv, const void* pos, const void* u, const void* v,
+               const int* lens, void* ctx, float* m, float* den, int B, Geom g,
+               uint32_t seed, uint32_t thresh, float drop_scale, int use_drop,
+               const int64_t* s, cudaStream_t stream) {
+  const size_t smem = fwd_smem(g);
+  int err = set_smem(train_fwd_kernel<T, kSliced>, smem);
+  if (err) return err;
+  train_fwd_kernel<T, kSliced><<<dim3(B * g.n, g.H, slices_of(g.c, g.dk)), kThreads, smem,
+                                 stream>>>(
+      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, (T*)ctx, m,
+      den, g, seed, thresh, drop_scale, use_drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(const void* q, const void* kv, const void* pos, const void* u, const void* v,
                const int* lens, void* ctx, float* m, float* den, int B, Geom g,
                uint32_t seed, uint32_t thresh, float drop_scale, int use_drop,
                const int64_t* s, cudaStream_t stream) {
-  const size_t smem = fwd_smem(g);
-  int err = set_smem(train_fwd_kernel<T>, smem);
+  auto go = slices_of(g.c, g.dk) > 1 ? launch_fwd_as<T, true> : launch_fwd_as<T, false>;
+  return go(q, kv, pos, u, v, lens, ctx, m, den, B, g, seed, thresh, drop_scale, use_drop, s,
+            stream);
+}
+
+template <typename T, bool kSliced>
+int launch_dq(const void* q, const void* kv, const void* pos, const void* u, const void* v,
+              const int* lens, const void* ctx, const float* m, const float* den,
+              const void* dctx, float* delta, void* dq, float* dp_part, float* duv_part, int B,
+              Geom g, uint32_t seed, uint32_t thresh, float drop_scale, int use_drop,
+              const int64_t* s, cudaStream_t stream) {
+  const size_t smem = dq_smem(g);
+  int err = set_smem(train_bwd_dq_kernel<T, kSliced>, smem);
   if (err) return err;
-  train_fwd_kernel<T><<<dim3(B * g.n, g.H), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, (T*)ctx, m,
-      den, g, seed, thresh, drop_scale, use_drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
+  train_bwd_dq_kernel<T, kSliced><<<dim3(B * g.n, g.H, slices_of(g.c, g.dk)), kThreads, smem,
+                                    stream>>>(
+      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, (const T*)ctx,
+      m, den, (const T*)dctx, delta, (T*)dq, dp_part, duv_part, g, seed, thresh, drop_scale,
+      use_drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int QT, bool kColSliced>
+int launch_dkv(const void* q, const void* kv, const void* pos, const void* u, const void* v,
+               const int* lens, const float* m, const float* den, const float* delta,
+               const void* dctx, void* dkv, int B, Geom g, uint32_t seed, uint32_t thresh,
+               float drop_scale, int use_drop, const int64_t* s, cudaStream_t stream) {
+  const size_t smem = dkv_smem(g, QT);
+  int err = set_smem(train_bwd_dkv_kernel<T, QT, kColSliced>, smem);
+  if (err) return err;
+  const int tiles = (g.T() + kTile - 1) / kTile;
+  train_bwd_dkv_kernel<T, QT, kColSliced><<<dim3(B * tiles, g.H, col_slices(g.dk)), kThreads,
+                                            smem, stream>>>(
+      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, m, den, delta,
+      (const T*)dctx, (T*)dkv, g, seed, thresh, drop_scale, use_drop, s[0], s[1], s[2], s[3],
+      s[4], s[5], s[6], s[7], s[8], s[9], s[10]);
   return (int)cudaGetLastError();
 }
 
@@ -634,39 +737,34 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
                float* duv_part, void* dp, void* du, void* dv, int B, Geom g, uint32_t seed,
                uint32_t thresh, float drop_scale, int use_drop, const int64_t* s,
                cudaStream_t stream) {
-  size_t smem = dq_smem(g);
-  int err = set_smem(train_bwd_dq_kernel<T>, smem);
-  if (err) return err;
-  train_bwd_dq_kernel<T><<<dim3(B * g.n, g.H), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, (const T*)ctx,
-      m, den, (const T*)dctx, delta, (T*)dq, dp_part, duv_part, g, seed, thresh, drop_scale,
-      use_drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
-  err = (int)cudaGetLastError();
+  auto dq_go = slices_of(g.c, g.dk) > 1 ? launch_dq<T, true> : launch_dq<T, false>;
+  int err = dq_go(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq, dp_part, duv_part, B,
+                  g, seed, thresh, drop_scale, use_drop, s, stream);
   if (err) return err;
 
-  smem = dkv_smem(g);
-  err = set_smem(train_bwd_dkv_kernel<T>, smem);
-  if (err) return err;
-  const int tiles = (g.T() + kTile - 1) / kTile;
-  train_bwd_dkv_kernel<T><<<dim3(B * tiles, g.H), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)kv, (const T*)pos, (const T*)u, (const T*)v, lens, m, den, delta,
-      (const T*)dctx, (T*)dkv, g, seed, thresh, drop_scale, use_drop, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], s[9], s[10]);
-  err = (int)cudaGetLastError();
+  int qt = kTile;
+  if ((err = dkv_query_tile(g, &qt))) return err;
+  auto dkv_go = col_slices(g.dk) == 1 ? launch_dkv<T, kTile, false>
+                : qt == kTile         ? launch_dkv<T, kTile, true>
+                                      : launch_dkv<T, kTile / 2, true>;
+  err = dkv_go(q, kv, pos, u, v, lens, m, den, delta, dctx, dkv, B, g, seed, thresh, drop_scale,
+               use_drop, s, stream);
   if (err) return err;
 
   const int64_t outs = (int64_t)g.P() * g.H * g.dk + 2 * g.H * g.dk;
   train_bwd_reduce_kernel<T><<<(unsigned)((outs + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      dp_part, duv_part, (T*)dp, (T*)du, (T*)dv, B * g.n, g);
+      dp_part, duv_part, (T*)dp, (T*)du, (T*)dv, B * g.n * slices_of(g.c, g.dk), g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Return a cudaError_t (0 = launched).
-// Shapes are checked by the Python wrapper (c * dk <= 4096, dk <= 128); ctx,
-// dctx, dq are contiguous [B, n*c, H, dk], m, den, delta contiguous
-// [B, H, n*c]. Strides: q (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h).
+// Shapes are checked by the Python wrapper (any c; dk up to the shared memory
+// a block may take, 256 and more on an H100); ctx, dctx, dq are contiguous
+// [B, n*c, H, dk], m, den, delta contiguous [B, H, n*c]. dp_part holds
+// B * n * slices_of(c, dk) * H slabs [P, dk] and duv_part as many [2, dk].
+// Strides: q (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h).
 extern "C" int cf_chunk_train_attn_fwd(int dtype, const void* q, const void* kv,
                                        const void* pos, const void* u, const void* v,
                                        const int* lens, void* ctx, float* m, float* den,

@@ -16,7 +16,8 @@
 // same reason keeps this kernel off the bf16/TF32 tensor cores.
 //
 // Design (simple and right first): one block per tile of kFrames = 32 frames,
-// one thread per DFT bin. The windowed frames sit in shared memory
+// one thread per DFT bin (at most 288 threads; a wider spectrum is taken in
+// passes). The windowed frames sit in shared memory
 // transposed ([sample][frame]) so that a thread reads eight frames' samples
 // with one float4 broadcast load and keeps 2 * 32 accumulators in registers;
 // the cos/sin tables ([win][n_bins], 822 KB for 400 x 257) are read with
@@ -30,6 +31,7 @@
 namespace {
 
 constexpr int kFrames = 32;
+constexpr int kMaxThreads = 288;  // a block of 288 threads launches (257 bins at 512 points)
 constexpr float kPreemph = 0.97f;
 constexpr float kEps = 1.1920928955078125e-07f;
 
@@ -120,7 +122,12 @@ extern "C" int cf_fbank(const float* wave, const float* cos_t, const float* sin_
                         void* stream) {
   if (n_frames == 0) return 0;
   if (n_bins > win || n_bins > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = ((n_bins + 31) / 32) * 32;
+  // a thread per bin up to kMaxThreads; past that the bin loop takes the
+  // bins in passes of equal width (2 * kFrames accumulators a thread leave
+  // no registers for 544 threads, the 513 bins of a 1024-point window:
+  // cudaError 701)
+  const int passes = (n_bins + kMaxThreads - 1) / kMaxThreads;
+  const int threads = ((n_bins + passes - 1) / passes + 31) / 32 * 32;
   const size_t smem = sizeof(float) * ((size_t)2 * kFrames * win + kFrames);
   cudaError_t err = cudaFuncSetAttribute(
       fbank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -43,12 +43,15 @@
 //    times.
 //  - One warp per frame. The padded frame x (real, `padded` points) is the
 //    complex sequence z[n] = x[2n] + i x[2n+1] of N = padded / 2 points.
-//    Each lane builds the first stage's inputs z[lane + j N/8] in registers
-//    (DC removal by a warp sum, preemphasis, window from shared memory, zero
-//    padding), runs a radix-8 DFT on them, and the remaining radix-8/4
-//    Stockham stages exchange through a per-warp buffer in shared memory
-//    (swizzled against bank conflicts); the last one leaves Z[lane + 32 q]
-//    in the lane's registers. The real split
+//    Each lane builds the first stage's inputs z[i + j N/8] of its
+//    butterflies i = lane + 32 b in registers (DC removal by a warp sum,
+//    preemphasis, window from shared memory, zero padding), runs a radix-8
+//    DFT on them, and the remaining radix-8/4 Stockham stages exchange
+//    through a per-warp buffer in shared memory (swizzled against bank
+//    conflicts); the last one leaves Z[lane + 32 q] in the lane's
+//    registers. Padded 256 and 512 points take one first-stage butterfly a
+//    lane; 1024 points (50 ms at 16 kHz, 46 ms at 22.05 kHz) take two, then
+//    two radix-8 stages. The real split
 //    X[k] = (Z[k] + conj Z[N-k]) / 2 - i W^k (Z[k] - conj Z[N-k]) / 2,
 //    W = exp(-2 pi i / padded), takes each Z[N-k] from lane 32 - lane by
 //    shuffle and gives the bins k < N (the Nyquist bin meets a zero mel
@@ -56,7 +59,10 @@
 //    host, one a stage laid out [j][k] so that neighbouring lanes read
 //    neighbouring entries, held in shared memory.
 //  - Shared memory traffic and the float64 pipe hold it, not DRAM: registers
-//    are capped (kBlocksPerSM) so that three blocks, 24 warps, share an SM.
+//    are capped (blocks_per_sm) so that three blocks, 24 warps, share an SM
+//    at 256 and 512 points. At 1024 points a block takes about 127 KB of
+//    shared memory (64 KB of it the warps' FFT buffers), so one block, 8
+//    warps, fits an SM, and its registers are not capped.
 //  - Sparse mel: each triangular band is a contiguous run of bins. The host
 //    deals whole bands to the 32 lanes so that each lane has about as many
 //    (bin, weight) steps as the others (about 16 for 80 bands at 512
@@ -74,7 +80,9 @@ namespace {
 
 constexpr int kTileFrames = 16;
 constexpr int kWarps = 8;
-constexpr int kBlocksPerSM = 3;  // registers capped so that 3 blocks (24 warps) fit an SM
+// registers capped so that 3 blocks (24 warps) fit an SM; at N = 512 shared
+// memory admits one block an SM, which may then take all the registers
+__host__ __device__ constexpr int blocks_per_sm(int n) { return n == 512 ? 1 : 3; }
 constexpr int kThreads = 32 * kWarps;
 constexpr float kPreemph = 0.97f;
 constexpr float kEps = 1.1920928955078125e-07f;
@@ -217,11 +225,14 @@ __device__ __forceinline__ void stage(double2* z, const double2* tw, int lane,
 template <int N>
 __device__ __forceinline__ void later_stages(double2* z, const double2* tw, int lane,
                                              double2* out) {
-  if constexpr (N == 256) {
+  if constexpr (N == 512) {
+    stage<N, 8, 8>(z, tw, lane);
+    stage<N, 8, 64>(z, tw + 7 * 8, lane, out);
+  } else if constexpr (N == 256) {
     stage<N, 8, 8>(z, tw, lane);
     stage<N, 4, 64>(z, tw + 7 * 8, lane, out);
   } else {
-    static_assert(N == 128, "the FFT kernel is instantiated for padded 256 and 512");
+    static_assert(N == 128, "the FFT kernel is instantiated for padded 256, 512 and 1024");
     stage<N, 4, 8>(z, tw, lane);
     stage<N, 4, 32>(z, tw + 3 * 8, lane, out);
   }
@@ -229,7 +240,7 @@ __device__ __forceinline__ void later_stages(double2* z, const double2* tw, int 
 
 // entries of the stage twiddle tables of the N-point FFT
 __host__ __device__ constexpr int stage_twiddles(int n) {
-  return n == 256 ? 7 * 8 + 3 * 64 : 3 * 8 + 3 * 32;
+  return n == 512 ? 7 * 8 + 7 * 64 : n == 256 ? 7 * 8 + 3 * 64 : 3 * 8 + 3 * 32;
 }
 
 // One frame on one warp: x is the frame's first sample in the staged tile,
@@ -239,40 +250,50 @@ __device__ __forceinline__ void frame(const float* x, const double* window, cons
                                       const double2* split, const int2* mel, double2* z,
                                       float* row, int win, double inv_win, int n_mels,
                                       int mel_steps, int lane) {
-  constexpr int T1 = N / 8;  // first-stage butterflies, one a lane
-  static_assert(T1 <= 32, "one first-stage butterfly a lane");
+  constexpr int T1 = N / 8;  // first-stage butterflies
+  constexpr int B1 = (T1 + 31) / 32;  // a lane's: butterfly i = lane + 32 b
+  static_assert(B1 == 1 || T1 % 32 == 0, "whole rounds of first-stage butterflies");
   // at even s (an even shift) the pairs (x[s], x[s+1]) and (window[s],
   // window[s+1]) are one aligned load each; x[s-1] is the odd neighbour's
-  double xe[8], xo[8], xp[8];
+  double xe[B1][8], xo[B1][8], xp[B1][8];
   double sum = 0.0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int s = 2 * (lane + j * T1);
-    const bool live = lane < T1 && s < win;
-    const float2 pair = live ? *reinterpret_cast<const float2*>(x + s) : make_float2(0.f, 0.f);
-    xe[j] = pair.x;
-    xo[j] = s + 1 < win ? pair.y : 0.f;
-    xp[j] = live ? x[s > 0 ? s - 1 : 0] : 0.f;
-    sum += xe[j] + xo[j];
+  for (int b = 0; b < B1; ++b) {
+    const int i = lane + 32 * b;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int s = 2 * (i + j * T1);
+      const bool live = i < T1 && s < win;
+      const float2 pair = live ? *reinterpret_cast<const float2*>(x + s)
+                               : make_float2(0.f, 0.f);
+      xe[b][j] = pair.x;
+      xo[b][j] = s + 1 < win ? pair.y : 0.f;
+      xp[b][j] = live ? x[s > 0 ? s - 1 : 0] : 0.f;
+      sum += xe[b][j] + xo[b][j];
+    }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
   const double mean = sum * inv_win;
 
-  if (lane < T1) {
-    double2 v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int s = 2 * (lane + j * T1);
-      const double e = xe[j] - mean, o = xo[j] - mean, p = xp[j] - mean;
-      const double2 w = s < win ? *reinterpret_cast<const double2*>(window + s)
-                                : cx(0.0, 0.0);
-      v[j].x = s < win ? (e - kPreemph * p) * w.x : 0.0;
-      v[j].y = s + 1 < win ? (o - kPreemph * e) * w.y : 0.0;
+  for (int b = 0; b < B1; ++b) {
+    const int i = lane + 32 * b;
+    if (i < T1) {
+      double2 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = 2 * (i + j * T1);
+        const double e = xe[b][j] - mean, o = xo[b][j] - mean, p = xp[b][j] - mean;
+        const double2 w = s < win ? *reinterpret_cast<const double2*>(window + s)
+                                  : cx(0.0, 0.0);
+        v[j].x = s < win ? (e - kPreemph * p) * w.x : 0.0;
+        v[j].y = s + 1 < win ? (o - kPreemph * e) * w.y : 0.0;
+      }
+      dft8(v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) z[slot(8 * i + j)] = v[j];
     }
-    dft8(v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) z[slot(8 * lane + j)] = v[j];
   }
   __syncwarp();
   constexpr int Q = N / 32;
@@ -353,7 +374,7 @@ __device__ __forceinline__ void copy_tile(float* dst, const Params& p, int tile,
 }
 
 template <int N>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM) fbank_fft_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(N)) fbank_fft_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(N, p.win, p.shift, p.n_mels, p.mel_steps);
   double2* tw = reinterpret_cast<double2*>(smem);
@@ -429,7 +450,7 @@ int launch(const Params& p, cudaStream_t stream) {
 // All pointers are on the device: wave and window float32; twiddle float64
 // [stage_twiddles(padded / 2)][2] and split float64 [padded / 2][2] (see
 // Params); mel int32 [mel_steps][32][2] (see Params); out float32
-// [n_frames][n_mels]. padded is 256 or 512, win <= padded, shift even,
+// [n_frames][n_mels]. padded is 256, 512 or 1024, win <= padded, shift even,
 // 0 < n_mels <= 128. Returns a cudaError_t.
 extern "C" int cf_fbank_fft(const float* wave, const double* twiddle,
                             const double* split, const float* window, const int* mel,
@@ -444,6 +465,7 @@ extern "C" int cf_fbank_fft(const float* wave, const double* twiddle,
                  reinterpret_cast<const int2*>(mel), out, n_frames, win, shift, n_mels,
                  mel_steps};
   cudaStream_t st = (cudaStream_t)stream;
+  if (padded == 1024) return launch<512>(p, st);
   if (padded == 512) return launch<256>(p, st);
   if (padded == 256) return launch<128>(p, st);
   return (int)cudaErrorInvalidValue;

@@ -1,15 +1,18 @@
 """CTC output post-processing: text assembly and timestamping.
 
 A copy of ``chunkformer_tpu/decode/outputs.py`` (numpy only), limited to what
-CTC decoding uses (reference: chunkformer/utils/model_utils.py:23-222):
-collapse frame-level token ids, derive per-token peak times, and segment
-long-form transcripts at silence gaps (each subsampled frame is 80 ms).
+CTC decoding and the CLIs use (reference: chunkformer/utils/model_utils.py:23-222):
+collapse frame-level token ids, derive per-token peak times, segment
+long-form transcripts at silence gaps (each subsampled frame is 80 ms),
+subtitles, and the word error rate.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Sequence
+
+import numpy as np
 
 FRAME_SECONDS = 0.08  # 8x subsampling of 10 ms frames (model_utils.py:189)
 
@@ -21,6 +24,42 @@ def format_timestamp(seconds: float) -> str:
     m, rem = divmod(rem, 60_000)
     s, ms = divmod(rem, 1000)
     return f"{h:02d}:{m:02d}:{s:02d}:{ms:03d}"
+
+
+def parse_timestamp(stamp: str) -> float:
+    """Inverse of format_timestamp: "hh:mm:ss:ms" -> seconds."""
+    h, m, s, ms = (int(x) for x in stamp.split(":"))
+    return h * 3600 + m * 60 + s + ms / 1000.0
+
+
+def _subtitle_time(seconds: float, sep: str) -> str:
+    ms = int(round(seconds * 1000))
+    h, rem = divmod(ms, 3600_000)
+    m, rem = divmod(rem, 60_000)
+    s, ms = divmod(rem, 1000)
+    return f"{h:02d}:{m:02d}:{s:02d}{sep}{ms:03d}"
+
+
+def segments_to_srt(segments) -> str:
+    """Timestamped segments -> SubRip subtitles."""
+    lines = []
+    for i, seg in enumerate(segments, start=1):
+        start = parse_timestamp(seg["start"])
+        end = parse_timestamp(seg["end"])
+        lines.append(f"{i}\n{_subtitle_time(start, ',')} --> "
+                     f"{_subtitle_time(end, ',')}\n{seg['decode']}\n")
+    return "\n".join(lines)
+
+
+def segments_to_vtt(segments) -> str:
+    """Timestamped segments -> WebVTT subtitles."""
+    lines = ["WEBVTT\n"]
+    for seg in segments:
+        start = parse_timestamp(seg["start"])
+        end = parse_timestamp(seg["end"])
+        lines.append(f"{_subtitle_time(start, '.')} --> "
+                     f"{_subtitle_time(end, '.')}\n{seg['decode']}\n")
+    return "\n".join(lines)
 
 
 @dataclasses.dataclass
@@ -107,3 +146,27 @@ def _make_segment(tokens, start_frame, end_frame, char_dict) -> Segment:
         start=format_timestamp(start_frame * FRAME_SECONDS),
         end=format_timestamp((end_frame + 1) * FRAME_SECONDS),
     )
+
+
+def levenshtein(a: Sequence, b: Sequence) -> int:
+    """Edit distance for WER computation."""
+    if len(a) < len(b):
+        a, b = b, a
+    prev = np.arange(len(b) + 1)
+    for i, ca in enumerate(a, 1):
+        cur = np.empty(len(b) + 1, dtype=np.int64)
+        cur[0] = i
+        for j, cb in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb))
+        prev = cur
+    return int(prev[-1])
+
+
+def word_error_rate(hyps: Sequence[str], refs: Sequence[str]) -> float:
+    """Corpus-level WER over whitespace tokens."""
+    errors, total = 0, 0
+    for h, r in zip(hyps, refs):
+        hw, rw = h.split(), r.split()
+        errors += levenshtein(hw, rw)
+        total += len(rw)
+    return errors / max(total, 1)

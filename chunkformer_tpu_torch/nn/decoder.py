@@ -1,6 +1,7 @@
 """AED transformer decoder, left-to-right and right-to-left (counterpart of
 ``chunkformer_tpu/nn/decoder.py``: ``mha`` :38, ``_side_forward``,
-``decoder_forward`` :157).
+``decoder_forward`` :157, and the one-token search step ``decoder_step``
+:181 with its fixed-size cache ``init_decoder_cache`` :248).
 
 Reference: chunkformer/modules/decoder.py:35-515, decoder_layer.py:24-149:
 token embedding * sqrt(d) + absolute sinusoid PE, pre-norm blocks of causal
@@ -12,7 +13,7 @@ projection. Parameter names are the reference's (``chunkformer_tpu/export.py:99-
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,11 +39,17 @@ class MultiHeadedAttention(nn.Module):
     def forward(self, query, key, value, mask, drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query [B, T1, D], key and value [B, T2, D], mask [B, 1 | T1, T2] (True = valid)."""
+        return self.attend(query, self.linear_k(key), self.linear_v(value), mask, drop_rate,
+                           generator)
+
+    def attend(self, query, k, v, mask, drop_rate: float = 0.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``forward`` from keys and values already projected ([B, T2, D])."""
         b, t1, d = query.shape
         h = self.heads
         q = self.linear_q(query).view(b, t1, h, d // h)
-        k = self.linear_k(key).view(b, key.shape[1], h, d // h)
-        v = self.linear_v(value).view(b, value.shape[1], h, d // h)
+        k = k.view(b, k.shape[1], h, d // h)
+        v = v.view(b, v.shape[1], h, d // h)
         scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(d // h)
         attn = dropout(masked_softmax(scores, mask[:, None]), drop_rate, generator)
         out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
@@ -136,3 +143,60 @@ class BiTransformerDecoder(nn.Module):
         if r_ys_in is not None and self.right_decoder is not None and reverse_weight > 0.0:
             r_logits = self.right_decoder(r_ys_in, tgt_mask, memory, memory_mask, generator)
         return l_logits, r_logits
+
+
+def init_decoder_cache(n_layers: int, batch: int, u_max: int, d_model: int,
+                       dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
+    """Zero self-attention caches of the left decoder: k and v, each
+    [n_layers, B, U_max, D] (post-projection states)."""
+    shape = (n_layers, batch, u_max, d_model)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def memory_projections(decoder: BiTransformerDecoder, memory: torch.Tensor
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The left decoder's cross-attention keys and values of ``memory``, one
+    (k, v) pair [B, T, D] a layer: the same at every step of a search."""
+    return [(layer.src_attn.linear_k(memory), layer.src_attn.linear_v(memory))
+            for layer in decoder.left_decoder.decoders]
+
+
+def decoder_step(decoder: BiTransformerDecoder, memory: torch.Tensor,
+                 memory_mask: torch.Tensor, tokens: torch.Tensor, pos: int,
+                 cache: Dict[str, torch.Tensor],
+                 memory_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+                 ) -> torch.Tensor:
+    """One token of the left decoder with a fixed-size self-attention cache.
+
+    tokens [B] at position ``pos``; memory [B, T, D], memory_mask [B, T]
+    (True = valid). Writes this position's k and v of every layer into
+    ``cache`` in place (at ``pos``; the JAX function returns a new cache
+    instead) and returns f32 log-probs [B, V]. Positions past ``pos`` are
+    masked out: ``valid = arange(U_max) <= pos``. ``memory_kv`` from
+    ``memory_projections`` saves projecting the memory again at every step
+    (the JAX step projects it each time; the values are the same).
+    """
+    if memory_kv is None:
+        memory_kv = memory_projections(decoder, memory)
+    side = decoder.left_decoder
+    emb = getattr(side.embed, "0")
+    d = emb.embedding_dim
+    dtype = memory.dtype
+    pe = torch.from_numpy(abs_pos_table(d)[pos:pos + 1]).to(device=memory.device, dtype=dtype)
+    x = (emb.weight.to(dtype)[tokens] * math.sqrt(d) + pe)[:, None]    # [B, 1, D]
+    mem_mask = memory_mask[:, None, :]
+    valid = (torch.arange(cache["k"].shape[2], device=memory.device) <= pos)[None, None, :]
+    for i, layer in enumerate(side.decoders):
+        sa = layer.self_attn
+        h = layer.norm1(x)
+        cache["k"][i, :, pos] = sa.linear_k(h)[:, 0]
+        cache["v"][i, :, pos] = sa.linear_v(h)[:, 0]
+        x = x + sa.attend(h, cache["k"][i], cache["v"][i], valid)
+        x = x + layer.src_attn.attend(layer.norm2(x), *memory_kv[i], mem_mask)
+        x = x + layer.feed_forward(layer.norm3(x))
+    if side.cfg.normalize_before:
+        x = side.after_norm(x)
+    if side.output_layer is not None:
+        x = side.output_layer(x)
+    return torch.log_softmax(x[:, 0].float(), dim=-1)

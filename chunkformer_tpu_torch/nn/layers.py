@@ -31,7 +31,16 @@ def make_norm(dim: int, norm_type: str = "layer_norm", eps: float = 1e-5) -> nn.
     return RMSNorm(dim, eps) if norm_type == "rms_norm" else nn.LayerNorm(dim, eps=eps)
 
 
-_ACTIVATIONS = {"swish": F.silu, "relu": F.relu}  # swish: x * sigmoid(x) (modules/swish.py:22)
+# chunkformer_tpu/nn/layers.py:148-155; swish is x * sigmoid(x) (modules/swish.py:22),
+# and jax.nn.gelu's default is the tanh form
+_ACTIVATIONS = {
+    "swish": F.silu,
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "hardtanh": F.hardtanh,  # clips to [-1, 1]
+    "tanh": torch.tanh,
+    "selu": F.selu,
+}
 
 
 def activation(name: str):

@@ -29,7 +29,9 @@ route from dtype, shapes and strides alone:
   hi.hi): about 21 mantissa bits, which holds the f32 1e-5 bar that one
   TF32 product (10 bits) cannot.
 - ``csrc/chunk_attention.cu`` (CUDA-core route): every other shape, f32 or
-  bf16. Products in f32 on CUDA cores from shared memory.
+  bf16. Products in f32 on CUDA cores from shared memory. Any chunk: a
+  block takes at most 4096 / dk query rows, and a third grid axis covers
+  the rest of the chunk (``cuda_core_slices``).
 
 At the ChunkFormer-large segment (N = 209, H = 8) a bf16 call moves about
 55 MB, 16.6 us at 3.35 TB/s, and is bound by bytes; an f32 call's split
@@ -138,12 +140,18 @@ def _launch(entry: str, lead: tuple, q, kv, p, u, v, chunk_idx, offsets, max_len
     return out
 
 
+def cuda_core_slices(chunk: int, d_k: int) -> int:
+    """Blocks a chunk takes in the CUDA-core kernels (``slices_of`` in
+    ``csrc/chunk_attention.cu`` and ``csrc/chunk_attention_train.cu``): a
+    thread keeps at most 16 outputs, so a block computes at most 4096 / dk
+    query rows."""
+    most = 4096 // d_k
+    return -(-chunk // most)
+
+
 def chunk_attention_cuda_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *, chunk: int,
                               left: int, right: int) -> torch.Tensor:
     """Launch the CUDA-core kernel (``csrc/chunk_attention.cu``) on CUDA tensors."""
-    if q.shape[1] * q.shape[3] > 4096:
-        raise ValueError(f"chunk * head_dim = {q.shape[1] * q.shape[3]} exceeds the "
-                         "CUDA-core kernel's 4096")
     out = _launch("cf_chunk_attention", (_DTYPES[q.dtype],), q, kv, p, u, v, chunk_idx,
                   offsets, max_lens, chunk=chunk, left=left, right=right)
     chunk_attention.launches += 1

@@ -46,8 +46,9 @@ dtype, shapes and strides alone, or raises:
   cannot. Counters ``chunk_train_attention.fwd_tc_launches`` and
   ``.bwd_tc_launches`` (both dtypes).
 - ``csrc/chunk_attention_train.cu`` (CUDA-core route): every other shape,
-  f32 or bf16. Counters ``chunk_train_attention.fwd_launches`` and
-  ``.bwd_launches``.
+  f32 or bf16, any chunk and head_dim (slices of at most 4096 / dk query
+  rows a block, ``cuda_core_slices``). Counters
+  ``chunk_train_attention.fwd_launches`` and ``.bwd_launches``.
 
 ``chunk_train_attention_cuda_core`` and ``chunk_train_attention_tensor_core``
 launch one route directly, so both can run on the same inputs.
@@ -61,6 +62,7 @@ from typing import Tuple
 import torch
 
 from . import kernels
+from .chunk_attention import cuda_core_slices
 from .relshift import rel_shift
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -250,9 +252,6 @@ def _check_path(path, q, kv, p, chunk, d_k):
     if path == "tensor_core" and route(q, kv, p, chunk) != "tensor_core":
         raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128, a chunk "
                          "of a multiple of 64 and 16-byte-aligned rows")
-    if path == "cuda_core" and (chunk * d_k > 4096 or d_k > 128):
-        raise ValueError(f"chunk * head_dim = {chunk * d_k} exceeds the CUDA-core kernels' "
-                         f"4096 (or head_dim {d_k} > 128)")
 
 
 def _strides(t):
@@ -278,13 +277,14 @@ def partial_shapes(path, b, n, heads, chunk, p_len, d_k):
     the buffers the kernels add into. Tensor cores (f32 and bf16 alike): per
     (group of ``dp_group`` utterances, h) a dP slab [P, dk] and the band's
     column sums [P] (the v terms of dP and dv), both added into, and per (64
-    key frames, h) a du partial [dk]. CUDA cores: per (b, ci, h) a dP slab
-    [P, dk] and du | dv [2, dk]."""
+    key frames, h) a du partial [dk]. CUDA cores: per (b, ci, slice of the
+    chunk's rows, h) a dP slab [P, dk] and du | dv [2, dk]."""
     if path == "tensor_core":
         cells = -(-b // dp_group(b, heads, p_len, d_k))
         return [((cells, heads, p_len, d_k), True), ((cells, heads, p_len), True),
                 ((b * n * chunk // 64, heads, d_k), False)]
-    return [((b * n * heads, p_len, d_k), False), ((b * n * heads, 2, d_k), False)]
+    cells = b * n * cuda_core_slices(chunk, d_k)
+    return [((cells * heads, p_len, d_k), False), ((cells * heads, 2, d_k), False)]
 
 
 def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *, path: str):

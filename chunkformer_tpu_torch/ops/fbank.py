@@ -11,8 +11,9 @@ waveform is float32 at int16 scale.
 
 Two kernels compute it on the card, and ``route`` picks one from the
 geometry alone: ``csrc/fbank_fft.cu`` (a warp per frame, an FFT in float64
-written in the kernel and a sparse mel product; padded window 256 or 512
-points, an even shift of at most the padded window, at most 128 mel bins)
+written in the kernel and a sparse mel product; padded window 256, 512 or
+1024 points, an even shift of at most the padded window, at most 128 mel
+bins)
 and ``csrc/fbank.cu`` (the DFT as a product with cos/sin tables; every other
 geometry).
 """
@@ -113,7 +114,7 @@ def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: fl
 
 # The FFT kernel's Stockham stages after its first radix-8 one, as (radix R,
 # points combined before it P), by padded window (csrc/fbank_fft.cu later_stages)
-FFT_STAGES = {512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
+FFT_STAGES = {1024: ((8, 8), (8, 64)), 512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
 MAX_FFT_MELS = 128
 
 

@@ -6,6 +6,8 @@ the JAX package, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -195,6 +197,68 @@ def test_cuda_core_kernel_takes_f32_main_path_shapes(cuda_device):
     torch.testing.assert_close(got, chunk_attention_plain(*args, **kw), atol=1e-5, rtol=0.0)
 
 
+# C7: chunks whose c * dk passes the 4096 outputs a CUDA-core block keeps,
+# cut into slices of query rows (csrc/chunk_attention.cu); an odd N of rows
+C7_SHAPES = [(9, 96, 64), (7, 48, 128), (13, 72, 64)]
+
+
+@pytest.mark.parametrize("n,c,d_k", C7_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_core_kernel_takes_any_chunk(cuda_device, n, c, d_k, dtype):
+    """c = 96 at dk 64, c = 48 at dk 128 and c = 72 at dk 64 over 13 rows:
+    ``route`` sends them to the CUDA-core kernel, which runs them in slices
+    of query rows; f32 atol 1e-5, bf16 atol 1e-2 plus one bf16 ulp."""
+    L, R = 128, 128
+    args = _attention_args(n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k)
+    assert route(*args[:3]) == "cuda_core"
+    kw = dict(chunk=c, left=L, right=R)
+    launches = (chunk_attention.launches, chunk_attention.tc_launches)
+    got = chunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (chunk_attention.launches, chunk_attention.tc_launches) == (launches[0] + 1,
+                                                                       launches[1])
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
+                               atol=1e-2 if bf16 else 1e-5, rtol=2.0 ** -7 if bf16 else 0.0)
+
+
+def _speech(seconds, device, seed=12, sr=16000):
+    """int16-scale speech-like audio as float32 (chip_smoke.py speechlike):
+    amplitude-modulated tones over noise, with pauses."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n, dtype=np.float32) / sr
+    x = np.zeros(n, np.float32)
+    for f in rng.uniform(100.0, 3500.0, 5):
+        x += np.sin(np.float32(2 * np.pi * f) * t + np.float32(rng.uniform(0, 6)))
+    env = (np.sin(np.float32(2 * np.pi * 0.4) * t) > -0.3).astype(np.float32)
+    x = env * x * 2500.0 + rng.normal(0.0, 300.0, n).astype(np.float32)
+    x = np.clip(x, -32768, 32767).astype(np.int16).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("frame_shift,want", [(10.0, "fft"), (10.0625, "dft")])
+def test_fbank_1024_point_window(cuda_device, frame_shift, want):
+    """C5: a 50 ms window at 16 kHz (800 samples, padded 1024) on 120 s of
+    speech-like audio: the even 160-sample shift takes the FFT kernel (two
+    first-stage butterflies a lane), the odd 161-sample shift the DFT
+    kernel (513 bins in two passes of its 288 threads); both within atol
+    2e-3 + rtol 1e-3 of the plain version."""
+    wave = _speech(120.0, cuda_device)
+    kw = dict(frame_length=50.0, frame_shift=frame_shift)
+    assert fbank_route(**kw) == want
+    before = (fbank.launches, fbank.fft_launches)
+    got = fbank(wave, **kw)
+    torch.cuda.synchronize()
+    moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
+    assert moved == ((0, 1) if want == "fft" else (1, 0))
+    want_feats = fbank_plain(wave, **kw)
+    assert got.shape == want_feats.shape == (num_frames(wave.numel(), 16000, 50.0,
+                                                        frame_shift), 80)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want_feats, atol=2e-3, rtol=1e-3)
+
+
 def test_fbank_kernel_matches_plain(cuda_device):
     """atol 2e-3 / rtol 1e-3, the bar the JAX package holds its kernel to.
     At 16 kHz the routed kernel is the FFT kernel."""
@@ -343,6 +407,52 @@ def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, 
             torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-5, msg=name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c,L,R,d_k,drop,lens", [
+    (3, 3, 96, 128, 128, 64, 0.1, [288, 200, 61]),
+    (3, 4, 48, 128, 128, 128, 0.0, [192, 150, 40]),
+    (3, 3, 72, 64, 64, 64, 0.0, [216, 143, 1]),
+    (2, 3, 16, 16, 16, 256, 0.1, [48, 29]),
+])
+def test_train_attention_cuda_core_takes_any_chunk(cuda_device, b, n, c, L, R, d_k, drop,
+                                                   lens, dtype):
+    """C7 for the training kernels: c = 96 / dk 64, c = 48 / dk 128, c = 72
+    / dk 64 (lens down to 1) and dk = 256 (the dK/dV kernel's column slices
+    and 16-row query tiles) on the CUDA-core route, forward and backward,
+    at the bars of ``test_train_attention_kernels_match_plain``."""
+    bf16 = dtype == torch.bfloat16
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k,
+                                 lens=lens)
+    assert cat.route(*args[:3], c) == "cuda_core"
+    kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
+    seed = 99
+    ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop, path="cuda_core")
+    torch.cuda.synchronize()
+    want_ctx, want_m, want_den = cat.forward_plain(*args, seed, c, L, R, drop)
+    torch.testing.assert_close(ctx.float(), want_ctx.float(), atol=1e-2 if bf16 else 1e-5,
+                               rtol=2.0 ** -7 if bf16 else 0.0)
+    torch.testing.assert_close(m, want_m, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(den, want_den, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
+    w = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(7)).to(dtype)
+    before = _tc_counts()
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _tc_counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    ref = cat.forward_plain(*leaves, args[5], seed, c, L, R, drop)[0]
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), leaves)
+    for name, a, e in zip(("q", "kv", "p", "u", "v"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        if bf16:
+            rel = float((a.float() - e.float()).norm() / e.float().norm())
+            assert rel <= 1e-2, (name, rel)
+        else:
+            torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-5, msg=name)
+
+
 def _tc_counts():
     f = cat.chunk_train_attention
     return (f.fwd_launches, f.bwd_launches, f.fwd_tc_launches, f.bwd_tc_launches)
@@ -437,3 +547,115 @@ def test_train_attention_tensor_core_backward_is_deterministic(cuda_device, dtyp
     for name, a, e in zip(("dq", "dkv", "dp", "du", "dv"), first, second):
         assert torch.equal(a, e), name
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tensor_core_kernel_at_c256(cuda_device, dtype):
+    """B1 on the tensor cores at c = 256, L = R = 256 (the example configs
+    train with c, L, R in {64, 128, 256}) against the plain version."""
+    args = _attention_args(5, 256, 256, 256, 4, 64, dtype, cuda_device, seed=256)
+    assert route(*args[:3]) == "tensor_core"
+    kw = dict(chunk=256, left=256, right=256)
+    got = chunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
+                               atol=1e-2 if bf16 else 1e-5, rtol=2.0 ** -7 if bf16 else 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_attention_tensor_core_at_c256(cuda_device, dtype):
+    """B4 and B5 on the tensor cores at c = 256, L = R = 256, head_dim 64
+    (the example configs' 256 d over 4 heads), ragged lens, dropout 0.1."""
+    b, n, c, L, R, d_k, drop = 3, 3, 256, 256, 256, 64, 0.1
+    bf16 = dtype == torch.bfloat16
+    args = _train_attention_args(b, n, c, L, R, 4, d_k, dtype, cuda_device, seed=257,
+                                 lens=[768, 500, 190])
+    assert cat.route(*args[:3], c) == "tensor_core"
+    kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
+    seed = 11
+    w = torch.randn((b, n * c, 4, d_k), device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(8)).to(dtype)
+    before = _tc_counts()
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    assert _tc_counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    ref = cat.forward_plain(*leaves, args[5], seed, c, L, R, drop)[0]
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), leaves)
+    torch.testing.assert_close(out.detach().float(), ref.detach().float(),
+                               atol=1e-2 if bf16 else 1e-5, rtol=2.0 ** -7 if bf16 else 0.0)
+    for name, a, e in zip(("q", "kv", "p", "u", "v"), got, want):
+        if bf16:
+            rel = float((a.float() - e.float()).norm() / e.float().norm())
+            assert rel <= 1e-2, (name, rel)
+        else:
+            torch.testing.assert_close(a, e, atol=1e-4, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_attention_eval_forward_on_ragged_batch(cuda_device, dtype):
+    """B4 in eval (``encode``): under inference_mode the forward kernel
+    launches alone, saves nothing for a backward and allocates no backward
+    scratch, on a padded batch whose lens run from 1 frame to T (the
+    tensor-core route's masking of whole invalid key tiles); against the
+    plain forward."""
+    b, n, c, L, R, d_k = 6, 4, 64, 128, 128, 64
+    lens = [1, 17, 64, 65, 190, 256]
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device, seed=3,
+                                 lens=lens)
+    kw = dict(chunk=c, left=L, right=R)
+    saved = []
+    before = _tc_counts()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        got = cat.chunk_train_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert _tc_counts() == (before[0], before[1], before[2] + 1, before[3])
+    assert not saved and got.grad_fn is None
+    # the call allocates ctx, m and den and nothing else (the caching
+    # allocator may hand ctx a block up to 1 MiB larger); the backward's f32
+    # partials alone would take more than the 2 MiB allowed
+    returned = got.numel() * got.element_size() + 2 * b * 8 * n * c * 4
+    scratch = sum(4 * math.prod(shape) for shape, _ in cat.partial_shapes(
+        "tensor_core", b, n, 8, c, 2 * c - 1 + L + R, d_k))
+    assert scratch > 2 * 2 ** 20
+    assert torch.cuda.max_memory_allocated() - mem0 < returned + 2 * 2 ** 20
+    want = cat.forward_plain(*args, 0, c, L, R, 0.0)[0]
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2 if bf16 else 1e-5,
+                               rtol=2.0 ** -7 if bf16 else 0.0)
+    for i, ln in enumerate(lens):
+        assert not bool(got[i, ln:].any())
+
+
+def test_attention_beam_search_device_on_the_card_equals_cpu(cuda_device):
+    """``attention_beam_search_device`` on the card against the same search
+    on the CPU (a tiny random hybrid model, f32, beam 4, ragged memory):
+    identical tokens, scores within rtol 1e-5 (f32 summation order)."""
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.decode.search import attention_beam_search_device
+    from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
+
+    cfg = ChunkFormerConfig.from_dict({
+        "encoder_conf": {"output_size": 64, "attention_heads": 4, "linear_units": 128,
+                         "num_blocks": 1},
+        "decoder": "bitransformer",
+        "decoder_conf": {"attention_heads": 4, "linear_units": 128, "num_blocks": 2,
+                         "r_num_blocks": 1},
+        "output_dim": 50})
+    model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(4)).eval()
+    g = torch.Generator().manual_seed(5)
+    mem = torch.randn(3, 14, 64, generator=g)
+    mask = torch.arange(14)[None, :] < torch.tensor([14, 9, 5])[:, None]
+    want = attention_beam_search_device(model, cfg, mem, mask, 4)
+    got = attention_beam_search_device(model.to(cuda_device), cfg, mem.to(cuda_device),
+                                       mask.to(cuda_device), 4)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert any(r.tokens for r in want)
+    np.testing.assert_allclose([r.score for r in got], [r.score for r in want], rtol=1e-5)

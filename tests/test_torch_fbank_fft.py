@@ -129,8 +129,28 @@ def test_emulated_kernel_matches_plain_and_pallas(n_samples, sample_rate):
         np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("frame_length,sample_rate", [(50.0, 16000), (25.0, 22050)])
+@pytest.mark.parametrize("n_samples", [900, 16123, 48000])
+def test_emulated_kernel_matches_plain_and_pallas_at_1024_points(n_samples, frame_length,
+                                                                 sample_rate):
+    """A padded window of 1024 points (50 ms at 16 kHz, 25 ms at 22.05 kHz):
+    two first-stage butterflies a lane, then the radix-8 stages (8, 8) and
+    (8, 64); the same bar against the plain version and the Pallas kernel."""
+    assert fb._geometry(sample_rate, frame_length, 10.0)[2] == 1024
+    wave = (np.random.default_rng(11).normal(size=n_samples) * 8000).astype(F32)
+    kw = dict(frame_length=frame_length, sample_rate=sample_rate)
+    got = fbank_emulated(wave, **kw)
+    wants = {"plain": fb.fbank_plain(torch.from_numpy(wave), **kw).numpy(),
+             "pallas": np.asarray(fbank_pallas(jnp.asarray(wave), interpret=True, **kw))}
+    for name, want in wants.items():
+        assert got.shape == want.shape == (fb.num_frames(n_samples, sample_rate,
+                                                         frame_length), 80), name
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
+
+
 @pytest.mark.parametrize("num_bins,padded,sample_rate", [
-    (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000)])
+    (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000),
+    (80, 1024, 16000)])
 def test_band_table_rebuilds_mel_banks(num_bins, padded, sample_rate):
     """Scattering the band table back gives ``mel_banks`` bit for bit, and no
     band reaches the Nyquist bin (which the kernel does not form)."""
@@ -146,7 +166,8 @@ def test_band_table_rebuilds_mel_banks(num_bins, padded, sample_rate):
 
 
 @pytest.mark.parametrize("num_bins,padded,sample_rate", [
-    (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000)])
+    (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000),
+    (80, 1024, 16000), (80, 1024, 22050)])
 def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
     """Every band ends once, in one lane, its bins ascending and contiguous;
     scattering the steps back gives ``mel_banks`` bit for bit; a lane's
@@ -177,7 +198,7 @@ def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
     assert lanes.shape == (max(int(steps.max()), -(-int(steps.sum()) // 32)), 32, 2)
 
 
-@pytest.mark.parametrize("padded", [256, 512])
+@pytest.mark.parametrize("padded", [256, 512, 1024])
 def test_twiddle_tables(padded):
     """float64 stage tables, exp(-2 pi i k j / (P R)) at row (j - 1) P + k
     of each stage's block in ``FFT_STAGES`` order, and the split's
@@ -202,9 +223,10 @@ def test_twiddle_tables(padded):
     ({"sample_rate": 8000}, "fft"),
     ({"num_mel_bins": 40}, "fft"),
     ({"frame_length": 32.0}, "fft"),                    # 512 samples, no padding
-    ({"frame_length": 50.0}, "dft"),                    # padded 1024
+    ({"frame_length": 50.0}, "fft"),                    # padded 1024
     ({"frame_length": 10.0}, "fft"),                    # 160 samples padded to 256
-    ({"sample_rate": 22050}, "dft"),                    # padded 1024
+    ({"sample_rate": 22050}, "fft"),                    # padded 1024
+    ({"frame_length": 50.0, "frame_shift": 10.0625}, "dft"),  # padded 1024, odd shift
     ({"frame_shift": 40.0}, "dft"),                     # shift 640 > padded 512
     ({"frame_shift": 10.0625}, "dft"),                  # odd shift, 161 samples
     ({"num_mel_bins": 160}, "dft"),

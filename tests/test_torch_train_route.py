@@ -141,7 +141,8 @@ def test_train_route_entries_raise_on_cpu(monkeypatch, entry):
 def test_tensor_core_route_refuses_what_it_cannot_take():
     """Naming the tensor-core route for operands it cannot take raises (no
     fallback to the CUDA cores), in f32 as in bf16; the CUDA-core route
-    refuses c * dk > 4096."""
+    takes c * dk > 4096 (in slices of at most 4096 / dk query rows a block,
+    each with its own dP / du / dv partials)."""
     q, kv, p = _operands(torch.float32, 32, 64)
     with pytest.raises(ValueError, match="tensor-core"):
         cat._check_path("tensor_core", q, kv, p, 64, 32)
@@ -152,8 +153,10 @@ def test_tensor_core_route_refuses_what_it_cannot_take():
     cat._check_path("tensor_core", q, kv, p, 64, 64)
     q, kv, p = _operands(torch.bfloat16, 128, 128)
     cat._check_path("tensor_core", q, kv, p, 128, 128)
-    with pytest.raises(ValueError, match="4096"):
-        cat._check_path("cuda_core", q, kv, p, 128, 128)
+    cat._check_path("cuda_core", q, kv, p, 128, 128)
+    assert cat.cuda_core_slices(128, 128) == 4 and cat.cuda_core_slices(64, 64) == 1
+    assert cat.partial_shapes("cuda_core", 2, 3, 4, 128, 383, 128)[0][0] == (2 * 3 * 4 * 4,
+                                                                             383, 128)
     with pytest.raises(ValueError, match="path"):
         cat._check_path("auto", q, kv, p, 128, 128)
 
