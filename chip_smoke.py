@@ -63,7 +63,23 @@ non-zero exit code and no result line:
    at chunks of 96, 48 and 72 against their plain versions, a 120 s f32
    ``endless_decode`` at c = 96 against the plain attention, fbank at a
    50 ms window (1024 points) on both routes;
-9. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+9. the streaming path: an export of ChunkFormer-large (random weights from
+   a seed); ``bin/stream.py`` on 60 s of audio at the realtime defaults
+   (c, L, R) = (6, 50, 0) in f32 and bf16 after a warm-up, with the
+   per-step latency p50/p95 and the RTF, one FFT fbank launch a step and no
+   attention kernel (the streaming step's attention is plain PyTorch, as in
+   ``chunkformer_tpu``); the FFT kernel on one step's window; f32
+   ``streaming_step`` against ``encode`` at (6, 50, 0) (atol 2e-3); and
+   ``recognize --simulate_streaming`` at (64, 128, 0) on the search files,
+   file by file against ``encode`` (no flip where the gap is 1e-3 or more);
+10. classification at the widths of
+   ``examples/classification/conf/multi_task.yaml`` (256 d, 12 blocks,
+   four tasks; random weights): ``bin/classify.py`` on the search files at
+   full context in f32 and bf16; ``classify_audio`` at (128, 128, 128) with
+   its wall time a file and 12 tensor-core B4 forward launches a file; the
+   f32 logits against the plain attention (atol 2e-3, labels equal); B4
+   timed at that shape;
+11. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -1267,6 +1283,37 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def wav_features(path, device):
+    from scipy.io import wavfile
+
+    from chunkformer_tpu_torch.ops.fbank import fbank
+
+    return fbank(torch.from_numpy(wavfile.read(path)[1].astype(np.float32)).to(device))
+
+
+def vocabulary(size):
+    return ["<blank>"] + [chr(0x4E00 + i) for i in range(1, size)]
+
+
+def save_export(model_dir, config, state_dict, feats, symbols=None, label_mapping=None):
+    """A reference-format export directory: config.yaml (written as JSON,
+    which YAML reads), pytorch_model.bin with CMVN stats from the features
+    ``feats`` [T, 80], and vocab.txt and label_mapping.json where given."""
+    sd = dict(state_dict)
+    sd["encoder.global_cmvn.mean"] = feats.mean(0).cpu()
+    sd["encoder.global_cmvn.istd"] = (1.0 / feats.std(0).clamp_min(1e-3)).cpu()
+    os.makedirs(model_dir)
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    with open(os.path.join(model_dir, "config.yaml"), "w") as f:
+        json.dump(config, f)
+    if symbols:
+        with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.writelines(f"{sym} {i}\n" for i, sym in enumerate(symbols))
+    if label_mapping:
+        with open(os.path.join(model_dir, "label_mapping.json"), "w") as f:
+            json.dump(label_mapping, f)
+
+
 def write_search_export(tmp, device):
     """A reference-format export directory of the search model (random
     weights from SEED + 7, CMVN from the features of the longest search
@@ -1274,26 +1321,15 @@ def write_search_export(tmp, device):
     config.yaml is written as JSON, which YAML reads."""
     from chunkformer_tpu_torch.config import ChunkFormerConfig
     from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
-    from chunkformer_tpu_torch.ops.fbank import fbank
 
     rng = np.random.default_rng(SEED + 7)
     wavs = [write_wav(os.path.join(tmp, f"search{i}.wav"), speechlike(rng, sec))
             for i, sec in enumerate(SEARCH_SECONDS)]
     cfg = ChunkFormerConfig.from_dict(SEARCH)
     sd = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED + 7)).state_dict()
-    from scipy.io import wavfile
-
-    feats = fbank(torch.from_numpy(wavfile.read(wavs[-1])[1].astype(np.float32)).to(device))
-    sd["encoder.global_cmvn.mean"] = feats.mean(0).cpu()
-    sd["encoder.global_cmvn.istd"] = (1.0 / feats.std(0).clamp_min(1e-3)).cpu()
     model_dir = os.path.join(tmp, "search_export")
-    os.makedirs(model_dir)
-    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
-    with open(os.path.join(model_dir, "config.yaml"), "w") as f:
-        json.dump(SEARCH, f)
-    symbols = ["<blank>"] + [chr(0x4E00 + i) for i in range(1, cfg.vocab_size)]
-    with open(os.path.join(model_dir, "vocab.txt"), "w", encoding="utf-8") as f:
-        f.writelines(f"{sym} {i}\n" for i, sym in enumerate(symbols))
+    symbols = vocabulary(cfg.vocab_size)
+    save_export(model_dir, SEARCH, sd, wav_features(wavs[-1], device), symbols=symbols)
     test_list = os.path.join(tmp, "search.list")
     with open(test_list, "w", encoding="utf-8") as f:
         for i, wav in enumerate(wavs):
@@ -1387,16 +1423,18 @@ def frame_tokens_and_gap(model, out, lens):
             (top2[..., 0] - top2[..., 1])[valid].cpu().numpy())
 
 
-def time_eval_forward(label, args, dtype, card):
-    """B4's forward kernel (tensor cores) at the encode batch's shape against
+def time_eval_forward(label, args, dtype, card, ctx=(C, LEFT, RIGHT),
+                      what="the recognize batch's shape"):
+    """B4's forward kernel (tensor cores) at an encode batch's shape against
     the plain forward on the captured operands: max error and times in turns
     (2 rounds), bound as ``train_attention_bounds``."""
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
     f32 = dtype == torch.float32
-    st = (0, C, LEFT, RIGHT, 0.0)
+    c, left, right = ctx
+    st = (0, c, left, right, 0.0)
     with torch.inference_mode():
-        require(cat.route(*args[:3], C) == "tensor_core", f"{label}: not the tensor-core route")
+        require(cat.route(*args[:3], c) == "tensor_core", f"{label}: not the tensor-core route")
         got = cat.forward_kernel(*args, *st, path="tensor_core")[0]
         want = cat.forward_plain(*args, *st)[0]
         err = float((got.float() - want.float()).abs().max())
@@ -1408,11 +1446,12 @@ def time_eval_forward(label, args, dtype, card):
                               iters=50))
             ps.append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=5, warmup=1))
     ms, plain_ms = sum(ks) / 2, sum(ps) / 2
-    bound_ms, bound_by = train_attention_bounds(args, False, "tf32" if f32 else None)
+    bound_ms, bound_by = train_attention_bounds(args, False, "tf32" if f32 else None, c, left,
+                                                right)
     q = args[0]
-    log(f"{label}: B4 forward (eval) at the recognize batch's shape, B={q.shape[0]} x "
+    log(f"{label}: B4 forward (eval) at {what}, B={q.shape[0]} x "
         f"{q.shape[1]} frames (lens {args[5].tolist()}), H={q.shape[2]}, dk={q.shape[3]}, "
-        f"c={C}, L=R={LEFT}: max|kernel-plain| {err:.3g}; in turns (2 rounds): kernel "
+        f"(c, L, R) = {ctx}: max|kernel-plain| {err:.3g}; in turns (2 rounds): kernel "
         f"{ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1430,7 +1469,8 @@ def phase_search(tmp, card, device):
     parallel-chunk decode route at R = 0, the token bars, the beam
     structure, B4's eval forward timed against its bound; last
     ``bin/decode.py`` on one file and ``bin/alignment.py`` on two. Returns
-    (launch counts by dtype, B4 results by dtype, the f32 model)."""
+    (launch counts by dtype, B4 results by dtype, the f32 model, and the
+    export directory, test list and files)."""
     from chunkformer_tpu_torch.api import ChunkFormerModel
     from chunkformer_tpu_torch.bin import alignment, decode
     from chunkformer_tpu_torch.decode.batched_beam import (batched_beam_to_results,
@@ -1621,7 +1661,7 @@ def phase_search(tmp, card, device):
     require(rc == 0 and grids == ["utt0.TextGrid", "utt1.TextGrid"], f"alignment wrote {grids}")
     log(f"decode CLI on {SEARCH_SECONDS[-1]:.0f} s (bf16, c=64): {len(lines)} lines, "
         f"launches {dcounts}; alignment CLI on 2 files: {grids}; {time.time() - t0:.1f} s")
-    return counts, b4, f32
+    return counts, b4, f32, (model_dir, test_list, wavs)
 
 
 # ---- other geometries: the shapes the CUDA-core kernels newly take (C7) and
@@ -1772,6 +1812,355 @@ def phase_other_geometries(card, device, f32):
     return results[(96, 64)], c96_counts["chunk_attention"]
 
 
+# ---- slice 9: the streaming path and multi-task classification
+STREAM_SECONDS = 60.0
+STREAM_CTX = (6, 50, 0)     # the realtime defaults (apps/realtime-asr/README.md:7-8)
+SIM_CTX = (C, LEFT, 0)      # recognize --simulate_streaming
+CLASSIFY = {  # the widths of examples/classification/conf/multi_task.yaml
+    "model": "classification",
+    "encoder_conf": {"output_size": 256, "attention_heads": 4, "linear_units": 2048,
+                     "num_blocks": 12, "cnn_module_kernel": 15,
+                     "cnn_module_norm": "layer_norm", "dynamic_conv": True},
+    "model_conf": {"tasks": {"gender": 2, "emotion": 8, "dialect": 5, "age": 5}},
+    "dataset_conf": LARGE["dataset_conf"],
+}
+CLASSIFY_LABELS = {"gender": ["male", "female"],
+                   "emotion": ["neutral", "happy", "sad", "angry", "surprised", "fearful",
+                               "disgusted", "contempt"],
+                   "dialect": ["north", "central", "south", "highland", "other"],
+                   "age": ["child", "teen", "adult", "middle", "senior"]}
+CLASSIFY_CTX = (128, 128, 128)
+
+
+class CaptureStreamingASR:
+    """Swaps ``bin/stream.py``'s ``StreamingASR`` for a subclass that keeps
+    the instances ``main`` makes (their tokens and step times)."""
+
+    def __enter__(self):
+        from chunkformer_tpu_torch.bin import stream
+
+        self.module, self.cls, self.made = stream, stream.StreamingASR, []
+        made = self.made
+
+        class Kept(self.cls):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                made.append(self)
+
+        stream.StreamingASR = Kept
+        return self
+
+    def __exit__(self, *exc):
+        self.module.StreamingASR = self.cls
+
+
+def run_stream(model_dir, wav, dtype):
+    """``bin/stream.py`` main(argv) on a file at STREAM_CTX, its printing
+    kept; returns (its StreamingASR, wall seconds of the call with the model
+    load, the ``final:`` line, the kernels' launch counts)."""
+    from chunkformer_tpu_torch.bin import stream
+
+    c, left, right = STREAM_CTX
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_train_counts()
+    t0 = time.time()
+    with CaptureStreamingASR() as cap, contextlib.redirect_stdout(printed):
+        rc = stream.main(["--model_checkpoint", model_dir, "--audio_file", wav, "--dtype", dtype,
+                          "--chunk_size", str(c), "--left_context_size", str(left),
+                          "--right_context_size", str(right)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    final = [x for x in printed.getvalue().splitlines() if x.startswith("final:")]
+    require(rc == 0 and len(cap.made) == 1 and len(final) == 1,
+            f"stream {dtype} returned {rc} with {len(final)} final lines")
+    return cap.made[0], wall, final[0], {**read_counts(), **read_train_counts()}
+
+
+def time_fbank_window(label, wave, card):
+    """The FFT fbank kernel against the plain version on one streaming
+    step's window: max error (atol 2e-3 + rtol 1e-3) and times in turns (2
+    rounds)."""
+    from chunkformer_tpu_torch.ops.fbank import fbank_fft, fbank_plain, num_frames
+
+    n = num_frames(wave.numel())
+    got, want = fbank_fft(wave), fbank_plain(wave)
+    err = (got - want).abs()
+    require(got.shape == (n, 80) and bool((err <= 2e-3 + 1e-3 * want.abs()).all()),
+            f"{label}: max |kernel - plain| {float(err.max()):.3g}")
+    ks, ps = [], []
+    for _ in range(2):
+        ks.append(cuda_ms(lambda: fbank_fft(wave), iters=200))
+        ps.append(cuda_ms(lambda: fbank_plain(wave), iters=50))
+    ms, plain_ms = sum(ks) / 2, sum(ps) / 2
+    bound_ms, bound_by = fbank_bound(wave, n)
+    log(f"{label}: FFT fbank kernel on one step's window ({wave.numel()} samples, {n} frames): "
+        f"max|kernel-plain| {float(err.max()):.3g}; in turns (2 rounds): kernel {ms:.4f} ms "
+        f"({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_streaming(tmp, card, device, search):
+    """The streaming path at ChunkFormer-large width (an export of random
+    weights from SEED + 11): ``bin/stream.py`` on 60 s of audio at the
+    realtime defaults (c, L, R) = (6, 50, 0) after a warm-up, in f32 and
+    bf16, with the per-step latency (each step ends with its tokens on the
+    host), the RTF and one FFT fbank launch a step; the FFT kernel on one
+    step's window against the plain version; ``streaming_step`` over the
+    file's features against ``encode`` at (6, 50, 0) in f32 (atol 2e-3);
+    then ``recognize --simulate_streaming`` at (64, 128, 0) on the search
+    files, and file by file its f32 encoder against ``encode`` at
+    (64, 128, 0): tokens equal where the top-1/top-2 gap is 1e-3 or more.
+    Returns (the f32 run's fbank launches, the window's fbank results)."""
+    import torch.nn.functional as F
+
+    from chunkformer_tpu_torch.api import ChunkFormerModel
+    from chunkformer_tpu_torch.bin import recognize
+    from chunkformer_tpu_torch.bin.recognize import _streaming_encode
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
+    from chunkformer_tpu_torch.ops.chunk import reverse_calc_length
+
+    rng = np.random.default_rng(SEED + 11)
+    samples = speechlike(rng, STREAM_SECONDS)
+    wav = write_wav(os.path.join(tmp, "stream.wav"), samples)
+    warm = write_wav(os.path.join(tmp, "stream_warm.wav"), speechlike(rng, 5.0))
+    cfg = ChunkFormerConfig.from_dict(LARGE)
+    sd = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED + 11)).state_dict()
+    model_dir = os.path.join(tmp, "stream_export")
+    feats = wav_features(wav, device)
+    save_export(model_dir, LARGE, sd, feats, symbols=vocabulary(cfg.vocab_size))
+    del sd
+    c, left, right = STREAM_CTX
+    tokens, f32_fbank = {}, 0
+    for dtype in ("fp32", "bf16"):
+        warm_wall = run_stream(model_dir, warm, dtype)[1]
+        asr, wall, final, counts = run_stream(model_dir, wav, dtype)
+        steps = len(asr.step_seconds)
+        need = asr.cache_samples + (asr.frames_in - 1) * 160 + 400
+        want_steps = (len(samples) - need) // asr.step_samples + 1
+        want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0, "fbank_fft": steps,
+                "fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+        step_ms = np.asarray(asr.step_seconds) * 1e3
+        rtf = float(sum(asr.step_seconds)) / STREAM_SECONDS
+        log(f"stream {dtype}: {STREAM_SECONDS:.0f} s at (c, L, R) = {STREAM_CTX}, {steps} steps "
+            f"of {asr.step_samples / 16000 * 1e3:.0f} ms of audio: step latency p50 "
+            f"{np.percentile(step_ms, 50):.2f} ms, p95 {np.percentile(step_ms, 95):.2f} ms, max "
+            f"{step_ms.max():.2f} ms (first {step_ms[0]:.2f} ms); RTF of the steps {rtf:.4f}; "
+            f"main() {wall:.3f} s with the model load (warm-up call on 5 s: {warm_wall:.3f} s); "
+            f"{len(asr.tokens)} tokens, {len(final) - len('final: ')} characters of text; "
+            f"launches {counts}; card {card}")
+        require(steps == want_steps and len(asr.tokens) == c * steps,
+                f"stream {dtype}: {steps} steps, {len(asr.tokens)} tokens; expected {want_steps}")
+        require(counts == want, f"stream {dtype} launches {counts}, expected {want}")
+        tokens[dtype] = np.asarray(asr.tokens)
+        if dtype == "fp32":
+            f32_fbank = counts["fbank_fft"]
+            window = torch.from_numpy(samples[:need].astype(np.float32)).to(device)
+            fbank_window = time_fbank_window("stream", window, card)
+    differ = int((tokens["bf16"] != tokens["fp32"]).sum())
+    log(f"stream: bf16 vs f32 frame tokens differ on {differ} of {tokens['fp32'].size}")
+
+    # streaming_step against encode at R = 0 on the same features (as
+    # tests/test_encoder_modes.py:127), f32
+    model = ChunkFormerModel.from_pretrained(model_dir, device=device)
+    encoder = model.model.encoder
+    size, stride = reverse_calc_length(c), 8 * c
+    pad = (stride - ((feats.shape[0] - size) % stride)) % stride
+    x = F.pad(feats, (0, 0, 0, pad))
+    att, cnn = encoder.init_caches(left, torch.float32, device, batch=1)
+    outs = []
+    with torch.inference_mode():
+        for s, i in enumerate(range(0, x.shape[0] - size + stride, stride)):
+            out, att, cnn = encoder.streaming_step(x[None, i:i + size], att, cnn, c, left, 0,
+                                                   s * c)
+            outs.append(out[0])
+    streamed = torch.cat(outs)
+    full, full_len = model.encode(x[None], [x.shape[0]], c, left, 0)
+    n = min(streamed.shape[0], int(full_len[0]))
+    err = float((streamed[:n] - full[0, :n]).abs().max())
+    log(f"f32 streaming_step over {len(outs)} steps vs encode at {STREAM_CTX} on the same "
+        f"{feats.shape[0]} frames: {n} outputs, max abs diff {err:.3g} (limit 2e-3)")
+    require(bool(torch.isfinite(streamed).all()) and err <= 2e-3,
+            f"streamed encoder vs encode at R = 0: {err}")
+    del model, encoder, streamed, full, att, cnn, x
+    torch.cuda.empty_cache()
+
+    # recognize --simulate_streaming on the search files
+    search_dir, test_list, wavs = search
+    sc, sl, sr = SIM_CTX
+    out_dir = os.path.join(tmp, "rec_sim")
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_train_counts()
+    t0 = time.time()
+    rc = recognize.main(["--model_checkpoint", search_dir, "--test_data", test_list,
+                         "--result_dir", out_dir, "--modes", "ctc_greedy_search",
+                         "--simulate_streaming", "--chunk_size", str(sc), "--left_context_size",
+                         str(sl), "--right_context_size", str(sr)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {**read_counts(), **read_train_counts()}
+    with open(os.path.join(out_dir, "ctc_greedy_search.txt"), encoding="utf-8") as f:
+        rows = f.read().splitlines()
+    want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0, "fbank_fft": len(wavs),
+            "fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+    require(rc == 0 and len(rows) == len(wavs), f"recognize --simulate_streaming returned {rc} "
+            f"with {len(rows)} lines")
+    require(counts == want, f"recognize --simulate_streaming launches {counts}, expected {want}")
+    # file by file (a padded batch depends on its padding, ROADMAP C9). The
+    # last step's window reads zero features past the file's end, which the
+    # valid frames of its chunk see (conv and attention inside the chunk),
+    # where encode masks them: before the last chunk the two must agree, and
+    # over every frame with encode of the features padded as the steps read them
+    sm = ChunkFormerModel.from_pretrained(search_dir, device=device)
+    frames = clear = flips = last_frames = last_flips = 0
+    head_err = pad_err = 0.0
+    frames_in = reverse_calc_length(sc) + 8 * sr
+    for path in wavs:
+        f = sm.extract_features(path)
+        lens = torch.tensor([f.shape[0]], dtype=torch.int32)
+        so, so_len = _streaming_encode(sm, f[None], lens, sc, sl, sr)
+        eo, eo_len = sm.encode(f[None], lens, sc, sl, sr)
+        require(int(so_len[0]) == int(eo_len[0]), f"{path}: lengths {so_len} vs {eo_len}")
+        k = int(eo_len[0])
+        read = (max(1, -(-k // sc)) - 1) * 8 * sc + frames_in
+        fp = F.pad(f, (0, 0, 0, max(0, read - f.shape[0])))[:read]
+        po, _ = sm.encode(fp[None], [read], sc, sl, sr)
+        pad_err = max(pad_err, float((so[0, :k] - po[0, :k]).abs().max()))
+        last = (k - 1) // sc * sc                      # first frame of the last chunk
+        if last:
+            head_err = max(head_err, float((so[0, :last] - eo[0, :last]).abs().max()))
+        tok_s, _ = frame_tokens_and_gap(sm, so, so_len)
+        tok_e, gap = frame_tokens_and_gap(sm, eo, eo_len)
+        differ = tok_s != tok_e
+        frames += last
+        flips += int(differ[:last].sum())
+        clear += int((differ & (gap >= 1e-3))[:last].sum())
+        last_frames += k - last
+        last_flips += int(differ[last:].sum())
+    log(f"recognize --simulate_streaming ctc_greedy_search at {SIM_CTX}, {len(wavs)} files "
+        f"({sum(SEARCH_SECONDS):.1f} s) in one batch, f32: main() {wall:.3f} s with the model "
+        f"load, launches {counts}; file by file, streamed encoder vs encode at {SIM_CTX}: max "
+        f"abs diff {head_err:.3g} before each file's last chunk (limit 2e-3), {pad_err:.3g} on "
+        f"every frame against encode of the features zero-padded as the steps read them (limit "
+        f"2e-3); frame tokens against encode of the file: before the last chunk {flips} of "
+        f"{frames} differ, {clear} where the gap is 1e-3 or more (limit 0); in the last chunks "
+        f"{last_flips} of {last_frames} differ; card {card}")
+    require(head_err <= 2e-3 and pad_err <= 2e-3 and clear == 0,
+            f"simulated streaming vs encode: max diff {head_err} / {pad_err}, {clear} clear flips")
+    del sm
+    torch.cuda.empty_cache()
+    return f32_fbank, fbank_window
+
+
+def phase_classification(tmp, card, device, search):
+    """Multi-task classification at the widths of
+    examples/classification/conf/multi_task.yaml (random weights from
+    SEED + 13, a label_mapping.json) on the search files (8 of 4-40 s):
+    ``bin/classify.py`` at full context in f32 and bf16 after a warm-up (one
+    FFT fbank launch a file, no attention kernel); ``classify_audio`` at
+    (128, 128, 128), f32 and bf16, file by file with its wall time and 12
+    tensor-core B4 forward launches a file (one a block), no B5; the f32
+    logits against the same model through the plain attention (atol 2e-3,
+    labels equal); B4 timed at the longest file's shape. Returns (B4
+    launches by dtype, B4 results by dtype)."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel
+    from chunkformer_tpu_torch.bin import classify
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import init_random_
+    from chunkformer_tpu_torch.models.classification import (ClassificationModel,
+                                                             classify_forward)
+
+    _, test_list, wavs = search
+    cfg = ChunkFormerConfig.from_dict(CLASSIFY)
+    n_layers = cfg.encoder_conf.num_blocks
+    tasks = sorted(cfg.classification_conf["tasks"])
+    sd = init_random_(ClassificationModel(cfg),
+                      torch.Generator().manual_seed(SEED + 13)).state_dict()
+    model_dir = os.path.join(tmp, "classify_export")
+    save_export(model_dir, CLASSIFY, sd, wav_features(wavs[-1], device),
+                label_mapping=CLASSIFY_LABELS)
+    for dtype in ("fp32", "fp32", "bf16"):   # the first call is the warm-up
+        out = os.path.join(tmp, f"classify_{dtype}.tsv")
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_train_counts()
+        t0 = time.time()
+        rc = classify.main(["--model_checkpoint", model_dir, "--test_data", test_list,
+                            "--output_file", out, "--dtype", dtype])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {**read_counts(), **read_train_counts()}
+        with open(out, encoding="utf-8") as f:
+            rows = f.read().splitlines()
+        want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
+                "fbank_fft": len(wavs), "fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+        require(rc == 0 and rows[0] == "key\t" + "\t".join(tasks) and len(rows) == len(wavs) + 1
+                and all(r.split("\t")[i + 1] in CLASSIFY_LABELS[t] for r in rows[1:]
+                        for i, t in enumerate(tasks)), f"classify {dtype}: rc {rc}, {rows[:2]}")
+        require(counts == want, f"classify {dtype} launches {counts}, expected {want}")
+        log(f"classify CLI {dtype}, full context: {len(wavs)} files ({sum(SEARCH_SECONDS):.1f} s)"
+            f" in {wall:.3f} s with the model load, {wall / len(wavs):.3f} s a file; launches "
+            f"{counts}; card {card}")
+
+    launches, b4 = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = ChunkFormerModel.from_pretrained(model_dir, dtype=dtype, device=device)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        model.classify_audio(wavs[0], *CLASSIFY_CTX)   # warm-up
+        secs, total = [], 0
+        for path in wavs:
+            torch.cuda.synchronize()
+            reset_counts()
+            reset_train_counts()
+            t0 = time.time()
+            preds = model.classify_audio(path, *CLASSIFY_CTX)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            counts = {**read_counts(), **read_train_counts()}
+            want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0, "fbank_fft": 1,
+                    "fwd": 0, "bwd": 0, "fwd_tc": n_layers, "bwd_tc": 0}
+            require(counts == want, f"classify_audio {tag} launches {counts}, expected {want}")
+            require(sorted(preds) == tasks and all(0.0 <= p["prob"] <= 1.0 for p in
+                                                   preds.values()), f"classify_audio {preds}")
+            total += counts["fwd_tc"]
+        launches[tag] = total
+        log(f"classify_audio {tag} at {CLASSIFY_CTX}: wall a file "
+            + ", ".join(f"{s:g} s {1e3 * t:.2f} ms" for s, t in zip(SEARCH_SECONDS, secs))
+            + f"; {total} tensor-core B4 forward launches ({n_layers} a file), no B5")
+
+        # the kernels' logits against the plain attention, file by file
+        with CaptureTrainAttention() as cap:
+            feats = model.extract_features(wavs[-1])
+            with torch.inference_mode():
+                classify_forward(model.model, feats[None].to(dtype),
+                                 torch.tensor([feats.shape[0]], device=device), *CLASSIFY_CTX)
+        b4[tag] = time_eval_forward(tag, cap.args, dtype, card, CLASSIFY_CTX,
+                                    f"classify_audio's shape ({SEARCH_SECONDS[-1]:.0f} s)")
+        if dtype != torch.float32:
+            continue
+        err, differ = 0.0, 0
+        for path in wavs:
+            feats = model.extract_features(path)
+            lens = torch.tensor([feats.shape[0]], device=device)
+            with torch.inference_mode():
+                got = classify_forward(model.model, feats[None], lens, *CLASSIFY_CTX)
+                with CaptureTrainAttention(plain=True):
+                    want = classify_forward(model.model, feats[None], lens, *CLASSIFY_CTX)
+            for t in tasks:
+                err = max(err, float((got[t] - want[t]).abs().max()))
+                differ += int(got[t].argmax() != want[t].argmax())
+        log(f"classify f32 logits at {CLASSIFY_CTX} through the kernels vs the plain attention, "
+            f"{len(wavs)} files x {len(tasks)} tasks: max abs diff {err:.3g} (limit 2e-3), "
+            f"labels differ on {differ} (limit 0)")
+        require(err <= 2e-3 and differ == 0, f"classify logits vs plain: {err}, {differ} labels")
+    return launches, b4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1813,13 +2202,24 @@ def main() -> int:
         log(f"[phase train path] {time.time() - t:.1f} s")
 
         t = time.time()
-        search_launches, b4_eval, search_f32 = phase_search(tmp, card, torch.device("cuda"))
+        search_launches, b4_eval, search_f32, search = phase_search(tmp, card,
+                                                                    torch.device("cuda"))
         log(f"[phase search path] {time.time() - t:.1f} s")
 
         t = time.time()
         c96, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32)
         del search_f32
+        torch.cuda.empty_cache()
         log(f"[phase other geometries] {time.time() - t:.1f} s")
+
+        t = time.time()
+        stream_launches, stream_fbank = phase_streaming(tmp, card, torch.device("cuda"), search)
+        log(f"[phase streaming path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        classify_launches, b4_classify = phase_classification(tmp, card, torch.device("cuda"),
+                                                              search)
+        log(f"[phase classification path] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1894,6 +2294,18 @@ def main() -> int:
          "source": "chunkformer_tpu_torch/csrc/chunk_attention.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
          "launches": c96_launches, **c96, "library_ms": None},
+        {"name": "fbank_fft_stream", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+         "launches": stream_launches, **stream_fbank, "library_ms": None},
+        {"name": "chunk_train_attention_tc_fwd_classify", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": classify_launches["bf16"], **b4_classify["bf16"], "library_ms": None},
+        {"name": "chunk_train_attention_tc_f32_fwd_classify", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+         "launches": classify_launches["f32"], **b4_classify["f32"], "library_ms": None},
     ]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
@@ -1907,7 +2319,10 @@ def main() -> int:
         f"shapes); the search path: B4's forward in eval at the recognize batch's shape "
         f"(8 files, c = 64), launches from the bf16 and the f32 recognize calls; other "
         f"geometries: the CUDA-core decode kernel at c = 96, dk = 64, launches from the 120 s "
-        f"f32 endless_decode at c = 96; card {card}")
+        f"f32 endless_decode at c = 96; the streaming path: the FFT fbank kernel on one step's "
+        f"window, launches from the f32 bin/stream run; classification: B4's forward in eval "
+        f"at classify_audio's shape at (128, 128, 128) (the 40 s file), launches from "
+        f"classify_audio over the 8 files in bf16 and in f32; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

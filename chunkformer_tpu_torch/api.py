@@ -11,6 +11,8 @@ Counterpart of ``chunkformer_tpu/api.py`` (reference: chunkformer_model.py:58-81
   features (chunkformer_model.py:256-274), with ``ctc_logprobs``;
   ``endless_encode`` — the long-form walk of ``endless_decode`` returning
   encoder outputs.
+- ``classify_audio`` — per-task labels of one file from a classification
+  export (chunkformer_model.py:554-646).
 
 Everything runs on ``device``, which is ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit device the constructor
@@ -32,6 +34,7 @@ from .convert import load_state_dict
 from .data.audio import load_audio
 from .decode.outputs import get_output, get_output_with_timestamps
 from .models.asr import ASRModel
+from .models.classification import ClassificationModel, classify_predict
 from .ops import chunk as chunk_ops
 from .ops.fbank import fbank
 
@@ -112,7 +115,9 @@ def endless_sizing(cfg: EncoderConfig, chunk_size: int, right: int,
 
 
 class ChunkFormerModel:
-    """Inference-facing model wrapper around an ``ASRModel`` on one device."""
+    """Inference-facing model wrapper around an ``ASRModel`` (or, when
+    ``config.model`` is "classification", a ``ClassificationModel``) on one
+    device."""
 
     def __init__(self, config: ChunkFormerConfig, state_dict: Dict[str, torch.Tensor],
                  char_dict: Optional[Dict[int, str]] = None,
@@ -121,18 +126,31 @@ class ChunkFormerModel:
         self.config = config
         self.char_dict = char_dict
         self.dtype = dtype
-        model = ASRModel(config, cmvn="encoder.global_cmvn.mean" in state_dict)
+        self.label_mapping: Optional[Dict[str, List[str]]] = None
+        cmvn = "encoder.global_cmvn.mean" in state_dict
+        model = ClassificationModel(config, cmvn) if self.is_classification \
+            else ASRModel(config, cmvn)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
+
+    @property
+    def is_transducer(self) -> bool:
+        return self.config.model == "transducer"
+
+    @property
+    def is_classification(self) -> bool:
+        return self.config.model == "classification"
 
     @classmethod
     def from_pretrained(cls, model_dir: str, dtype: torch.dtype = torch.float32,
                         device=None) -> "ChunkFormerModel":
         """Load a reference-format export directory: config.yaml,
         pytorch_model.bin, vocab.txt and, where the checkpoint has no CMVN
-        stats, global_cmvn. The encoder, CTC and, when the config names one,
-        attention-decoder weights load with strict=True; other heads in the
-        checkpoint are not part of this package yet."""
+        stats, global_cmvn; a classification export also label_mapping.json.
+        The encoder, CTC and, when the config names one, attention-decoder
+        weights load with strict=True, or for a classification model the
+        encoder and the classification heads; other heads in the checkpoint
+        are not part of this package yet."""
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model dir not found: {model_dir}")
         config = ChunkFormerConfig.from_yaml(os.path.join(model_dir, "config.yaml"))
@@ -141,7 +159,10 @@ class ChunkFormerModel:
                      if os.path.exists(os.path.join(model_dir, n))), None)
         if ckpt is None:
             raise FileNotFoundError(f"no checkpoint found in {model_dir}")
-        heads = ("encoder.", "ctc.") + (("decoder.",) if config.decoder else ())
+        if config.model == "classification":
+            heads = ("encoder.", "classification_heads.")
+        else:
+            heads = ("encoder.", "ctc.") + (("decoder.",) if config.decoder else ())
         sd = {k: v for k, v in load_state_dict(ckpt).items() if k.startswith(heads)}
         if config.vocab_size == 0 and "ctc.ctc_lo.weight" in sd:
             config.vocab_size = sd["ctc.ctc_lo.weight"].shape[0]
@@ -165,7 +186,12 @@ class ChunkFormerModel:
         vocab_path = os.path.join(model_dir, "vocab.txt")
         if os.path.exists(vocab_path):
             char_dict = {v: k for k, v in read_symbol_table(vocab_path).items()}
-        return cls(config, sd, char_dict, dtype, device)
+        model = cls(config, sd, char_dict, dtype, device)
+        lm_path = os.path.join(model_dir, "label_mapping.json")
+        if os.path.exists(lm_path):
+            with open(lm_path) as f:
+                model.label_mapping = json.load(f)
+        return model
 
     # ------------------------------------------------------------------ features
 
@@ -346,6 +372,21 @@ class ChunkFormerModel:
         out, mask = self.model.encoder.forward_train(xs, xs_lens, chunk_size, left_context_size,
                                                      right_context_size, train=False)
         return out, mask.sum(-1)
+
+    def classify_audio(self, audio_path: str, chunk_size: int = -1,
+                       left_context_size: int = -1, right_context_size: int = -1):
+        """Single-audio classification (chunkformer_model.py:554-646): per task
+        {label, label_id, prob}. Any chunk < 0 runs full context (0, 0, 0);
+        chunk_size > 0 runs the encoder at limited context (c, L, R) through
+        the training attention's forward kernel."""
+        if chunk_size is None or chunk_size < 0:
+            chunk_size = left_context_size = right_context_size = 0
+        feats = self.extract_features(audio_path)
+        return classify_predict(
+            self.model, feats[None].to(self.dtype),
+            torch.tensor([feats.shape[0]], dtype=torch.int32, device=self.device),
+            self.label_mapping, chunk_size=chunk_size, left_context_size=left_context_size,
+            right_context_size=right_context_size)
 
     @torch.inference_mode()
     def ctc_logprobs(self, encoder_out: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,10 @@ A batch of files is padded to its longest, encoded once on ``--device``
 (cuda unless named otherwise; at ``--chunk_size`` > 0 through the training
 attention's forward kernel) and searched by every mode; the log ends with
 the wall seconds of the features and encoder, and of each mode's search.
-``--dtype`` picks the model's dtype (fp32 by default, as the JAX CLI's). The
-transducer modes and ``--simulate_streaming`` stay in the parser for CLI
-parity and exit as not ported yet.
+``--dtype`` picks the model's dtype (fp32 by default, as the JAX CLI's).
+``--simulate_streaming`` encodes the batch chunk by chunk through the
+encoder's streaming step instead. The transducer modes stay in the parser
+for CLI parity and exit as not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import logging
 import os
 import sys
 import time
+
+import numpy as np
 
 MODES = ["ctc_greedy_search", "ctc_prefix_beam_search",
          "ctc_prefix_beam_search_batched", "attention", "attention_rescoring",
@@ -47,12 +50,45 @@ def parse_args(argv=None):
     p.add_argument("--context_score", type=float, default=6.0)
     p.add_argument("--simulate_streaming", action="store_true",
                    help="encode chunk-by-chunk through the streaming step "
-                        "(not ported yet, ROADMAP A15)")
+                        "(reference: bin/recognize.py --simulate_streaming -> "
+                        "encoder.forward_chunk_by_chunk)")
     p.add_argument("--dtype", choices=["fp32", "bf16", "fp16"], default="fp32",
                    help="Device compute dtype (fp16 maps to bf16)")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device to run on (cuda unless named otherwise)")
     return p.parse_args(argv)
+
+
+def _streaming_encode(model, xs, lens, c: int, left: int, right: int):
+    """Batch chunk-by-chunk encode through the encoder's ``streaming_step``
+    (``chunkformer_tpu/bin/recognize.py:46``): the per-layer KV/conv cache
+    flow of the realtime app, over a padded feature batch xs [B, T, feat] on
+    the model's device. Step s reads raw frames [s*8c, s*8c + frames_in),
+    zero past the end, at offset s*c, and keeps its first c outputs.
+    Returns (out [B, T', D] in the model's dtype, lengths [B]) on the device.
+    """
+    import torch
+
+    from ..ops.chunk import calc_length, reverse_calc_length
+
+    cfg = model.config.encoder_conf
+    sub = cfg.subsampling_rate
+    b, t, f = xs.shape
+    encoder = model.model.encoder
+    att, cnn = encoder.init_caches(left, model.dtype, model.device, batch=b)
+    frames_in = reverse_calc_length(c) + right * sub
+    stride = c * sub
+    n_out = int(calc_length(t))
+    out_parts = []
+    with torch.inference_mode():
+        for s in range(max(1, -(-n_out // c))):
+            win = xs.new_zeros((b, frames_in, f), dtype=model.dtype)
+            seg = xs[:, s * stride: s * stride + frames_in]
+            win[:, : seg.shape[1]] = seg
+            out, att, cnn = encoder.streaming_step(win, att, cnn, c, left, right, s * c)
+            out_parts.append(out[:, :c])
+    enc_out = torch.cat(out_parts, dim=1)[:, :n_out]
+    return enc_out, torch.from_numpy(calc_length(np.asarray(lens))).to(model.device)
 
 
 def main(argv=None):
@@ -61,7 +97,12 @@ def main(argv=None):
     if any(m.startswith("rnnt_") for m in args.modes):
         raise SystemExit("the rnnt_* modes are not ported yet (ROADMAP A18)")
     if args.simulate_streaming:
-        raise SystemExit("--simulate_streaming is not ported yet (ROADMAP A15)")
+        if args.chunk_size <= 0:
+            raise SystemExit("--simulate_streaming requires --chunk_size > 0")
+        if args.left_context_size < 0 or args.right_context_size < 0:
+            # the batch path's -1 = "full context" has no streaming counterpart
+            raise SystemExit("--simulate_streaming requires non-negative "
+                             "--left_context_size/--right_context_size")
 
     import torch
 
@@ -103,8 +144,13 @@ def main(argv=None):
         for j, f in enumerate(feats):
             xs[j, : f.shape[0]] = f
         lens = torch.tensor([f.shape[0] for f in feats], dtype=torch.int32)
-        enc_out, enc_lens = model.encode(xs, lens, args.chunk_size,
-                                         args.left_context_size, args.right_context_size)
+        if args.simulate_streaming:
+            enc_out, enc_lens = _streaming_encode(
+                model, xs, lens, args.chunk_size, args.left_context_size,
+                args.right_context_size)
+        else:
+            enc_out, enc_lens = model.encode(xs, lens, args.chunk_size,
+                                             args.left_context_size, args.right_context_size)
         logp = model.ctc_logprobs(enc_out)
         if args.blank_penalty != 0.0:
             logp[..., 0] -= args.blank_penalty

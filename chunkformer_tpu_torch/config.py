@@ -1,10 +1,11 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the CTC/AED part of ``chunkformer_tpu/config.py``: the reference
-``config.yaml`` / ``train.yaml`` schema (encoder_conf, decoder_conf,
-ctc_conf, model_conf, output_dim, cmvn_conf, dataset_conf) loads unmodified.
-Unknown keys are ignored, so configs that also describe a transducer still
-load; that head is not part of this package yet.
+A copy of the CTC/AED and classification parts of
+``chunkformer_tpu/config.py``: the reference ``config.yaml`` / ``train.yaml``
+schema (encoder_conf, decoder_conf, ctc_conf, model_conf, output_dim,
+cmvn_conf, dataset_conf, classification_conf) loads unmodified. Unknown keys
+are ignored, so configs that also describe a transducer still load; that
+head is not part of this package yet.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ class ModelConfig:
 class ChunkFormerConfig:
     """Top-level config = parsed config.yaml."""
 
-    model: str = "asr_model"
+    model: str = "asr_model"  # asr_model | transducer | classification
     encoder: str = "chunkformer"
     encoder_conf: EncoderConfig = field(default_factory=EncoderConfig)
     decoder: Optional[str] = None
@@ -118,6 +119,8 @@ class ChunkFormerConfig:
     tokenizer: str = "char"
     tokenizer_conf: Dict[str, Any] = field(default_factory=dict)
     dataset_conf: Dict[str, Any] = field(default_factory=dict)
+    # classification: {"tasks": {name: num_classes}, "head_dropout": rate}
+    classification_conf: Dict[str, Any] = field(default_factory=dict)
     raw: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -130,6 +133,16 @@ class ChunkFormerConfig:
             dc = dict(d.get("decoder_conf", {}) or {})
             dc["decoder_type"] = d["decoder"]
             dec = DecoderConfig(**_filter_kwargs(DecoderConfig, dc))
+        mc_raw = dict(d.get("model_conf", {}) or {})
+        # reference schema: classification tasks live under model_conf
+        # (examples/classification/conf/multi_task.yaml)
+        classification_conf = dict(d.get("classification_conf", {}) or {})
+        if "tasks" in mc_raw:
+            classification_conf.setdefault("tasks", mc_raw.pop("tasks"))
+        if d.get("model") == "classification":
+            classification_conf.setdefault("head_dropout", mc_raw.get("dropout_rate", 0.1))
+            if "label_smoothing" in mc_raw:
+                mc_raw.setdefault("lsm_weight", mc_raw.pop("label_smoothing"))
         return cls(
             model=d.get("model", "asr_model"),
             encoder=d.get("encoder", "chunkformer"),
@@ -137,13 +150,14 @@ class ChunkFormerConfig:
             decoder=d.get("decoder"),
             decoder_conf=dec,
             ctc_conf=CTCConfig(**_filter_kwargs(CTCConfig, d.get("ctc_conf", {}) or {})),
-            model_conf=ModelConfig(**_filter_kwargs(ModelConfig, d.get("model_conf", {}) or {})),
+            model_conf=ModelConfig(**_filter_kwargs(ModelConfig, mc_raw)),
             vocab_size=d.get("output_dim", d.get("vocab_size", 0)),
             cmvn=d.get("cmvn"),
             cmvn_conf=d.get("cmvn_conf", {}) or {},
             tokenizer=d.get("tokenizer", "char"),
             tokenizer_conf=d.get("tokenizer_conf", {}) or {},
             dataset_conf=d.get("dataset_conf", {}) or {},
+            classification_conf=classification_conf,
             raw=d,
         )
 

@@ -5,9 +5,9 @@
   arrays; layers stacked on axis 0) -> the port's state dict, with the
   reference names of ``chunkformer_tpu/export.py:51 params_to_torch_state_dict``
   (linear weights back to [out, in], conv weights as they are), the decoder
-  included. It carries weights between the two packages without going
-  through a file; being a map of names and layouts, it also carries a JAX
-  gradient tree onto the port's parameter names.
+  and the classification heads included. It carries weights between the two
+  packages without going through a file; being a map of names and layouts,
+  it also carries a JAX gradient tree onto the port's parameter names.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ def _t(x) -> torch.Tensor:
 
 def state_dict_from_jax_params(params: Dict[str, Any],
                                cfg: ChunkFormerConfig) -> Dict[str, torch.Tensor]:
-    """Encoder, CTC and decoder parameters of a JAX ASR model -> reference-named tensors."""
+    """Encoder, CTC, decoder and classification-head parameters of a JAX model
+    -> reference-named tensors."""
     sd: Dict[str, torch.Tensor] = {}
 
     def linear(prefix, p):
@@ -101,7 +102,10 @@ def state_dict_from_jax_params(params: Dict[str, Any],
             norm(f"{lp}norm_conv", layer["norm_conv"])
             norm(f"{lp}norm_final", layer["norm_final"])
     norm("encoder.after_norm", ep["after_norm"])
-    linear("ctc.ctc_lo", params["ctc"]["lo"])
+    if "ctc" in params:
+        linear("ctc.ctc_lo", params["ctc"]["lo"])
+    for task, head in params.get("heads", {}).items():
+        linear(f"classification_heads.{task}.linear", head["linear"])
 
     for side, name in (("left", "left_decoder"), ("right", "right_decoder")):
         if side not in params.get("decoder", {}):

@@ -1,5 +1,5 @@
 """Chunked relative-position multi-head attention (counterpart of
-``chunkformer_tpu/nn/attention.py``), in three modes:
+``chunkformer_tpu/nn/attention.py``), in four modes:
 
 - ``parallel_chunk`` (:235, :269): masked-batch inference over packed chunk
   rows (reference attention.py:420-505). The K/V projections of all chunk
@@ -7,6 +7,9 @@
   chunk row i attends over stream rows [i*c, i*c + L + c + R), which
   ``ops.chunk_attention`` reads in place (no unfold).
 - ``full`` (:93): full-context training and evaluation.
+- ``streaming`` (``attention_streaming`` :368): one incremental step of
+  c + R query frames over an L-row cache, in plain PyTorch as in JAX (plain
+  XLA there; the packed-row decode kernel does not take this layout).
 - limited-context training: ``chunked_train`` (:142) builds the operands of
   the training kernels (``ops.chunk_attention_train``) per utterance, and
   ``attention_chunked_train`` (:103, unfold + rel_shift + masked softmax) is
@@ -94,6 +97,17 @@ class RelPositionMultiHeadedAttention(nn.Module):
             attn = drop(attn)
         out = torch.einsum("nhts,nshd->nthd", attn.to(v.dtype), v)
         return self.linear_out(out.reshape(n, t1, h * d_k))
+
+    def streaming(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: torch.Tensor,
+                  cache: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One streaming step (``attention_streaming``): x [B, T1, D] attends
+        over the cache [B, L, H, 2dk] and its own keys; pos_emb
+        [2*T1 - 1 + L, D]; mask [B, 1, L + T1]. Returns (out [B, T1, D],
+        kv_full [B, L + T1, H, 2dk]); the caller slices the next cache."""
+        q, k, v = (self._heads(lin, x) for lin in (self.linear_q, self.linear_k, self.linear_v))
+        kv_full = torch.cat([cache.to(k.dtype), torch.cat([k, v], dim=-1)], dim=1)
+        k, v = kv_full.split(self.d_k, dim=-1)
+        return self.rel_attention_core(q, k, v, pos_emb, mask, cache.shape[1], 0), kv_full
 
     def full(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: torch.Tensor,
              drop_rate: float = 0.0, generator: Optional[torch.Generator] = None

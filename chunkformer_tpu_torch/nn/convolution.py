@@ -1,6 +1,6 @@
 """Chunk-aware Conformer convolution module (counterpart of
 ``chunkformer_tpu/nn/convolution.py``): pointwise-GLU -> depthwise conv ->
-norm -> swish -> pointwise, in two modes:
+norm -> swish -> pointwise, in three modes:
 
 - ``parallel_chunk`` (:128, reference convolution.py:194-255): depthwise conv
   over overlapping windows of the flat stream (cache prefix, lorder zero
@@ -10,6 +10,9 @@ norm -> swish -> pointwise, in two modes:
   (dynamic_conv training, reference convolution.py:150-180) each chunk sees
   real left context and zero right padding. In training the batch norm uses
   batch statistics.
+- ``streaming`` (``conv_streaming`` :158): one incremental step over c + R
+  frames behind a [B, D, lorder] cache, each chunk with zero right padding
+  as in ``full``.
 """
 
 from __future__ import annotations
@@ -75,12 +78,43 @@ class ConvolutionModule(nn.Module):
         y = F.linear(F.silu(y), self.pointwise_conv2.weight[:, :, 0], self.pointwise_conv2.bias)
         return y, stats
 
+    def _chunk_depthwise(self, h: torch.Tensor, chunk_size: int, lorder: int) -> torch.Tensor:
+        """Depthwise conv of h [B, C, lorder + T] (lorder frames of left
+        context, then T frames) chunk by chunk: each chunk of c frames sees
+        its lorder real left frames and k - 1 - lorder zero right frames
+        ((k - 1) // 2 of them, or none when causal). Returns [B, C, T]."""
+        b, d, t = h.shape
+        t -= lorder
+        c = chunk_size
+        k = self.depthwise_conv.kernel_size[0]
+        n = -(-t // c)
+        win = F.pad(h, (0, n * c - t)).unfold(2, lorder + c, c)              # [B, C, n, l+c]
+        win = F.pad(win.permute(0, 2, 1, 3).reshape(b * n, d, lorder + c), (0, k - 1 - lorder))
+        y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)
+        return y.view(b, n, d, c).permute(0, 2, 1, 3).reshape(b, d, n * c)[:, :, :t]
+
+    def streaming(self, x: torch.Tensor, cache: torch.Tensor, chunk_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One streaming step (``conv_streaming``): x [B, T, D] with T =
+        chunk + lookahead frames; cache [B, D, lorder] holds the last lorder
+        frames of the previous steps' pointwise-GLU stream. Each c-frame
+        window sees its real left context and zero right padding. Returns
+        (y [B, T, D], the stream [B, D, lorder + T]); the caller slices the
+        next cache from the stream."""
+        t = x.shape[1]
+        h = F.glu(F.linear(x, self.pointwise_conv1.weight[:, :, 0],
+                           self.pointwise_conv1.bias), dim=-1).transpose(1, 2)  # [B, C, T]
+        stream = torch.cat([cache.to(h.dtype), h], dim=2)
+        y = self._chunk_depthwise(stream, chunk_size if chunk_size > 0 else t, self.lorder)
+        y, _ = self._post(y, train=False)
+        return y, stream
+
     def full(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor], chunk_size: int = 0,
              causal: bool = False, train: bool = False
              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
         """x [B, T, D]; pad_mask [B, T] (True = valid). Returns (y [B, T, D],
         new batch-norm running statistics, or None)."""
-        b, t, d = x.shape
+        d = x.shape[2]
         k = self.depthwise_conv.kernel_size[0]
         lorder = k - 1 if causal else (k - 1) // 2
         if pad_mask is not None:
@@ -88,15 +122,7 @@ class ConvolutionModule(nn.Module):
         h = F.glu(F.linear(x, self.pointwise_conv1.weight[:, :, 0],
                            self.pointwise_conv1.bias), dim=-1).transpose(1, 2)  # [B, C, T]
         if chunk_size > 0:
-            c = chunk_size
-            n = -(-t // c)
-            # each chunk sees lorder real left frames and k - 1 - lorder zero
-            # right frames: (k - 1) // 2 of them, or none when causal
-            win = F.pad(h, (lorder, n * c - t)).unfold(2, lorder + c, c)     # [B, C, n, l+c]
-            win = F.pad(win.permute(0, 2, 1, 3).reshape(b * n, d, lorder + c),
-                        (0, k - 1 - lorder))
-            y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)
-            y = y.view(b, n, d, c).permute(0, 2, 1, 3).reshape(b, d, n * c)[:, :, :t]
+            y = self._chunk_depthwise(F.pad(h, (lorder, 0)), chunk_size, lorder)
         else:
             h = F.pad(h, (lorder, 0) if causal else (lorder, lorder))
             y = F.conv1d(h, self.depthwise_conv.weight, self.depthwise_conv.bias, groups=d)

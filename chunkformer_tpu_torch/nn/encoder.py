@@ -1,8 +1,10 @@
 """ChunkFormer encoder (counterpart of ``chunkformer_tpu/nn/encoder.py``):
 ``_embed`` :85-107, ``init_caches`` :218, ``encoder_parallel_chunk`` :234
-(masked-batch inference, reference encoder.py:503-681) and ``encoder_forward``
-:114 (full and limited-context batch forward for training and evaluation,
-reference encoder.py:220-308,461-501).
+(masked-batch inference, reference encoder.py:503-681),
+``encoder_streaming_step`` :301 (one incremental step, reference
+encoder.py:310-385) and ``encoder_forward`` :114 (full and limited-context
+batch forward for training and evaluation, reference
+encoder.py:220-308,461-501).
 
 A Python loop over the layers takes the place of ``lax.scan``; the per-layer
 KV and conv caches are stacked as [n_layers, L, H, 2dk] and
@@ -104,13 +106,16 @@ class ChunkFormerEncoder(nn.Module):
             x = self.global_cmvn(x)
         return self.embed(x) * math.sqrt(self.cfg.output_size)
 
-    def init_caches(self, left_context_size: int, dtype: torch.dtype,
-                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Zero caches: att [n_layers, L, H, 2dk], cnn [n_layers, D, lorder]."""
+    def init_caches(self, left_context_size: int, dtype: torch.dtype, device: torch.device,
+                    batch: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zero caches. Parallel-chunk layout: att [n_layers, L, H, 2dk], cnn
+        [n_layers, D, lorder]; with ``batch`` (streaming): att
+        [n_layers, B, L, H, 2dk], cnn [n_layers, B, D, lorder]."""
         cfg = self.cfg
-        att = torch.zeros((cfg.num_blocks, left_context_size, cfg.attention_heads,
+        b = () if batch is None else (batch,)
+        att = torch.zeros((cfg.num_blocks, *b, left_context_size, cfg.attention_heads,
                            2 * cfg.head_dim), dtype=dtype, device=device)
-        cnn = torch.zeros((cfg.num_blocks, cfg.output_size, cfg.conv_lorder),
+        cnn = torch.zeros((cfg.num_blocks, *b, cfg.output_size, cfg.conv_lorder),
                           dtype=dtype, device=device)
         return att, cnn
 
@@ -139,6 +144,46 @@ class ChunkFormerEncoder(nn.Module):
                                            truncated_context_size)
             new_att.append(a)
             new_cnn.append(k)
+        if cfg.normalize_before and cfg.final_norm:
+            x = self.after_norm(x)
+        return x, torch.stack(new_att), torch.stack(new_cnn)
+
+    def streaming_step(
+        self, xs: torch.Tensor, att_cache: torch.Tensor, cnn_cache: torch.Tensor,
+        chunk_size: int, left_context_size: int, right_context_size: int, offset: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One incremental streaming step (``encoder_streaming_step``).
+
+        xs [B, T_in, feat] are the raw frames of c + R subsampled frames;
+        att_cache [n_layers, B, L, H, 2dk] and cnn_cache [n_layers, B, D,
+        lorder] as ``init_caches(..., batch=B)`` makes them; ``offset`` is
+        the subsampled frames decoded so far. Returns (out [B, c + R, D],
+        new_att_cache, new_cnn_cache): the first c output frames are final,
+        the trailing R are lookahead, recomputed by the next step and never
+        cached.
+        """
+        cfg = self.cfg
+        c, L, R = chunk_size, left_context_size, right_context_size
+        x = self.embed_features(xs)                                # [B, c + R, D]
+        b, t1 = x.shape[:2]
+        pos_emb = torch.from_numpy(rel_pos_slice(cfg.output_size, c + R, L, 0, cfg.max_pos_len))
+        pos_emb = pos_emb.to(device=x.device, dtype=x.dtype)
+        # position p of the L cache rows and t1 new frames is valid iff
+        # p >= L - offset: cache rows beyond the decoded history are empty
+        mask = torch.arange(L + t1, device=x.device) >= L - offset
+        mask = mask.expand(b, 1, L + t1)
+        lorder = cfg.conv_lorder
+        new_att, new_cnn = [], []
+        for i, layer in enumerate(self.encoders):
+            x, kv_full, stream = layer.streaming(x, pos_emb, mask, att_cache[i], cnn_cache[i], c)
+            # keep the L rows (lorder columns) that end R before the end
+            kv_len = kv_full.shape[1]
+            new_att.append(kv_full[:, kv_len - L - R:kv_len - R])
+            if stream is None:
+                new_cnn.append(cnn_cache[i])
+            else:
+                cs_len = stream.shape[2]
+                new_cnn.append(stream[:, :, cs_len - lorder - R:cs_len - R])
         if cfg.normalize_before and cfg.final_norm:
             x = self.after_norm(x)
         return x, torch.stack(new_att), torch.stack(new_cnn)

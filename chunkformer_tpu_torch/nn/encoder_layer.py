@@ -3,8 +3,8 @@
 
 Macaron-FFN(1/2) -> MHA -> Conv -> FFN(1/2) -> final norm
 (reference: chunkformer/modules/encoder_layer.py:9-248). ``parallel_chunk``
-serves masked-batch inference; ``forward_train`` the full and
-limited-context forward, with its dropouts.
+serves masked-batch inference; ``streaming`` one incremental step;
+``forward_train`` the full and limited-context forward, with its dropouts.
 """
 
 from __future__ import annotations
@@ -73,6 +73,28 @@ class ChunkFormerEncoderLayer(nn.Module):
         if self.conv_module is not None:
             x = self.norm_final(x)
         return x, new_att, new_cnn
+
+    def streaming(
+        self, x: torch.Tensor, pos_emb: torch.Tensor, mask: torch.Tensor,
+        att_cache: torch.Tensor, cnn_cache: torch.Tensor, chunk_size: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """One block of a streaming step over x [B, c + R, D]; returns (x,
+        kv_full [B, L + c + R, H, 2dk], the conv stream [B, D, lorder + c + R]
+        or None without a conv module). The caller slices the caches."""
+        ff_scale = 0.5 if self.feed_forward_macaron is not None else 1.0
+        if self.feed_forward_macaron is not None:
+            x, _ = self._residual(x, self.norm_ff_macaron,
+                                  lambda h: (self.feed_forward_macaron(h), None), ff_scale)
+        x, kv_full = self._residual(
+            x, self.norm_mha, lambda h: self.self_attn.streaming(h, pos_emb, mask, att_cache))
+        stream = None
+        if self.conv_module is not None:
+            x, stream = self._residual(
+                x, self.norm_conv, lambda h: self.conv_module.streaming(h, cnn_cache, chunk_size))
+        x, _ = self._residual(x, self.norm_ff, lambda h: (self.feed_forward(h), None), ff_scale)
+        if self.conv_module is not None:
+            x = self.norm_final(x)
+        return x, kv_full, stream
 
     def forward_train(
         self, x: torch.Tensor, attn_fn: Callable[[torch.Tensor], torch.Tensor],

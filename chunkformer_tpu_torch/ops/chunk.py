@@ -33,6 +33,15 @@ def calc_length(length, sampling_num: int = 3, kernel_size: int = 3, stride: int
     return length.astype(np.int64)
 
 
+def reverse_calc_length(out_length: int, sampling_num: int = 3, kernel_size: int = 3,
+                        stride: int = 2) -> int:
+    """Input length that yields `out_length` (reference: subsampling.py:290-311)."""
+    length = out_length
+    for _ in range(sampling_num):
+        length = length * stride - stride + kernel_size
+    return length if out_length > 0 else 0
+
+
 @dataclasses.dataclass
 class PackedChunks:
     """A batch of utterances cut into chunk rows."""

@@ -96,8 +96,10 @@ def test_recognize_context_list_matches_jax(setup):
     assert _files(got_dir) == _files(want_dir)
 
 
-@pytest.mark.parametrize("argv,msg", [(["--modes", "rnnt_greedy_search"], "A18"),
-                                      (["--simulate_streaming"], "A15")])
+@pytest.mark.parametrize("argv,msg", [
+    pytest.param(["--modes", "rnnt_greedy_search"], "A18", id="argv0-A18"),
+    # streaming is ported (A15); it refuses the full-context default chunk
+    pytest.param(["--simulate_streaming"], "requires --chunk_size > 0", id="argv1-A15")])
 def test_recognize_refuses_what_is_not_ported(setup, argv, msg):
     model_dir, test_list, _, root = setup
     with pytest.raises(SystemExit, match=msg):
