@@ -79,7 +79,20 @@ non-zero exit code and no result line:
    its wall time a file and 12 tensor-core B4 forward launches a file; the
    f32 logits against the plain attention (atol 2e-3, labels equal); B4
    timed at that shape;
-11. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+11. the transducer at the widths of
+   ``examples/asr/rnnt/conf/chunkformer-rnnt-small.yaml`` (256 d, 12 blocks,
+   LSTM predictor 2 x 256, joint 512, decoder 3 + 3, vocab 6992; random
+   weights, the joint shaped so that blank wins on part of the frames) as an
+   export: ``endless_decode`` of 300 s at (64, 128, 128) with a 120 s budget
+   in f32 and bf16 (f32 frame tokens equal to one greedy pass over
+   ``endless_encode``'s output), ``batch_decode`` of the three batch files,
+   ``bin/recognize.py`` with the three rnnt_* modes on the search files in
+   f32 and bf16 (audio-s/s by mode); the k2 transducer train step at the
+   flagship batch shape, 3 bf16 and 3 f32 steps (ms a step, peak memory,
+   12 B4 and 12 B5 launches a step), one f32 step against the plain
+   attention (loss 1e-5, gradients 1e-4 relative L2); B1, B2, B4 and B5
+   timed at these paths' shapes;
+12. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -1338,14 +1351,14 @@ def write_search_export(tmp, device):
     return model_dir, test_list, wavs
 
 
-def run_recognize(model_dir, test_list, out_dir, dtype, grab):
-    """``bin/recognize.py`` main(argv) with the five modes; returns (wall
-    seconds of the call, its logged wall seconds by part, the kernels'
-    launch counts, peak device memory in GiB)."""
+def run_recognize(model_dir, test_list, out_dir, dtype, grab, modes=SEARCH_MODES):
+    """``bin/recognize.py`` main(argv) with ``modes`` (the five CTC/AED modes
+    by default); returns (wall seconds of the call, its logged wall seconds
+    by part, the kernels' launch counts, peak device memory in GiB)."""
     from chunkformer_tpu_torch.bin import recognize
 
     argv = ["--model_checkpoint", model_dir, "--test_data", test_list, "--result_dir", out_dir,
-            "--modes", *SEARCH_MODES, "--beam_size", str(BEAM), "--chunk_size", str(C),
+            "--modes", *modes, "--beam_size", str(BEAM), "--chunk_size", str(C),
             "--left_context_size", str(LEFT), "--right_context_size", str(RIGHT),
             "--ctc_weight", str(CTC_WEIGHT), "--reverse_weight", str(REVERSE_WEIGHT),
             "--dtype", dtype]
@@ -1366,7 +1379,7 @@ def run_recognize(model_dir, test_list, out_dir, dtype, grab):
     for item in line[0][len("wall seconds: "):].replace(";", ",").split(", "):
         key, _, value = item.rpartition(" ")
         parts[key] = float(value)
-    for mode in SEARCH_MODES:
+    for mode in modes:
         with open(os.path.join(out_dir, f"{mode}.txt"), encoding="utf-8") as f:
             rows = f.read().splitlines()
         require(len(rows) == len(SEARCH_SECONDS) and all("\t" in r for r in rows),
@@ -1878,10 +1891,10 @@ def run_stream(model_dir, wav, dtype):
     return cap.made[0], wall, final[0], {**read_counts(), **read_train_counts()}
 
 
-def time_fbank_window(label, wave, card):
-    """The FFT fbank kernel against the plain version on one streaming
-    step's window: max error (atol 2e-3 + rtol 1e-3) and times in turns (2
-    rounds)."""
+def time_fbank_window(label, wave, card, what="one step's window"):
+    """The FFT fbank kernel against the plain version on ``wave`` (one
+    streaming step's window by default): max error (atol 2e-3 + rtol 1e-3)
+    and times in turns (2 rounds)."""
     from chunkformer_tpu_torch.ops.fbank import fbank_fft, fbank_plain, num_frames
 
     n = num_frames(wave.numel())
@@ -1895,7 +1908,7 @@ def time_fbank_window(label, wave, card):
         ps.append(cuda_ms(lambda: fbank_plain(wave), iters=50))
     ms, plain_ms = sum(ks) / 2, sum(ps) / 2
     bound_ms, bound_by = fbank_bound(wave, n)
-    log(f"{label}: FFT fbank kernel on one step's window ({wave.numel()} samples, {n} frames): "
+    log(f"{label}: FFT fbank kernel on {what} ({wave.numel()} samples, {n} frames): "
         f"max|kernel-plain| {float(err.max()):.3g}; in turns (2 rounds): kernel {ms:.4f} ms "
         f"({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
@@ -2161,6 +2174,551 @@ def phase_classification(tmp, card, device, search):
     return launches, b4
 
 
+# ---- the transducer: the widths of chunkformer-rnnt-small.yaml
+RNNT_CONF = "examples/asr/rnnt/conf/chunkformer-rnnt-small.yaml"
+RNNT_SECONDS = 300.0     # endless_decode at a 120 s budget: 5 macro-segments
+RNNT_BUDGET = 120
+RNNT_MODES = ("rnnt_greedy_search", "rnnt_beam_search", "rnnt_beam_attn_rescoring")
+
+
+def rnnt_config():
+    """examples/asr/rnnt/conf/chunkformer-rnnt-small.yaml with the smoke's
+    6992-symbol vocabulary (the config's units.txt and BPE model are not in
+    the repository) and the decode configs' fbank settings (dither 0)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), RNNT_CONF)) as f:
+        d = yaml.safe_load(f)
+    return {**d, "output_dim": LARGE["output_dim"], "dataset_conf": LARGE["dataset_conf"]}
+
+
+def rnnt_no_dropout(d):
+    """The transducer config with every dropout at 0."""
+    return {**d, "encoder_conf": {**d["encoder_conf"], "dropout_rate": 0.0,
+                                  "positional_dropout_rate": 0.0, "attention_dropout_rate": 0.0},
+            "decoder_conf": {**d["decoder_conf"], "dropout_rate": 0.0,
+                             "positional_dropout_rate": 0.0},
+            "predictor_conf": {**d["predictor_conf"], "embed_dropout": 0.0}}
+
+
+def shape_joint(model, enc):
+    """Makes the random joint stop on some frames: its encoder projection
+    scaled by 4 and centred on the mean frame of ``enc`` [T, D] (a random
+    encoder's frames differ little), its output layer scaled by 3, and the
+    blank logit raised by the median margin of the best token over blank at
+    the first predictor step. A random predictor does not learn to stop after
+    an emission: on the 300 s file about a fifth of the frames emit blank
+    only and most of the others loop to the 8-symbol cap, about 6 tokens a
+    frame where speech has about 0.3 (PERF.md). A bias that aims at that rate
+    sits on an edge: the frames' margins are so alike that the rate jumps
+    between none and the cap on the encoder's rounding."""
+    from chunkformer_tpu_torch.models.transducer import joint_forward, predictor_init_state
+
+    with torch.no_grad():
+        j = model.joint
+        j.enc_ffn.weight.mul_(4.0)
+        j.enc_ffn.bias.copy_(-(enc.mean(0) @ j.enc_ffn.weight.T))
+        j.ffn_out.weight.mul_(3.0)
+        state = predictor_init_state(model.predictor.cfg, 1, enc.dtype, enc.device)
+        pred, _ = model.predictor.step(torch.zeros(1, dtype=torch.long, device=enc.device),
+                                       state)
+        logits = joint_forward(j, enc[None], pred[None])[0, :, 0]
+        j.ffn_out.bias[0] += (logits[:, 1:].amax(-1) - logits[:, 0]).median()
+
+
+class CaptureDecodeAttention:
+    """Records the operands of the ``index``-th decode attention call."""
+
+    def __init__(self, index):
+        self.index, self.calls, self.args = index, 0, None
+
+    def __enter__(self):
+        from chunkformer_tpu_torch.nn import attention as attention_module
+
+        self.module, self.routed = attention_module, attention_module.chunk_attention
+
+        def call(*args, **kw):
+            if self.calls == self.index:
+                self.args = [a.clone() for a in args]
+            self.calls += 1
+            return self.routed(*args, **kw)
+
+        attention_module.chunk_attention = call
+        return self
+
+    def __exit__(self, *exc):
+        self.module.chunk_attention = self.routed
+
+
+def time_decode_attention(label, args, card):
+    """B1's tensor-core kernel against the plain version on captured
+    operands: max error (f32 atol 1e-5; bf16 1e-2 + one ulp relative) and
+    times in turns (2 rounds), bound as ``attention_bound``."""
+    from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention_plain,
+                                                           chunk_attention_tensor_core, route)
+
+    f32 = args[0].dtype == torch.float32
+    kw = dict(chunk=args[0].shape[1], left=LEFT, right=RIGHT)
+    require(route(*args[:3]) == "tensor_core", f"{label}: not the tensor-core route")
+    _, err = check_attention(label, chunk_attention_tensor_core, args,
+                             *((1e-5, 0.0) if f32 else (1e-2, 2.0 ** -7)))
+    ks, ps = [], []
+    for _ in range(2):
+        ks.append(cuda_ms(lambda: chunk_attention_tensor_core(*args, **kw), iters=50))
+        ps.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=5, warmup=1))
+    ms, plain_ms = sum(ks) / 2, sum(ps) / 2
+    bound_ms, bound_by = attention_bound(args, "tf32" if f32 else None)
+    n, c, h, dk = args[0].shape
+    log(f"{label}: B1 on the tensor cores at N={n} H={h} c={c} dk={dk} L=R={LEFT}: "
+        f"max|kernel-plain| {err:.3g}; in turns (2 rounds): kernel {ms:.4f} ms "
+        f"({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def grads_with_ctx_delta(args, ctx, m, den, dctx, exact=False):
+    """(dq, du, dv) of the plain backward at p = 0 with delta formed as the
+    bf16 tensor-core backward forms it, rowsum(dctx * ctx) of the bf16 ctx
+    (FlashAttention-2's D = rowsum(dO * O)), where the plain version, like the
+    TPU kernel, takes rowsum(dA * A) in f32 (C13). With ``exact`` delta is
+    rowsum(dA * A) and dS is rounded to bf16 instead: the error a bf16 dS
+    alone would give."""
+    import math
+
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    q, kv, p, u, v, lens = args
+    b, n, heads, d_k, w = cat._layout(q, kv, p, C, LEFT, RIGHT)
+    _, _, k, vals, s = cat._scores(q, kv, p, u, v, C, LEFT, RIGHT)
+    valid = cat._valid(lens, n, C, LEFT, w)
+
+    def stat(x):
+        return x.reshape(b, heads, n, C).permute(0, 2, 1, 3)[..., None]
+
+    attn = torch.exp(s.masked_fill(~valid, -1e30) - stat(m)) / stat(den)
+    g = dctx.float().reshape(b, n, C, heads, d_k)
+    da = torch.einsum("bnchd,bnhdw->bnhcw", g, vals)
+    if exact:
+        ds = (attn * (da - (da * attn).sum(-1, keepdim=True))).bfloat16().float()
+    else:
+        delta = (g * ctx.float().reshape(b, n, C, heads, d_k)).sum(-1).permute(0, 1, 3, 2)
+        ds = attn * (da - delta[..., None])
+    scale = 1.0 / math.sqrt(d_k)
+    dqu = torch.einsum("bnhcw,bnhdw->bnchd", ds, k)
+    idx = (C - 1 - torch.arange(C, device=q.device)[:, None]
+           + torch.arange(w, device=q.device)[None, :])
+    band = ds.new_zeros(b, n, heads, C, p.shape[0])
+    band.scatter_(-1, idx.expand(b, n, heads, C, w), ds)
+    dqv = torch.einsum("bnhcp,phd->bnchd", band, p.float())
+    return (((dqu + dqv) * scale).reshape(b, n * C, heads, d_k), dqu.sum((0, 1, 2)) * scale,
+            dqv.sum((0, 1, 2)) * scale)
+
+
+def time_train_attention(label, args, card, seed=20261):
+    """B4 (forward) and B5 (backward) on the tensor cores against their plain
+    versions on captured operands at p = 0: forward ctx f32 atol 1e-5 (bf16
+    1e-2 + one ulp relative), backward gradients f32 atol 1e-4 + rtol 1e-5;
+    bf16 relative L2 1e-2 against the plain version for dkv and dp, and for
+    dq, du and dv against the plain backward with delta formed from the bf16
+    ctx as the kernel forms it (``grads_with_ctx_delta``). Their distance to
+    the plain version is printed beside it as the reading of C13 and is not
+    part of the bar. Times in turns (2 rounds), bounds as
+    ``train_attention_bounds``. Returns {"fwd": ..., "bwd": ...}."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    args = [a.detach() for a in args]
+    f32 = args[0].dtype == torch.float32
+    st = (seed, C, LEFT, RIGHT, 0.0)
+    require(cat.route(*args[:3], C) == "tensor_core", f"{label}: not the tensor-core route")
+    ctx, m, den = cat.forward_kernel(*args, *st, path="tensor_core")
+    want = cat.forward_plain(*args, *st)
+    fwd_err = float((ctx.float() - want[0].float()).abs().max())
+    tol = 1e-5 if f32 else 1e-2 + 2.0 ** -7 * want[0].float().abs()
+    require(bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
+            f"{label}: forward max |kernel - plain| {fwd_err:.3g}")
+    dctx = torch.randn(ctx.shape, generator=torch.Generator(device=ctx.device).manual_seed(seed),
+                       device=ctx.device).to(ctx.dtype)
+    got = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path="tensor_core")
+    plain = cat.backward_plain(*args, want[1], want[2], dctx, *st)
+    bwd_err, rels = 0.0, {}
+    by_ctx, by_ds = ({}, {}) if f32 else (
+        dict(zip(("q", "u", "v"), grads_with_ctx_delta(args, ctx, want[1], want[2], dctx,
+                                                       exact))) for exact in (False, True))
+    for name, a, e in zip(("q", "kv", "p", "u", "v"), got, plain):
+        err = (a.float() - e.float()).abs()
+        bwd_err = max(bwd_err, float(err.max()))
+        if f32:
+            require(bool((err <= 1e-4 + 1e-5 * e.float().abs()).all()),
+                    f"{label}: d{name} max |kernel - plain| {float(err.max()):.3g}")
+            continue
+        rel = float((a.float() - e.float()).norm() / e.float().norm())
+        if name not in by_ctx:
+            rels[name] = (rel,)
+            require(rel <= 1e-2, f"{label}: d{name} relative L2 error {rel:.3g}")
+            continue
+        emu = float((a.float() - by_ctx[name]).norm() / by_ctx[name].norm())
+        rels[name] = (emu, rel, float((by_ds[name] - e.float()).norm() / e.float().norm()))
+        require(emu <= 1e-2, f"{label}: d{name} relative L2 error {emu:.3g} against the plain "
+                f"version with the bf16 ctx's delta")
+    times = {k: [] for k in ("kf", "pf", "kb", "pb")}
+    for _ in range(2):
+        times["kf"].append(cuda_ms(lambda: cat.forward_kernel(*args, *st, path="tensor_core"),
+                                   iters=20))
+        times["pf"].append(cuda_ms(lambda: cat.forward_plain(*args, *st), iters=3, warmup=1))
+        times["kb"].append(cuda_ms(lambda: cat.backward_kernel(
+            *args, ctx, m, den, dctx, *st, path="tensor_core"), iters=20))
+        times["pb"].append(cuda_ms(lambda: cat.backward_plain(*args, m, den, dctx, *st),
+                                   iters=3, warmup=1))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    out = {}
+    b, tp, h, dk = args[0].shape
+    msg = f"{label}: B={b} T'={tp} H={h} c={C} dk={dk} L=R={LEFT}"
+    if rels:
+        msg += ("; backward relative L2 (limit 1e-2): dkv, dp vs plain; dq, du, dv vs the "
+                "plain version with delta from the bf16 ctx (C13's reading: vs plain; the "
+                "plain version with an exact delta and dS in bf16 vs plain) " + ", ".join(
+                    f"d{k} {r[0]:.3g}" + (f" ({r[1]:.3g}; {r[2]:.3g})" if len(r) > 1 else "")
+                    for k, r in rels.items()))
+    for part, k, p, err, backward in (("fwd", "kf", "pf", fwd_err, False),
+                                      ("bwd", "kb", "pb", bwd_err, True)):
+        bound_ms, bound_by = train_attention_bounds(args, backward, None if not f32 else "tf32")
+        out[part] = dict(max_abs_err=err, ms=mean[k], plain_ms=mean[p], bound_ms=bound_ms,
+                         bound_by=bound_by)
+        msg += (f"; {'forward' if part == 'fwd' else 'backward'} max|kernel-plain| {err:.3g}, "
+                f"in turns (2 rounds) kernel {mean[k]:.4f} ms "
+                f"({', '.join(f'{x:.4f}' for x in times[k])}), plain {mean[p]:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}, {mean[k] / bound_ms:.1f}x")
+    log(msg + f"; card {card}")
+    return out
+
+
+def rnnt_trainer(cfg_dict, device, autocast, seed):
+    """A TransducerModel with weights from ``seed`` and its
+    make_train_step(loss_fn=transducer_model_loss) at (64, 128, 128): adamw,
+    warmuplr, clip 5."""
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import init_random_
+    from chunkformer_tpu_torch.models.transducer import TransducerModel
+    from chunkformer_tpu_torch.train.losses import transducer_model_loss
+    from chunkformer_tpu_torch.train.optim import build_optimizer
+    from chunkformer_tpu_torch.train.train_step import make_train_step
+
+    cfg = ChunkFormerConfig.from_dict(cfg_dict)
+    model = init_random_(TransducerModel(cfg), torch.Generator().manual_seed(seed)).to(device)
+    opt, sched = build_optimizer(list(model.parameters()), "adamw", {"lr": 1e-3}, "warmuplr",
+                                 {"warmup_steps": 25000})
+    return cfg, model, make_train_step(model, cfg, opt, sched, (C, LEFT, RIGHT),
+                                       autocast=autocast, grad_clip=GRAD_CLIP,
+                                       loss_fn=transducer_model_loss)
+
+
+def phase_transducer(tmp, card, device, search):
+    """The transducer at the widths of chunkformer-rnnt-small.yaml (256 d, 4
+    heads, 12 blocks; LSTM predictor 2 x 256; joint 512; decoder 3 + 3;
+    vocab 6992; random weights from SEED + 17, the joint shaped by
+    ``shape_joint``) as an export ``from_pretrained`` loads:
+    ``endless_decode`` of a 300 s file at (64, 128, 128) with a 120 s budget
+    (5 macro-segments: the predictor carry crosses 4 boundaries) in f32 and
+    bf16, its f32 frame tokens equal to one greedy pass over
+    ``endless_encode``'s whole output from a fresh carry; ``batch_decode``
+    of the three batch files; ``bin/recognize.py`` with the three rnnt_*
+    modes (beam 10) on the search files, once as a warm-up, then f32 and
+    bf16, audio-s/s by mode from its log; B1, B2 and B4 (eval) timed at these
+    paths' shapes. Then the k2 transducer train step at the flagship batch
+    shape (32 x 1600 frames, 48 labels, (64, 128, 128)): 3 bf16 steps
+    (autocast) and 3 f32 steps with dropout on, ms a step, peak memory and
+    12 B4 and 12 B5 launches a step; one f32 step (dropout 0) against the
+    same step through the plain attention: loss 1e-5, gradients 1e-4
+    relative L2, whole and by module; one bf16 step likewise, loss and whole
+    gradient 1e-2; B4 and B5 timed at this shape.
+    Returns (launches by kernel entry, timing results by kernel entry)."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel, endless_sizing
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import init_random_
+    from chunkformer_tpu_torch.models.transducer import (TransducerModel,
+                                                         transducer_greedy_search)
+    from chunkformer_tpu_torch.ops.fbank import fbank, num_frames
+    from chunkformer_tpu_torch.train import losses
+
+    cfg_dict = rnnt_config()
+    cfg = ChunkFormerConfig.from_dict(cfg_dict)
+    n_layers = cfg.encoder_conf.num_blocks
+    rng = np.random.default_rng(SEED + 17)
+    long_wav = write_wav(os.path.join(tmp, "rnnt_long.wav"), speechlike(rng, RNNT_SECONDS))
+    batch_wavs = [write_wav(os.path.join(tmp, f"rnnt_b{i}.wav"), speechlike(rng, sec))
+                  for i, sec in enumerate(BATCH_SECONDS)]
+    _, test_list, search_wavs = search
+
+    # the export: CMVN from the long file's first minute, the joint shaped on it
+    from scipy.io import wavfile
+
+    head = fbank(torch.from_numpy(wavfile.read(long_wav)[1][:16000 * 60].astype(np.float32))
+                 .to(device))
+    model = init_random_(TransducerModel(cfg),
+                         torch.Generator().manual_seed(SEED + 17)).to(device)
+    with torch.no_grad():
+        model.encoder.global_cmvn.mean.copy_(head.mean(0))
+        model.encoder.global_cmvn.istd.copy_(1.0 / head.std(0).clamp_min(1e-3))
+        enc, _ = model.encoder.forward_train(head[None], torch.tensor([head.shape[0]],
+                                                                      device=device),
+                                             0, 0, 0, train=False)
+    shape_joint(model, enc[0])
+    model_dir = os.path.join(tmp, "rnnt_export")
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    save_export(model_dir, cfg_dict, sd, head, symbols=vocabulary(cfg.vocab_size))
+    del model, enc
+    log(f"transducer export: {RNNT_CONF} widths, vocab {cfg.vocab_size}, "
+        f"{sum(v.numel() for v in sd.values())} values; predictor "
+        f"{cfg.predictor_conf.predictor_type} {cfg.predictor_conf.num_layers} x "
+        f"{cfg.predictor_conf.hidden_size}, joint {cfg.joint_conf.join_dim}")
+
+    models = {"f32": ChunkFormerModel.from_pretrained(model_dir, device=device),
+              "bf16": ChunkFormerModel.from_pretrained(model_dir, dtype=torch.bfloat16,
+                                                       device=device)}
+    require(all(m.is_transducer and m.model.simple_am_proj is not None
+                and m.model.ctc is not None and m.model.decoder is not None
+                for m in models.values()),
+            "the transducer export did not load with all its heads")
+    ctx = (C, LEFT, RIGHT)
+    trunc, rel_right, step_raw, _, capacity = endless_sizing(cfg.encoder_conf, C, RIGHT,
+                                                             RNNT_BUDGET)
+    t_feats = num_frames(int(RNNT_SECONDS * 16000))
+    starts = list(range(0, t_feats, step_raw))     # as api.py's _endless_segments walks them
+    n_seg = next((i + 1 for i, st in enumerate(starts) if st + rel_right >= t_feats),
+                 len(starts))
+    require(n_seg >= 3,
+            f"the {RNNT_SECONDS:.0f} s file has {n_seg} macro-segments at {RNNT_BUDGET} s")
+    models["f32"].endless_decode(batch_wavs[0], *ctx,
+                                 total_batch_duration=RNNT_BUDGET)   # warm-up
+    launches, results, frames_by = {}, {}, {}
+    for tag, m in models.items():
+        reset_counts()
+        reset_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        segments = m.endless_decode(long_wav, *ctx, total_batch_duration=RNNT_BUDGET)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {**read_counts(), **read_train_counts()}
+        want = {"chunk_attention": 0, "chunk_attention_tc": n_layers * n_seg,
+                "fbank": 0, "fbank_fft": 1, "fwd": 0, "bwd": 0, "fwd_tc": 0,
+                "bwd_tc": 0}
+        require(counts == want, f"transducer endless_decode {tag} launches {counts}, "
+                f"expected {want}")
+        launches[f"endless {tag}"] = counts
+        feats = m.extract_features(long_wav)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        enc = m.endless_encode(feats, *ctx, RNNT_BUDGET)
+        torch.cuda.synchronize()
+        enc_s = time.time() - t0
+        t0 = time.time()
+        frames = m.endless_rnnt_tokens(feats, *ctx, RNNT_BUDGET)
+        torch.cuda.synchronize()
+        rnnt_s = time.time() - t0
+        frames_by[tag] = frames
+        emitted = (frames != 0).sum(1)
+        steps = np.minimum(emitted + 1, 8)
+        blank_share = float((emitted == 0).mean())
+        n_tokens = int(emitted.sum())
+        log(f"transducer endless_decode {tag} of {RNNT_SECONDS:.0f} s at {ctx}, budget "
+            f"{RNNT_BUDGET} s "
+            f"({n_seg} macro-segments of {trunc} frames, capacity {capacity}): {wall:.3f} s, "
+            f"{RNNT_SECONDS / wall:.1f} audio-s/s; endless_encode alone {enc_s:.3f} s, "
+            f"endless_rnnt_tokens {rnnt_s:.3f} s, so the greedy search about "
+            f"{rnnt_s - enc_s:.3f} s for {frames.shape[0]} frames, {int(steps.sum())} emit steps "
+            f"(a host sync each but a frame's 8th), {1e3 * (rnnt_s - enc_s) / steps.sum():.3f} ms "
+            f"a step; {n_tokens / frames.shape[0]:.4f} tokens a frame, blank-only frames "
+            f"{blank_share:.4f}, frames by symbols emitted "
+            f"{np.bincount(emitted, minlength=9).tolist()}, {n_tokens} tokens in "
+            f"{len(segments)} segments; launches {counts}; card {card}")
+        require(0.0 < blank_share < 1.0 and n_tokens > 0,
+                f"{tag}: blank-only frame share {blank_share}")
+        if tag == "f32":
+            # the fused carry against one pass over the whole encoder output
+            with torch.inference_mode():
+                whole = transducer_greedy_search(m.model, m.config, enc[None], [enc.shape[0]], 8)
+            same = np.array_equal(frames, whole[0].cpu().numpy())
+            log(f"transducer f32: endless_decode's tokens with the predictor carry across "
+                f"{n_seg - 1} segment boundaries vs one greedy pass over endless_encode's "
+                f"{enc.shape[0]} frames from a fresh carry: "
+                f"{'equal' if same else 'DIFFERENT'}")
+            require(same, "the segmented transducer greedy differs from the whole-file pass")
+        del enc
+    diff = int((frames_by["f32"] != frames_by["bf16"]).any(1).sum())
+    log(f"transducer endless bf16 vs f32: frame tokens differ on {diff} of "
+        f"{frames_by['f32'].shape[0]} frames (random weights)")
+
+    for tag, m in models.items():
+        m.batch_decode(batch_wavs[:1], *ctx)   # warm-up
+        reset_counts()
+        reset_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        texts = m.batch_decode(batch_wavs, *ctx)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {**read_counts(), **read_train_counts()}
+        want = {"chunk_attention": 0, "chunk_attention_tc": n_layers,
+                "fbank": 0, "fbank_fft": len(batch_wavs), "fwd": 0, "bwd": 0,
+                "fwd_tc": 0, "bwd_tc": 0}
+        require(counts == want and len(texts) == len(batch_wavs) and any(texts),
+                f"transducer batch_decode {tag}: launches {counts}, expected {want}; "
+                f"{len(texts)} texts")
+        launches[f"batch {tag}"] = counts
+        log(f"transducer batch_decode {tag} of {sum(BATCH_SECONDS):.1f} s in 3 files at {ctx}: "
+            f"{wall:.3f} s, {sum(BATCH_SECONDS) / wall:.1f} audio-s/s; "
+            f"{[len(t) for t in texts]} characters; launches {counts}; card {card}")
+
+    grab = LogLines()
+    logging.getLogger().addHandler(grab)
+    logging.getLogger().setLevel(logging.INFO)
+    audio_s = sum(wavfile.read(w)[1].size / 16000.0 for w in search_wavs)
+    try:
+        run_recognize(model_dir, test_list, os.path.join(tmp, "rnnt_rec_warm"), "fp32", grab,
+                      RNNT_MODES)
+        for dtype in ("fp32", "bf16"):
+            wall, parts, counts, peak = run_recognize(
+                model_dir, test_list, os.path.join(tmp, f"rnnt_rec_{dtype}"), dtype, grab,
+                RNNT_MODES)
+            want = {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
+                    "fbank_fft": len(search_wavs), "fwd": 0, "bwd": 0,
+                    "fwd_tc": n_layers, "bwd_tc": 0}
+            require(counts == want, f"transducer recognize {dtype} launches {counts}, "
+                    f"expected {want}")
+            launches[f"recognize {dtype}"] = counts
+            enc_s = parts["features and encode"]
+            log(f"transducer recognize {dtype}: {len(search_wavs)} files in one batch at {ctx}, "
+                f"beam {BEAM}: main() {wall:.3f} s with the model load; features and encode "
+                f"{enc_s:.4f} s; by mode, features + encode + search: " + ", ".join(
+                    f"{m} {enc_s + parts[m]:.4f} s ({audio_s / (enc_s + parts[m]):.1f} "
+                    f"audio-s/s)" for m in RNNT_MODES)
+                + f"; peak device memory {peak:.2f} GiB; launches {counts}; card {card}")
+    finally:
+        logging.getLogger().removeHandler(grab)
+
+    wave = torch.from_numpy(wavfile.read(long_wav)[1].astype(np.float32)).to(device)
+    results["fbank"] = time_fbank_window("transducer", wave, card,
+                                         f"the {RNNT_SECONDS:.0f} s file")
+    for tag, m in models.items():
+        feats = m.extract_features(long_wav)
+        with CaptureDecodeAttention(n_layers) as cap:   # the second segment's first layer
+            m.endless_encode(feats, *ctx, RNNT_BUDGET)
+        results[f"B1 {tag}"] = time_decode_attention(
+            f"transducer endless {tag}, a middle segment", cap.args, card)
+        feats_b, xs, lens = padded_batch(m, search_wavs)
+        with CaptureTrainAttention() as cap:
+            m.encode(xs, lens, *ctx)
+        results[f"B4 eval {tag}"] = time_eval_forward(
+            f"transducer {tag}", cap.args, torch.float32 if tag == "f32" else torch.bfloat16,
+            card, ctx, "the transducer's recognize batch")
+    del models
+
+    # the k2 transducer train step
+    b, t_frames, u_labels = TRAIN_BATCH, TRAIN_FRAMES, TRAIN_LABELS
+
+    def batch_on(seed_):
+        g = torch.Generator(device=device).manual_seed(seed_)
+        return (torch.randn(b, t_frames, 80, generator=g, device=device),
+                torch.full((b,), t_frames, dtype=torch.int32, device=device),
+                torch.randint(1, cfg.vocab_size - 2, (b, u_labels), generator=g, device=device),
+                torch.full((b,), u_labels, dtype=torch.int32, device=device))
+
+    batch = batch_on(SEED + 19)
+    for tag, autocast in (("bf16", torch.bfloat16), ("f32", None)):
+        _, model, step = rnnt_trainer(cfg_dict, device, autocast, SEED + 18)
+        gen = torch.Generator().manual_seed(SEED + 20)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        reset_train_counts()
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with (CaptureTrainAttention() if i == 0 else contextlib.nullcontext()) as cap:
+                m = {k: float(v) for k, v in step(*batch, gen).items()}
+            times.append(time.time() - t0)
+            metrics.append(m)
+            if i == 0:
+                args = cap.args
+        counts = read_train_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        warm = times[1:]
+        step_s = sum(warm) / len(warm)
+        for i, (t, m) in enumerate(zip(times, metrics)):
+            log(f"transducer train step {i + 1} {tag}: {1e3 * t:.1f} ms, " + ", ".join(
+                f"{k} {v:.5g}" for k, v in m.items()))
+            require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics {m}")
+        want = {"fwd": 0, "bwd": 0, "fwd_tc": n_layers * TRAIN_STEPS,
+                "bwd_tc": n_layers * TRAIN_STEPS}
+        require(counts == want, f"transducer train {tag} launches {counts}, expected {want}")
+        launches[f"train {tag}"] = counts
+        log(f"transducer train {tag} (k2: smoothed + pruned, prune_range "
+            f"{cfg.model_conf.prune_range}; B={b} x {t_frames} frames, U={u_labels}, {ctx}): "
+            f"{1e3 * step_s:.1f} ms a step over steps 2-{TRAIN_STEPS}, "
+            f"{b * t_frames / 100.0 / step_s:.1f} train audio-s/s (first step "
+            f"{1e3 * times[0]:.1f} ms); peak device memory {peak:.2f} GiB; launches {counts}; "
+            f"card {card}")
+        del model, step
+        results[f"train {tag}"] = time_train_attention(
+            f"transducer train {tag}", args, card)
+        del args
+
+    # one step (dropout 0) through the kernels and through the plain attention,
+    # f32 (loss 1e-5; gradients 1e-4 relative L2, whole and by module) and
+    # bf16 (loss and whole gradient 1e-2, the single-op bf16 bar)
+    record = losses.rnnt_prune_bounds
+    none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
+    for tag, autocast, loss_bar, grad_bar in (("f32", None, 1e-5, 1e-4),
+                                              ("bf16", torch.bfloat16, 1e-2, 1e-2)):
+        runs = {}
+        for route in ("kernels", "plain"):
+            _, model, step = rnnt_trainer(rnnt_no_dropout(cfg_dict), device, autocast, SEED + 18)
+            if route == "plain":
+                for layer in model.encoder.encoders:
+                    layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
+            bounds = []
+            losses.rnnt_prune_bounds = lambda *a, **k: bounds.append(record(*a, **k)) or bounds[-1]
+            reset_train_counts()
+            try:
+                m = step(*batch)
+            finally:
+                losses.rnnt_prune_bounds = record
+            unclip = max(1.0, float(m["grad_norm"]) / GRAD_CLIP)
+            runs[route] = (float(m["loss"]), {n: p.grad.detach().float() * unclip
+                                              for n, p in model.named_parameters()},
+                           read_train_counts(), bounds[0])
+            del model, step
+        (loss_k, g_k, counts_k, b_k), (loss_p, g_p, counts_p, b_p) = runs["kernels"], runs["plain"]
+        groups = {g: [n for n in g_p if n.startswith(g + ".")]
+                  for g in ("encoder", "predictor", "joint", "ctc", "decoder", "simple_am_proj",
+                            "simple_lm_proj")}
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        whole = rel_l2(g_k, g_p, list(g_p))
+        group_rel = {g: rel_l2(g_k, g_p, names) for g, names in groups.items()}
+        # per parameter, relative to its own gradient norm floored at 1e-6 of the
+        # whole gradient's (the key biases' gradients are zero in exact arithmetic)
+        floor = 1e-6 * float(torch.sqrt(sum(g.square().sum() for g in g_p.values())))
+        worst = max((float((g_k[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), floor), n)
+                    for n in g_p)
+        log(f"transducer train {tag} step (dropout 0) through the kernels vs the plain "
+            f"attention: loss {loss_k:.8g} vs {loss_p:.8g}, relative difference {loss_rel:.3g} "
+            f"(limit {loss_bar:g}); prune-band starts differing {int((b_k != b_p).sum())} of "
+            f"{b_k.numel()}; gradient relative L2 difference whole {whole:.3g} (limit "
+            f"{grad_bar:g}), by module " + ", ".join(f"{g} {v:.3g}" for g, v in group_rel.items())
+            + (" (limit 1e-4 each)" if tag == "f32" else "")
+            + f"; worst parameter {worst[0]:.3g} at {worst[1]}; launches {counts_k} vs "
+            f"{counts_p}")
+        require(np.isfinite(loss_k) and loss_rel <= loss_bar,
+                f"transducer {tag} loss differs by {loss_rel}")
+        require(whole <= grad_bar and (tag != "f32" or max(group_rel.values()) <= grad_bar),
+                f"transducer {tag} gradients differ: whole {whole}, by module {group_rel}")
+        require(counts_p == none, f"the plain {tag} step launched {counts_p}")
+        require(counts_k == {**none, "fwd_tc": n_layers, "bwd_tc": n_layers},
+                f"the {tag} step launched {counts_k}")
+    return launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2220,6 +2778,10 @@ def main() -> int:
         classify_launches, b4_classify = phase_classification(tmp, card, torch.device("cuda"),
                                                               search)
         log(f"[phase classification path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        rnnt_launches, rnnt = phase_transducer(tmp, card, torch.device("cuda"), search)
+        log(f"[phase transducer path] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2307,6 +2869,31 @@ def main() -> int:
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
          "launches": classify_launches["f32"], **b4_classify["f32"], "library_ms": None},
     ]
+    for tag, suffix in (("bf16", ""), ("f32", "_f32")):
+        cu = f"chunkformer_tpu_torch/csrc/chunk_attention{{}}_tc{suffix}.cu"
+        kernels += [
+            {"name": f"chunk_attention_tc{suffix}_rnnt", "route": "cuda", "source": cu.format(""),
+             "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+             "launches": sum(rnnt_launches[f"{p} {tag}"]["chunk_attention_tc"]
+                             for p in ("endless", "batch")),
+             **rnnt[f"B1 {tag}"], "library_ms": None},
+            {"name": f"chunk_train_attention_tc{suffix}_fwd_eval_rnnt", "route": "cuda",
+             "source": cu.format("_train"),
+             "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+             "launches": rnnt_launches[f"recognize {'fp32' if tag == 'f32' else tag}"]["fwd_tc"],
+             **rnnt[f"B4 eval {tag}"], "library_ms": None}]
+        for part, line in (("fwd", 316), ("bwd", 390)):
+            kernels.append(
+                {"name": f"chunk_train_attention_tc{suffix}_{part}_rnnt", "route": "cuda",
+                 "source": cu.format("_train"),
+                 "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+                 "launches": rnnt_launches[f"train {tag}"][f"{part}_tc"],
+                 **rnnt[f"train {tag}"][part], "library_ms": None})
+    kernels.append({"name": "fbank_fft_rnnt", "route": "cuda",
+                    "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+                    "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+                    "launches": sum(c.get("fbank_fft", 0) for c in rnnt_launches.values()),
+                    **rnnt["fbank"], "library_ms": None})
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -2322,7 +2909,12 @@ def main() -> int:
         f"f32 endless_decode at c = 96; the streaming path: the FFT fbank kernel on one step's "
         f"window, launches from the f32 bin/stream run; classification: B4's forward in eval "
         f"at classify_audio's shape at (128, 128, 128) (the 40 s file), launches from "
-        f"classify_audio over the 8 files in bf16 and in f32; card {card}")
+        f"classify_audio over the 8 files in bf16 and in f32; the transducer (*_rnnt, H = 4): "
+        f"B1 at a middle segment of the {RNNT_SECONDS:.0f} s endless_decode, launches from "
+        f"its endless_decode and batch_decode in that dtype; B4's eval forward at its "
+        f"recognize batch, launches from that recognize call; B4 and B5 at the train batch, "
+        f"launches from the {TRAIN_STEPS} steps in that dtype; the FFT fbank kernel on the "
+        f"{RNNT_SECONDS:.0f} s file, launches from all its decode paths; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -1,4 +1,4 @@
-"""Public API: ChunkFormerModel with long-form and masked-batch CTC decoding.
+"""Public API: ChunkFormerModel with long-form and masked-batch decoding.
 
 Counterpart of ``chunkformer_tpu/api.py`` (reference: chunkformer_model.py:58-816):
 
@@ -13,6 +13,13 @@ Counterpart of ``chunkformer_tpu/api.py`` (reference: chunkformer_model.py:58-81
   encoder outputs.
 - ``classify_audio`` — per-task labels of one file from a classification
   export (chunkformer_model.py:554-646).
+
+A transducer export (``model: transducer``) decodes with RNN-T greedy
+(8 symbols a frame at most) instead of the CTC head: ``endless_decode``
+carries the predictor's last token and state from macro-segment to
+macro-segment (``endless_rnnt_tokens``), ``batch_decode`` un-packs the
+encoder outputs per file and searches them as one padded batch
+(chunkformer_model.py:437-446, 533-541).
 
 Everything runs on ``device``, which is ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit device the constructor
@@ -32,9 +39,12 @@ import torch
 from .config import ChunkFormerConfig, EncoderConfig
 from .convert import load_state_dict
 from .data.audio import load_audio
-from .decode.outputs import get_output, get_output_with_timestamps
+from .decode.outputs import (get_output, get_output_with_timestamps, segments_from_tokens,
+                             tokens_to_text)
 from .models.asr import ASRModel
 from .models.classification import ClassificationModel, classify_predict
+from .models.transducer import (TransducerModel, greedy_tokens_to_sequences,
+                                transducer_greedy_search)
 from .ops import chunk as chunk_ops
 from .ops.fbank import fbank
 
@@ -114,10 +124,13 @@ def endless_sizing(cfg: EncoderConfig, chunk_size: int, right: int,
     return trunc, rel_right, step_raw, seg_raw, capacity
 
 
+RNNT_STEPS = 8  # symbols a frame in the transducer's greedy decode (as chunkformer_tpu)
+
+
 class ChunkFormerModel:
     """Inference-facing model wrapper around an ``ASRModel`` (or, when
-    ``config.model`` is "classification", a ``ClassificationModel``) on one
-    device."""
+    ``config.model`` is "classification" or "transducer", a
+    ``ClassificationModel`` or a ``TransducerModel``) on one device."""
 
     def __init__(self, config: ChunkFormerConfig, state_dict: Dict[str, torch.Tensor],
                  char_dict: Optional[Dict[int, str]] = None,
@@ -128,8 +141,13 @@ class ChunkFormerModel:
         self.dtype = dtype
         self.label_mapping: Optional[Dict[str, List[str]]] = None
         cmvn = "encoder.global_cmvn.mean" in state_dict
-        model = ClassificationModel(config, cmvn) if self.is_classification \
-            else ASRModel(config, cmvn)
+        if self.is_classification:
+            model = ClassificationModel(config, cmvn)
+        elif self.is_transducer:
+            model = TransducerModel(config, cmvn, ctc="ctc.ctc_lo.weight" in state_dict,
+                                    simple="simple_am_proj.weight" in state_dict)
+        else:
+            model = ASRModel(config, cmvn)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
 
@@ -148,9 +166,9 @@ class ChunkFormerModel:
         pytorch_model.bin, vocab.txt and, where the checkpoint has no CMVN
         stats, global_cmvn; a classification export also label_mapping.json.
         The encoder, CTC and, when the config names one, attention-decoder
-        weights load with strict=True, or for a classification model the
-        encoder and the classification heads; other heads in the checkpoint
-        are not part of this package yet."""
+        weights load with strict=True; a transducer also its predictor, joint
+        and simple-joint projections; a classification model the encoder and
+        the classification heads."""
         if not os.path.isdir(model_dir):
             raise FileNotFoundError(f"model dir not found: {model_dir}")
         config = ChunkFormerConfig.from_yaml(os.path.join(model_dir, "config.yaml"))
@@ -163,6 +181,8 @@ class ChunkFormerModel:
             heads = ("encoder.", "classification_heads.")
         else:
             heads = ("encoder.", "ctc.") + (("decoder.",) if config.decoder else ())
+            if config.model == "transducer":
+                heads += ("predictor.", "joint.", "simple_am_proj.", "simple_lm_proj.")
         sd = {k: v for k, v in load_state_dict(ckpt).items() if k.startswith(heads)}
         if config.vocab_size == 0 and "ctc.ctc_lo.weight" in sd:
             config.vocab_size = sd["ctc.ctc_lo.weight"].shape[0]
@@ -222,13 +242,25 @@ class ChunkFormerModel:
         return_timestamps: bool = True,
         max_silence_duration: float = 0.5,
     ):
-        """Long-form decode with bounded memory (chunkformer_model.py:320-459)."""
+        """Long-form decode with bounded memory (chunkformer_model.py:320-459).
+
+        Returns segments with timestamps (or their joined text), or without a
+        vocabulary the CTC frame tokens / the transducer's token list."""
         feats = self.extract_features(audio_path)
-        tokens = self.endless_encode_tokens(feats, chunk_size, left_context_size,
-                                            right_context_size, total_batch_duration)
-        if self.char_dict is None:
-            return tokens
-        result = get_output_with_timestamps(tokens, self.char_dict, max_silence_duration)
+        if self.is_transducer:
+            frame_tokens = self.endless_rnnt_tokens(feats, chunk_size, left_context_size,
+                                                    right_context_size, total_batch_duration)
+            (seq, times), = greedy_tokens_to_sequences(
+                frame_tokens[None], [frame_tokens.shape[0]], self.config.ctc_conf.ctc_blank_id)
+            if self.char_dict is None:
+                return seq
+            result = segments_from_tokens(seq, times, self.char_dict, max_silence_duration)
+        else:
+            tokens = self.endless_encode_tokens(feats, chunk_size, left_context_size,
+                                                right_context_size, total_batch_duration)
+            if self.char_dict is None:
+                return tokens
+            result = get_output_with_timestamps(tokens, self.char_dict, max_silence_duration)
         if not return_timestamps:
             return " ".join(seg["decode"] for seg in result).strip()
         return result
@@ -255,6 +287,41 @@ class ChunkFormerModel:
         if not parts:
             return torch.zeros((0, d), dtype=torch.float32, device=self.device)
         return torch.cat(parts).float()
+
+    @torch.inference_mode()
+    def endless_rnnt_tokens(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
+                            total_batch_duration: int) -> np.ndarray:
+        """Long-form RNN-T greedy: frame tokens [T', 8] (blank-padded).
+
+        Each macro-segment's kept encoder frames are searched as it comes out
+        of the encoder, with the predictor carry (last non-blank token and
+        state) threaded from segment to segment, so the result equals one
+        greedy pass over the whole encoder output (``chunkformer_tpu``'s
+        fused scan, api.py:426-440)."""
+        blank = self.config.ctc_conf.ctc_blank_id
+        d = self.config.encoder_conf.output_size
+        carry = None
+
+        def segment(out, keep):
+            nonlocal carry
+            toks, carry = transducer_greedy_search(
+                self.model, self.config, out.reshape(1, -1, d)[:, :keep], [keep],
+                RNNT_STEPS, blank, init_carry=carry, return_carry=True)
+            return toks[0]
+
+        parts = self._endless_segments(feats, chunk_size, left, right, total_batch_duration,
+                                       segment)
+        return (torch.cat(parts).cpu().numpy() if parts
+                else np.zeros((0, RNNT_STEPS), np.int64))
+
+    def _transducer_greedy(self, enc_out: torch.Tensor, enc_lens) -> List[Tuple[List[int],
+                                                                              List[int]]]:
+        """Batched RNN-T greedy over padded encoder outputs [B, T, D]:
+        (tokens, frame times) per row."""
+        blank = self.config.ctc_conf.ctc_blank_id
+        frame_tokens = transducer_greedy_search(self.model, self.config, enc_out, enc_lens,
+                                                RNNT_STEPS, blank)
+        return greedy_tokens_to_sequences(frame_tokens, enc_lens, blank)
 
     def _endless_segments(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
                           total_batch_duration: int, segment) -> List[torch.Tensor]:
@@ -314,7 +381,8 @@ class ChunkFormerModel:
     ) -> List:
         """Masked-batch decode under a frame budget (chunkformer_model.py:461-552).
 
-        Returns transcripts, or frame-token arrays when there is no vocabulary."""
+        Returns transcripts, or without a vocabulary the CTC frame-token
+        arrays / the transducer's token lists."""
         max_budget = int(total_batch_duration // 0.01) // 2
         decodes: List = []
         batch_feats: List[torch.Tensor] = []
@@ -340,6 +408,18 @@ class ChunkFormerModel:
         out, _, _ = encoder.parallel_chunk(
             packed.xs, self._meta(packed.chunk_idx), self._meta(packed.offsets),
             self._meta(packed.max_lens), c, left, right, att, cnn, 0)
+        if self.is_transducer:
+            # un-pack per utterance, re-pad, one batched greedy search
+            # (chunkformer_model.py:533-541)
+            d = out.shape[-1]
+            enc = out.new_zeros((len(packed.n_chunks), int(packed.out_lens.max()), d))
+            for i, (rows, n) in enumerate(zip(torch.split(out, list(packed.n_chunks)),
+                                              packed.out_lens)):
+                enc[i, :n] = rows.reshape(-1, d)[:n]
+            hyps = [seq for seq, _ in self._transducer_greedy(enc, packed.out_lens)]
+            if self.char_dict is None:
+                return hyps
+            return [tokens_to_text(h, self.char_dict) for h in hyps]
         tokens = self.model.ctc.argmax(out).cpu().numpy()  # [N, c]
         hyps = []
         row = 0

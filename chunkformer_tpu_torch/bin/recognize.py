@@ -12,8 +12,10 @@ attention's forward kernel) and searched by every mode; the log ends with
 the wall seconds of the features and encoder, and of each mode's search.
 ``--dtype`` picks the model's dtype (fp32 by default, as the JAX CLI's).
 ``--simulate_streaming`` encodes the batch chunk by chunk through the
-encoder's streaming step instead. The transducer modes stay in the parser
-for CLI parity and exit as not ported yet.
+encoder's streaming step instead. A transducer export also runs the
+``rnnt_*`` modes: batched greedy (8 symbols a frame), the prefix beam with
+CTC shallow fusion where the export has a CTC head, and that beam rescored
+by the attention decoder where it has one (else the beam's best).
 """
 
 from __future__ import annotations
@@ -94,8 +96,6 @@ def _streaming_encode(model, xs, lens, c: int, left: int, right: int):
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    if any(m.startswith("rnnt_") for m in args.modes):
-        raise SystemExit("the rnnt_* modes are not ported yet (ROADMAP A18)")
     if args.simulate_streaming:
         if args.chunk_size <= 0:
             raise SystemExit("--simulate_streaming requires --chunk_size > 0")
@@ -110,13 +110,20 @@ def main(argv=None):
     from ..data.pipeline import text_line_source
     from ..decode.batched_beam import batched_beam_to_results, ctc_prefix_beam_search_batched
     from ..decode.outputs import tokens_to_text, word_error_rate
-    from ..decode.search import (attention_beam_search_device, attention_rescoring,
-                                 ctc_greedy_search, ctc_prefix_beam_search)
+    from ..decode.search import (DecodeResult, attention_beam_search_device,
+                                 attention_rescoring, ctc_greedy_search, ctc_prefix_beam_search)
+    from ..models.transducer_search import (transducer_attention_rescoring,
+                                            transducer_prefix_beam_search)
 
     dtype = torch.bfloat16 if args.dtype in ("bf16", "fp16") else torch.float32
     model = ChunkFormerModel.from_pretrained(args.model_checkpoint, dtype=dtype,
                                              device=args.device)
     cfg = model.config
+    if any(m.startswith("rnnt_") for m in args.modes) and not model.is_transducer:
+        raise SystemExit("the rnnt_* modes need a transducer export (model: transducer)")
+    if model.model.ctc is None and any(m.startswith("ctc_") or m == "attention_rescoring"
+                                       for m in args.modes):
+        raise SystemExit("the CTC modes need an export with a CTC head")
     samples = list(text_line_source(args.test_data))
     os.makedirs(args.result_dir, exist_ok=True)
 
@@ -151,10 +158,12 @@ def main(argv=None):
         else:
             enc_out, enc_lens = model.encode(xs, lens, args.chunk_size,
                                              args.left_context_size, args.right_context_size)
-        logp = model.ctc_logprobs(enc_out)
-        if args.blank_penalty != 0.0:
-            logp[..., 0] -= args.blank_penalty
-        logp_host = logp.cpu().numpy()
+        logp = logp_host = None
+        if model.model.ctc is not None:
+            logp = model.ctc_logprobs(enc_out)
+            if args.blank_penalty != 0.0:
+                logp[..., 0] -= args.blank_penalty
+            logp_host = logp.cpu().numpy()
         enc_lens_host = enc_lens.cpu().numpy()
         seconds["encode"] += time.perf_counter() - t0
 
@@ -174,12 +183,29 @@ def main(argv=None):
                 # device beam: one sync a batch instead of one a decode step
                 results = attention_beam_search_device(model.model, cfg, enc_out, mask,
                                                        args.beam_size)
-            else:  # attention_rescoring
+            elif mode == "attention_rescoring":
                 prefix = ctc_prefix_beam_search(logp_host, enc_lens_host, args.beam_size,
                                                 context_graph)
                 results = attention_rescoring(model.model, cfg, prefix, enc_out,
                                               enc_lens_host, args.ctc_weight,
                                               args.reverse_weight)
+            elif mode == "rnnt_greedy_search":
+                results = [DecodeResult(tokens=seq)
+                           for seq, _ in model._transducer_greedy(enc_out, enc_lens_host)]
+            else:  # rnnt_beam_search / rnnt_beam_attn_rescoring
+                results = []
+                for bi, n in enumerate(enc_lens_host):
+                    enc_b = enc_out[bi, :n]
+                    beams = transducer_prefix_beam_search(
+                        model.model, cfg, enc_b, args.beam_size,
+                        ctc_log_probs=logp_host[bi, :n] if logp_host is not None else None,
+                        ctc_weight=args.ctc_weight, blank=cfg.ctc_conf.ctc_blank_id)
+                    if mode == "rnnt_beam_attn_rescoring" and model.model.decoder is not None:
+                        toks = transducer_attention_rescoring(model.model, cfg, beams, enc_b,
+                                                              args.reverse_weight)
+                    else:
+                        toks = beams[0].hyp[1:] if beams else []
+                    results.append(DecodeResult(tokens=toks))
             seconds[mode] += time.perf_counter() - t0   # the results are on the host
             for s, r in zip(batch, results):
                 text = tokens_to_text(r.tokens, model.char_dict)

@@ -1,11 +1,9 @@
 """Configuration dataclasses for the PyTorch port.
 
-A copy of the CTC/AED and classification parts of
-``chunkformer_tpu/config.py``: the reference ``config.yaml`` / ``train.yaml``
-schema (encoder_conf, decoder_conf, ctc_conf, model_conf, output_dim,
-cmvn_conf, dataset_conf, classification_conf) loads unmodified. Unknown keys
-are ignored, so configs that also describe a transducer still load; that
-head is not part of this package yet.
+A copy of ``chunkformer_tpu/config.py``: the reference ``config.yaml`` /
+``train.yaml`` schema (encoder_conf, decoder_conf, ctc_conf, model_conf,
+predictor_conf, joint_conf, output_dim, cmvn_conf, dataset_conf,
+classification_conf) loads unmodified; unknown keys are ignored.
 """
 
 from __future__ import annotations
@@ -100,6 +98,51 @@ class ModelConfig:
     lsm_weight: float = 0.1
     length_normalized_loss: bool = False
     reverse_weight: float = 0.0
+    # transducer extras (reference: transducer/transducer.py:24-97)
+    transducer_weight: float = 0.75
+    attention_weight: float = 0.1
+    # banded (pruned) RNN-T loss
+    use_pruned_loss: bool = False
+    prune_range: int = 5
+    # k2-style smoothed simple loss + posterior-pruned loss with warmup mixing
+    # (reference: transducer/transducer.py:44-47,74-79,487-551)
+    enable_k2: bool = False
+    lm_only_scale: float = 0.25
+    am_only_scale: float = 0.0
+    delay_penalty: float = 0.0
+    warmup_steps: int = 25000
+
+
+@dataclass
+class PredictorConfig:
+    """RNN-T predictor (reference: transducer/predictor.py)."""
+
+    predictor_type: str = "rnn"  # rnn | embedding | conv
+    embed_size: int = 256
+    output_size: int = 256
+    hidden_size: int = 256
+    embed_dropout: float = 0.1
+    num_layers: int = 1
+    bias: bool = True
+    dropout: float = 0.1
+    # embedding and conv predictors
+    n_head: int = 4
+    history_size: int = 2
+    activation: str = "swish"
+
+
+@dataclass
+class JointConfig:
+    """RNN-T joint network (reference: transducer/joint.py:9-68)."""
+
+    join_dim: int = 512
+    enc_output_size: int = 256
+    pred_output_size: int = 256
+    prejoin_linear: bool = True
+    postjoin_linear: bool = False
+    joint_mode: str = "add"
+    activation: str = "tanh"
+    hat_joint: bool = False
 
 
 @dataclass
@@ -113,6 +156,9 @@ class ChunkFormerConfig:
     decoder_conf: Optional[DecoderConfig] = None
     ctc_conf: CTCConfig = field(default_factory=CTCConfig)
     model_conf: ModelConfig = field(default_factory=ModelConfig)
+    predictor: Optional[str] = None
+    predictor_conf: Optional[PredictorConfig] = None
+    joint_conf: Optional[JointConfig] = None
     vocab_size: int = 0
     cmvn: Optional[str] = None
     cmvn_conf: Dict[str, Any] = field(default_factory=dict)
@@ -133,7 +179,15 @@ class ChunkFormerConfig:
             dc = dict(d.get("decoder_conf", {}) or {})
             dc["decoder_type"] = d["decoder"]
             dec = DecoderConfig(**_filter_kwargs(DecoderConfig, dc))
+        pred = None
+        if d.get("predictor"):
+            pc = dict(d.get("predictor_conf", {}) or {})
+            pc["predictor_type"] = d["predictor"]
+            pred = PredictorConfig(**_filter_kwargs(PredictorConfig, pc))
         mc_raw = dict(d.get("model_conf", {}) or {})
+        # reference schema: k2 pruned loss flag (transducer.py:504-542)
+        if mc_raw.get("enable_k2", False):
+            mc_raw.setdefault("use_pruned_loss", True)
         # reference schema: classification tasks live under model_conf
         # (examples/classification/conf/multi_task.yaml)
         classification_conf = dict(d.get("classification_conf", {}) or {})
@@ -143,6 +197,11 @@ class ChunkFormerConfig:
             classification_conf.setdefault("head_dropout", mc_raw.get("dropout_rate", 0.1))
             if "label_smoothing" in mc_raw:
                 mc_raw.setdefault("lsm_weight", mc_raw.pop("label_smoothing"))
+        joint = None
+        if "joint_conf" in d or d.get("model") == "transducer":
+            jc = dict(d.get("joint_conf", {}) or {})
+            jc.setdefault("enc_output_size", enc.output_size)
+            joint = JointConfig(**_filter_kwargs(JointConfig, jc))
         return cls(
             model=d.get("model", "asr_model"),
             encoder=d.get("encoder", "chunkformer"),
@@ -151,6 +210,9 @@ class ChunkFormerConfig:
             decoder_conf=dec,
             ctc_conf=CTCConfig(**_filter_kwargs(CTCConfig, d.get("ctc_conf", {}) or {})),
             model_conf=ModelConfig(**_filter_kwargs(ModelConfig, mc_raw)),
+            predictor=d.get("predictor"),
+            predictor_conf=pred,
+            joint_conf=joint,
             vocab_size=d.get("output_dim", d.get("vocab_size", 0)),
             cmvn=d.get("cmvn"),
             cmvn_conf=d.get("cmvn_conf", {}) or {},

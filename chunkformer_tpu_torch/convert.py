@@ -4,8 +4,9 @@
 - ``state_dict_from_jax_params``: the JAX package's parameter tree (as numpy
   arrays; layers stacked on axis 0) -> the port's state dict, with the
   reference names of ``chunkformer_tpu/export.py:51 params_to_torch_state_dict``
-  (linear weights back to [out, in], conv weights as they are), the decoder
-  and the classification heads included. It carries weights between the two
+  (linear weights back to [out, in], conv weights as they are), the decoder,
+  the classification heads and the transducer's predictor (all three types),
+  joint and simple-joint projections included. It carries weights between the two
   packages without going through a file; being a map of names and layouts,
   it also carries a JAX gradient tree onto the port's parameter names.
 """
@@ -34,8 +35,11 @@ def _t(x) -> torch.Tensor:
 
 def state_dict_from_jax_params(params: Dict[str, Any],
                                cfg: ChunkFormerConfig) -> Dict[str, torch.Tensor]:
-    """Encoder, CTC, decoder and classification-head parameters of a JAX model
-    -> reference-named tensors."""
+    """Encoder, CTC, decoder, classification-head and transducer parameters
+    of a JAX model -> reference-named tensors (the transducer names of
+    ``chunkformer_tpu/export.py:125-150`` and, for the embedding and conv
+    predictors, the reference modules' own: ``pos_embed``, ``ffn``,
+    ``conv``, ``norm``)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def linear(prefix, p):
@@ -106,6 +110,31 @@ def state_dict_from_jax_params(params: Dict[str, Any],
         linear("ctc.ctc_lo", params["ctc"]["lo"])
     for task, head in params.get("heads", {}).items():
         linear(f"classification_heads.{task}.linear", head["linear"])
+
+    if "predictor" in params:
+        pp = params["predictor"]
+        sd["predictor.embed.weight"] = _t(pp["embed"]["w"])
+        for i, lp in enumerate(pp.get("rnn", [])):
+            for name, key in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
+                              ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
+                sd[f"predictor.rnn.{name}_l{i}"] = _t(lp[key])
+        if "projection" in pp:
+            linear("predictor.projection", pp["projection"])
+        if "pos_embed" in pp:  # already torch's [n_head, embed * context]
+            sd["predictor.pos_embed.weight"] = _t(pp["pos_embed"]["w"])
+            linear("predictor.ffn", pp["ffn"])
+        if "conv" in pp:
+            conv("predictor.conv", pp["conv"])
+        if "norm" in pp:
+            norm("predictor.norm", pp["norm"])
+    for name, key in (("enc_ffn", "enc_ffn"), ("pred_ffn", "pred_ffn"),
+                      ("post_ffn", "post_ffn"), ("ffn_out", "ffn_out"),
+                      ("blank_pred.2", "blank_pred"), ("token_pred.2", "token_pred")):
+        if key in params.get("joint", {}):
+            linear(f"joint.{name}", params["joint"][key])
+    for name in ("simple_am_proj", "simple_lm_proj"):
+        if name in params:
+            linear(name, params[name])
 
     for side, name in (("left", "left_decoder"), ("right", "right_decoder")):
         if side not in params.get("decoder", {}):

@@ -18,6 +18,7 @@ from ..config import ChunkFormerConfig
 from ..nn.attention import RelPositionMultiHeadedAttention
 from ..nn.decoder import BiTransformerDecoder
 from ..nn.encoder import ChunkFormerEncoder
+from ..nn.layers import LSTMWeights
 
 
 class CTC(nn.Module):
@@ -46,15 +47,20 @@ class ASRModel(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every weight from ``generator`` with PyTorch's default bounds:
-    U(+-1/sqrt(fan_in)) for linear and conv layers, Xavier-uniform for the
-    positional biases, N(0, 1) for token embeddings (as the JAX package);
-    norms and CMVN keep their identity values."""
+    U(+-1/sqrt(fan_in)) for linear and conv layers, U(+-1/sqrt(hidden)) for
+    LSTM weights and biases, Xavier-uniform for the positional biases, N(0, 1)
+    for token embeddings (as the JAX package); norms and CMVN keep their
+    identity values."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, LSTMWeights):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for w in m.parameters():
+                w.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(generator=generator)
         elif isinstance(m, RelPositionMultiHeadedAttention):

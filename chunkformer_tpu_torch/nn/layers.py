@@ -61,6 +61,30 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class LSTMWeights(nn.Module):
+    """The parameters of a stack of LSTM layers under ``torch.nn.LSTM``'s
+    names (``weight_ih_l{i}`` [4H, in], ``weight_hh_l{i}`` [4H, H],
+    ``bias_ih_l{i}``, ``bias_hh_l{i}`` [4H]; gate order i, f, g, o), drawn as
+    ``nn.LSTM`` draws them, for a model that runs the cells one at a time."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        bound = hidden_size ** -0.5
+        for i in range(num_layers):
+            for name, shape in (("weight_ih", (4 * hidden_size, hidden_size if i else input_size)),
+                                ("weight_hh", (4 * hidden_size, hidden_size)),
+                                ("bias_ih", (4 * hidden_size,)), ("bias_hh", (4 * hidden_size,))):
+                self.register_parameter(f"{name}_l{i}",
+                                        nn.Parameter(torch.empty(shape).uniform_(-bound, bound)))
+
+    def cell(self, i: int, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        """Layer ``i``'s cell: (h, c) [B, H] after input x [B, in]."""
+        return torch.lstm_cell(x, (h, c), getattr(self, f"weight_ih_l{i}"),
+                               getattr(self, f"weight_hh_l{i}"), getattr(self, f"bias_ih_l{i}"),
+                               getattr(self, f"bias_hh_l{i}"))
+
+
 def batch_norm_train(norm: nn.BatchNorm1d, x: torch.Tensor, channel_axis: int = 1,
                      momentum: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode BatchNorm from batch statistics, in f32

@@ -8,7 +8,10 @@ axis; their gradients and metrics are averaged before one update (the JAX
 ``lax.scan`` over micro-batches; reference executor.py:85-98). Gradients land
 in each parameter's ``.grad``, clipped in place before the update.
 ``autocast`` = torch.bfloat16 runs the forward under ``torch.autocast`` with
-f32 parameters and optimizer state.
+f32 parameters and optimizer state. ``loss_fn`` is ``asr_model_loss`` by
+default or ``transducer_model_loss``; it gets the optimizer step (the
+scheduler's count of finished steps), which the transducer's warmup mixing
+reads.
 """
 
 from __future__ import annotations
@@ -27,11 +30,13 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
                     optimizer: torch.optim.Optimizer,
                     scheduler: torch.optim.lr_scheduler.LRScheduler,
                     chunk_cfg: Tuple[int, int, int] = (0, 0, 0), accum_steps: int = 1,
-                    autocast: Optional[torch.dtype] = None, grad_clip: float = 5.0
+                    autocast: Optional[torch.dtype] = None, grad_clip: float = 5.0,
+                    loss_fn: Callable[..., Dict[str, torch.Tensor]] = asr_model_loss
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(feats [A*B, T, F], feats_lens, targets, target_lens,
-    generator) -> metrics (loss, loss_ctc, loss_att, acc_att, grad_norm, step)
-    as 0-dim tensors. ``generator`` (CPU) turns dropout on; None leaves it off.
+    generator) -> metrics (``loss_fn``'s, e.g. loss, loss_ctc, loss_att,
+    acc_att, and grad_norm, step) as 0-dim tensors. ``generator`` (CPU)
+    turns dropout on; None leaves it off.
     ``optimizer`` and ``scheduler`` come from ``optim.build_optimizer``; the
     gradients are clipped to a global norm of ``grad_clip`` before the update
     (``grad_norm`` is the norm before clipping).
@@ -50,8 +55,8 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
         for f, fl, t, tl in zip(feats.chunk(a), feats_lens.chunk(a), targets.chunk(a),
                                 target_lens.chunk(a)):
             with ctx:
-                metrics = asr_model_loss(model, cfg, f, fl, t, tl, c, left, right, train=True,
-                                         generator=generator)
+                metrics = loss_fn(model, cfg, f, fl, t, tl, c, left, right, train=True,
+                                  generator=generator, step=scheduler.last_epoch)
             (metrics["loss"] / a).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float()
@@ -68,13 +73,14 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
     return step
 
 
-def make_eval_step(model: torch.nn.Module, cfg: ChunkFormerConfig):
+def make_eval_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
+                   loss_fn: Callable[..., Dict[str, torch.Tensor]] = asr_model_loss):
     """Returns eval(feats, feats_lens, targets, target_lens) -> metrics, full
     context, no dropout, batch norm on running statistics."""
 
     @torch.no_grad()
     def eval_step(feats, feats_lens, targets, target_lens) -> Dict[str, torch.Tensor]:
-        return asr_model_loss(model, cfg, feats, feats_lens, targets, target_lens, 0, 0, 0,
-                              train=False, generator=None)
+        return loss_fn(model, cfg, feats, feats_lens, targets, target_lens, 0, 0, 0,
+                       train=False, generator=None)
 
     return eval_step

@@ -97,7 +97,8 @@ def test_recognize_context_list_matches_jax(setup):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    pytest.param(["--modes", "rnnt_greedy_search"], "A18", id="argv0-A18"),
+    # the rnnt modes are ported (A18); this CTC/AED export cannot run them
+    pytest.param(["--modes", "rnnt_greedy_search"], "need a transducer export", id="argv0-A18"),
     # streaming is ported (A15); it refuses the full-context default chunk
     pytest.param(["--simulate_streaming"], "requires --chunk_size > 0", id="argv1-A15")])
 def test_recognize_refuses_what_is_not_ported(setup, argv, msg):
