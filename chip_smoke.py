@@ -92,7 +92,19 @@ non-zero exit code and no result line:
    12 B4 and 12 B5 launches a step), one f32 step against the plain
    attention (loss 1e-5, gradients 1e-4 relative L2); B1, B2, B4 and B5
    timed at these paths' shapes;
-12. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+12. the train CLI at the flagship width (the bench.py:149-177 model with the
+   dataset_conf of ``examples/asr/ctc/conf/chunkformer-ctc-small.yaml`` at
+   51200 frames a batch, chunks fixed at (64, 128, 128), f32) on 64
+   synthetic WAVs of 4-16 s with a 6992-symbol char vocabulary and a CMVN
+   file: ``bin/train.py`` ``main(argv)`` for two epochs (each step's time
+   beside its host data time, audio-s/s, peak memory, 17 + 17 tensor-core
+   B4/B5 launches a step and no other attention kernel), a resume from
+   epoch_0 (the saved step and Adam's state continue), one step with
+   ``--distributed`` at world size 1 on NCCL, ``bin/average_model.py --num
+   2``, ``export_model_dir`` of the average (``from_pretrained`` bitwise
+   equal) and a 120 s f32 ``endless_decode`` of it equal to the in-memory
+   average's tokens, with B1 and B2 launches;
+13. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -2276,54 +2288,13 @@ def time_decode_attention(label, args, card):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def grads_with_ctx_delta(args, ctx, m, den, dctx, exact=False):
-    """(dq, du, dv) of the plain backward at p = 0 with delta formed as the
-    bf16 tensor-core backward forms it, rowsum(dctx * ctx) of the bf16 ctx
-    (FlashAttention-2's D = rowsum(dO * O)), where the plain version, like the
-    TPU kernel, takes rowsum(dA * A) in f32 (C13). With ``exact`` delta is
-    rowsum(dA * A) and dS is rounded to bf16 instead: the error a bf16 dS
-    alone would give."""
-    import math
-
-    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
-
-    q, kv, p, u, v, lens = args
-    b, n, heads, d_k, w = cat._layout(q, kv, p, C, LEFT, RIGHT)
-    _, _, k, vals, s = cat._scores(q, kv, p, u, v, C, LEFT, RIGHT)
-    valid = cat._valid(lens, n, C, LEFT, w)
-
-    def stat(x):
-        return x.reshape(b, heads, n, C).permute(0, 2, 1, 3)[..., None]
-
-    attn = torch.exp(s.masked_fill(~valid, -1e30) - stat(m)) / stat(den)
-    g = dctx.float().reshape(b, n, C, heads, d_k)
-    da = torch.einsum("bnchd,bnhdw->bnhcw", g, vals)
-    if exact:
-        ds = (attn * (da - (da * attn).sum(-1, keepdim=True))).bfloat16().float()
-    else:
-        delta = (g * ctx.float().reshape(b, n, C, heads, d_k)).sum(-1).permute(0, 1, 3, 2)
-        ds = attn * (da - delta[..., None])
-    scale = 1.0 / math.sqrt(d_k)
-    dqu = torch.einsum("bnhcw,bnhdw->bnchd", ds, k)
-    idx = (C - 1 - torch.arange(C, device=q.device)[:, None]
-           + torch.arange(w, device=q.device)[None, :])
-    band = ds.new_zeros(b, n, heads, C, p.shape[0])
-    band.scatter_(-1, idx.expand(b, n, heads, C, w), ds)
-    dqv = torch.einsum("bnhcp,phd->bnchd", band, p.float())
-    return (((dqu + dqv) * scale).reshape(b, n * C, heads, d_k), dqu.sum((0, 1, 2)) * scale,
-            dqv.sum((0, 1, 2)) * scale)
-
-
 def time_train_attention(label, args, card, seed=20261):
     """B4 (forward) and B5 (backward) on the tensor cores against their plain
     versions on captured operands at p = 0: forward ctx f32 atol 1e-5 (bf16
-    1e-2 + one ulp relative), backward gradients f32 atol 1e-4 + rtol 1e-5;
-    bf16 relative L2 1e-2 against the plain version for dkv and dp, and for
-    dq, du and dv against the plain backward with delta formed from the bf16
-    ctx as the kernel forms it (``grads_with_ctx_delta``). Their distance to
-    the plain version is printed beside it as the reading of C13 and is not
-    part of the bar. Times in turns (2 rounds), bounds as
-    ``train_attention_bounds``. Returns {"fwd": ..., "bwd": ...}."""
+    1e-2 + one ulp relative), backward gradients f32 atol 1e-4 + rtol 1e-5,
+    bf16 each of dq, dkv, dp, du, dv within 1e-2 relative L2 of the plain
+    version. Times in turns (2 rounds), bounds as ``train_attention_bounds``.
+    Returns {"fwd": ..., "bwd": ...}."""
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
     args = [a.detach() for a in args]
@@ -2341,9 +2312,6 @@ def time_train_attention(label, args, card, seed=20261):
     got = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path="tensor_core")
     plain = cat.backward_plain(*args, want[1], want[2], dctx, *st)
     bwd_err, rels = 0.0, {}
-    by_ctx, by_ds = ({}, {}) if f32 else (
-        dict(zip(("q", "u", "v"), grads_with_ctx_delta(args, ctx, want[1], want[2], dctx,
-                                                       exact))) for exact in (False, True))
     for name, a, e in zip(("q", "kv", "p", "u", "v"), got, plain):
         err = (a.float() - e.float()).abs()
         bwd_err = max(bwd_err, float(err.max()))
@@ -2351,15 +2319,8 @@ def time_train_attention(label, args, card, seed=20261):
             require(bool((err <= 1e-4 + 1e-5 * e.float().abs()).all()),
                     f"{label}: d{name} max |kernel - plain| {float(err.max()):.3g}")
             continue
-        rel = float((a.float() - e.float()).norm() / e.float().norm())
-        if name not in by_ctx:
-            rels[name] = (rel,)
-            require(rel <= 1e-2, f"{label}: d{name} relative L2 error {rel:.3g}")
-            continue
-        emu = float((a.float() - by_ctx[name]).norm() / by_ctx[name].norm())
-        rels[name] = (emu, rel, float((by_ds[name] - e.float()).norm() / e.float().norm()))
-        require(emu <= 1e-2, f"{label}: d{name} relative L2 error {emu:.3g} against the plain "
-                f"version with the bf16 ctx's delta")
+        rels[name] = float((a.float() - e.float()).norm() / e.float().norm())
+        require(rels[name] <= 1e-2, f"{label}: d{name} relative L2 error {rels[name]:.3g}")
     times = {k: [] for k in ("kf", "pf", "kb", "pb")}
     for _ in range(2):
         times["kf"].append(cuda_ms(lambda: cat.forward_kernel(*args, *st, path="tensor_core"),
@@ -2374,11 +2335,8 @@ def time_train_attention(label, args, card, seed=20261):
     b, tp, h, dk = args[0].shape
     msg = f"{label}: B={b} T'={tp} H={h} c={C} dk={dk} L=R={LEFT}"
     if rels:
-        msg += ("; backward relative L2 (limit 1e-2): dkv, dp vs plain; dq, du, dv vs the "
-                "plain version with delta from the bf16 ctx (C13's reading: vs plain; the "
-                "plain version with an exact delta and dS in bf16 vs plain) " + ", ".join(
-                    f"d{k} {r[0]:.3g}" + (f" ({r[1]:.3g}; {r[2]:.3g})" if len(r) > 1 else "")
-                    for k, r in rels.items()))
+        msg += "; backward relative L2 vs plain (limit 1e-2) " + ", ".join(
+            f"d{k} {r:.3g}" for k, r in rels.items())
     for part, k, p, err, backward in (("fwd", "kf", "pf", fwd_err, False),
                                       ("bwd", "kb", "pb", bwd_err, True)):
         bound_ms, bound_by = train_attention_bounds(args, backward, None if not f32 else "tf32")
@@ -2719,6 +2677,245 @@ def phase_transducer(tmp, card, device, search):
     return launches, results
 
 
+# ---- the train CLI: bin/train.py main(argv) at the flagship width on
+# synthetic data, a resume, one step through DDP, bin/average_model.py, the
+# export of the average and its decode
+CLI_FILES, CLI_DEV_FILES, CLI_SECONDS, CLI_DECODE_SECONDS = 64, 8, (4.0, 16.0), 120.0
+CLI_CONFIG = {
+    **{k: v for k, v in TRAIN.items() if k != "output_dim"},
+    "encoder_conf": {**TRAIN["encoder_conf"], "dynamic_chunk_sizes": [C],
+                     "dynamic_left_context_sizes": [LEFT],
+                     "dynamic_right_context_sizes": [RIGHT]},
+    "tokenizer": "char",
+    # examples/asr/ctc/conf/chunkformer-ctc-small.yaml:59-89, at the flagship's
+    # 32 x 1600 frames a batch
+    "dataset_conf": {
+        "filter_conf": {"max_length": 40960, "min_length": 0, "token_max_length": 400,
+                        "token_min_length": 1},
+        "resample_conf": {"resample_rate": 16000},
+        "speed_perturb": True,
+        "fbank_conf": {"num_mel_bins": 80, "frame_shift": 10, "frame_length": 25,
+                       "dither": 1.0},
+        "spec_aug": True,
+        "spec_aug_conf": {"num_t_mask": 2, "num_f_mask": 2, "max_t": 50, "max_f": 10},
+        "shuffle": True, "shuffle_conf": {"shuffle_size": 1000},
+        "sort": True, "sort_conf": {"sort_size": 500},
+        "batch_conf": {"batch_type": "dynamic", "max_frames_in_batch": 51200}},
+    "grad_clip": GRAD_CLIP, "accum_grad": 1, "max_epoch": 2, "log_interval": 1,
+    "optim": "adamw", "optim_conf": {"lr": 1e-3},
+    "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 25000},
+}
+
+
+def write_train_data(root):
+    """64 WAVs of 4-16 s (seeded tones and noise) with random texts over a
+    char vocabulary of 6992 symbols, train.list and dev.list (8 of the files)
+    as key<TAB>wav<TAB>txt, units.txt, and a JSON CMVN file computed from the
+    files' fbank. Returns the config dict for bin/train.py."""
+    from chunkformer_tpu_torch.data.processor import compute_fbank_numpy
+
+    rng = np.random.default_rng(SEED + 41)
+    symbols = (["<blank>", "<unk>", "▁"] + [chr(0x4E00 + i) for i in range(6988)]
+               + ["<sos/eos>"])
+    with open(os.path.join(root, "units.txt"), "w", encoding="utf-8") as f:
+        f.writelines(f"{sym} {i}\n" for i, sym in enumerate(symbols))
+    lines, stats = [], [np.zeros(80), np.zeros(80), 0]
+    for i in range(CLI_FILES):
+        seconds = float(rng.uniform(*CLI_SECONDS))
+        wav = write_wav(os.path.join(root, f"utt{i:02d}.wav"), speechlike(rng, seconds))
+        text = "".join(symbols[j] for j in rng.integers(3, 6991, size=int(3 * seconds)))
+        lines.append(f"utt{i:02d}\t{wav}\t{text}\n")
+        if i < 16:
+            from scipy.io import wavfile
+
+            feat = compute_fbank_numpy(wavfile.read(wav)[1].astype(np.float32)).astype(
+                np.float64)
+            stats = [stats[0] + feat.sum(0), stats[1] + (feat ** 2).sum(0),
+                     stats[2] + len(feat)]
+    with open(os.path.join(root, "train.list"), "w", encoding="utf-8") as f:
+        f.writelines(lines)
+    with open(os.path.join(root, "dev.list"), "w", encoding="utf-8") as f:
+        f.writelines(lines[:CLI_DEV_FILES])
+    with open(os.path.join(root, "global_cmvn"), "w") as f:
+        json.dump({"mean_stat": stats[0].tolist(), "var_stat": stats[1].tolist(),
+                   "frame_num": stats[2]}, f)
+    return {**CLI_CONFIG,
+            "tokenizer_conf": {"symbol_table_path": os.path.join(root, "units.txt"),
+                               "split_with_space": False},
+            "cmvn": "global_cmvn",
+            "cmvn_conf": {"cmvn_file": os.path.join(root, "global_cmvn"), "is_json_cmvn": True}}
+
+
+def run_train_cli(argv, label, card):
+    """bin/train.py's ``run(argv)`` (``main``'s body) with the training
+    attention's and the decode kernels' counts read around it; prints each
+    step's time beside its host data time. Returns (executor, train counts,
+    peak GiB)."""
+    from chunkformer_tpu_torch.bin import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_counts()
+    reset_counts()
+    t0 = time.time()
+    ex = train.run(argv + ["--device", "cuda"])
+    wall = time.time() - t0
+    counts, decode = read_train_counts(), read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(ex.timings)
+    for i, (data_s, step_s, frames) in enumerate(ex.timings):
+        log(f"{label} step {i + 1}: {1e3 * step_s:.1f} ms on the card, host data "
+            f"{1e3 * data_s:.1f} ms (fbank, speed perturb, spec_aug, batching), "
+            f"{frames / 100.0:.1f} audio-s, {frames / 100.0 / (data_s + step_s):.1f} train "
+            f"audio-s/s with the data")
+    warm = ex.timings[1:] or ex.timings
+    step_ms = 1e3 * sum(t[1] for t in warm) / len(warm)
+    data_s = sum(t[0] for t in ex.timings)
+    busy_s = sum(t[1] for t in ex.timings)
+    audio_s = sum(t[2] for t in ex.timings) / 100.0
+    log(f"{label}: {steps} steps in {wall:.1f} s of CLI (CV, checkpoints and set-up "
+        f"included); step {step_ms:.1f} ms (mean of steps 2-{steps}, or step 1 alone); over "
+        f"all steps {busy_s:.2f} s of steps and {data_s:.2f} s of host data (the sort buffer "
+        f"holds a whole epoch, so an epoch's first batch waits for all its files), "
+        f"{audio_s:.1f} audio-s, {audio_s / (busy_s + data_s):.1f} train audio-s/s with the "
+        f"data, {audio_s / busy_s:.1f} without; peak device memory {peak:.2f} GiB; B4/B5 "
+        f"launches {counts}; card {card}")
+    n_layers = ex.cfg.encoder_conf.num_blocks
+    want = {"fwd": 0, "bwd": 0, "fwd_tc": n_layers * steps, "bwd_tc": n_layers * steps}
+    require(counts == want, f"{label}: train attention launches {counts}, expected {want}")
+    require(not any(decode.values()), f"{label}: a decode kernel launched: {decode}")
+    return ex, counts, peak
+
+
+def phase_train_cli(tmp, card):
+    """The train CLI at the flagship width (bench.py:149-177 with the
+    dataset_conf of chunkformer-ctc-small.yaml at 51200 frames a batch,
+    dynamic chunks fixed at (64, 128, 128), f32) on ``write_train_data``:
+    two epochs; a resume from epoch_0; one step through DDP at world size 1
+    on NCCL (the one card: larger worlds are not tested here);
+    bin/average_model.py --num 2; export_model_dir of the average, which
+    from_pretrained loads bitwise, and a 120 s f32 endless_decode of it
+    against the same decode of the in-memory average. Returns the launch
+    counts of the train runs and of the decode."""
+    import torch.distributed as dist
+
+    from chunkformer_tpu_torch.api import ChunkFormerModel, read_symbol_table
+    from chunkformer_tpu_torch.bin import average_model
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.export import export_model_dir
+    from chunkformer_tpu_torch.train.checkpoint import list_checkpoints, load_checkpoint
+
+    root = os.path.join(tmp, "train_cli")
+    os.makedirs(root)
+    config = write_train_data(root)
+    conf_path = os.path.join(root, "conf.yaml")
+    with open(conf_path, "w") as f:
+        json.dump(config, f)
+    exp = os.path.join(root, "exp")
+    argv = ["--config", conf_path, "--train_data", os.path.join(root, "train.list"),
+            "--cv_data", os.path.join(root, "dev.list"), "--model_dir", exp]
+
+    ex, counts, peak = run_train_cli(argv, "train CLI", card)
+    steps0 = ex.step
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    require(len(lines) == steps0 and all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                                         for x in lines), f"train CLI metrics {lines}")
+    tags = [c["tag"] for c in list_checkpoints(exp)]
+    require(tags == ["epoch_0", "epoch_1"], f"train CLI checkpoints {tags}")
+    info0 = load_checkpoint(exp, "epoch_0")[3]
+    losses = ", ".join(f"{x['loss']:.4g}" for x in lines)
+    log(f"train CLI: {steps0} steps over 2 epochs, losses {losses}; checkpoints {tags}, "
+        f"epoch_0 at step {info0['step']} cv_loss {info0['cv_loss']:.4g}")
+
+    rex, rcounts, _ = run_train_cli(argv + ["--checkpoint", "epoch_0"], "train CLI resumed",
+                                    card)
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        resumed = [json.loads(x) for x in f][steps0:]
+    _, opt1, sched1, info1 = load_checkpoint(exp, "epoch_1")
+    adam_steps = {int(st["step"]) for st in opt1["state"].values()}
+    require(resumed and resumed[0]["step"] == info0["step"] + 1 and resumed[0]["epoch"] == 1
+            and rex.step == steps0 and info1["step"] == steps0
+            and sched1["last_epoch"] == steps0 and adam_steps == {steps0},
+            f"resume: first step {resumed[:1]}, last step {rex.step} (want {steps0}), "
+            f"adam steps {adam_steps}")
+    log(f"train CLI resumed from epoch_0 (step {info0['step']}): epoch 1 from step "
+        f"{resumed[0]['step']} to {rex.step}, adam's step count {adam_steps} continued from "
+        f"the saved state")
+    del opt1
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost"}
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        env["MASTER_PORT"] = str(sock.getsockname()[1])
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dex, dcounts, _ = run_train_cli(
+            argv[:-1] + [os.path.join(root, "ddp"), "--distributed", "--override_config",
+                         "max_epoch 1", "--override_config", "dataset_conf.epoch_steps 1"],
+            "train CLI --distributed", card)
+        require(dist.is_initialized() and dist.get_world_size() == 1
+                and dist.get_backend() == "nccl" and dex._train_loss_fn is not dex.loss_fn
+                and dex.step == 1, "the DDP run did not step once through DDP on nccl")
+        log("train CLI --distributed: one step through DistributedDataParallel on nccl "
+            "at world size 1 (one card: larger worlds are not tested here)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    require(average_model.main(["--src_path", exp, "--num", "2"]) == 0, "average_model failed")
+    avg = load_checkpoint(exp, "avg")[0]
+    e0, e1 = load_checkpoint(exp, "epoch_0")[0], load_checkpoint(exp, "epoch_1")[0]
+    k = "encoder.encoders.0.self_attn.linear_q.weight"
+    require(torch.equal(avg[k], ((e0[k].double() + e1[k].double()) / 2).float()),
+            "the average is not the mean of epoch_0 and epoch_1")
+    del e0, e1
+
+    with open(os.path.join(exp, "train.yaml")) as f:
+        import yaml
+
+        raw = yaml.safe_load(f)
+    table = read_symbol_table(config["tokenizer_conf"]["symbol_table_path"])
+    out = export_model_dir(os.path.join(root, "export"), raw, avg, table)
+    device = torch.device("cuda")
+    served = ChunkFormerModel.from_pretrained(out, dtype=torch.float32, device=device)
+    got = served.model.state_dict()
+    require(got.keys() == avg.keys() and all(torch.equal(got[k].cpu(), avg[k]) for k in avg),
+            "from_pretrained of the export is not bitwise the averaged checkpoint")
+    memory = ChunkFormerModel(ChunkFormerConfig.from_dict(raw), avg, None, torch.float32,
+                              device)
+    served.char_dict = None
+    wav = write_wav(os.path.join(root, "decode.wav"),
+                    speechlike(np.random.default_rng(SEED + 43), CLI_DECODE_SECONDS))
+    kw = dict(chunk_size=C, left_context_size=LEFT, right_context_size=RIGHT,
+              total_batch_duration=BUDGET)
+    reset_counts()
+    tokens = served.endless_decode(wav, **kw)
+    decode_counts = read_counts()
+    want = memory.endless_decode(wav, **kw)
+    require(len(tokens) > 0 and np.array_equal(np.asarray(tokens), np.asarray(want)),
+            "the export's tokens differ from the in-memory average's")
+    require(decode_counts["chunk_attention_tc"] > 0 and decode_counts["fbank_fft"] > 0
+            and decode_counts["chunk_attention"] == 0 and decode_counts["fbank"] == 0,
+            f"export decode launches {decode_counts}")
+    log(f"export of the average (bin/average_model.py --num 2): from_pretrained bitwise equal "
+        f"to the checkpoint; {CLI_DECODE_SECONDS:.0f} s f32 endless_decode at ({C}, {LEFT}, {RIGHT}): "
+        f"{len(tokens)} frame tokens ({len(set(np.asarray(tokens).tolist()))} distinct), "
+        f"equal to the in-memory average's; launches {decode_counts}; card {card}")
+    del served, memory, avg
+    torch.cuda.empty_cache()
+    total = {k: counts[k] + rcounts[k] + dcounts[k] for k in counts}
+    return total, decode_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2782,6 +2979,10 @@ def main() -> int:
         t = time.time()
         rnnt_launches, rnnt = phase_transducer(tmp, card, torch.device("cuda"), search)
         log(f"[phase transducer path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        cli_train, cli_decode = phase_train_cli(tmp, card)
+        log(f"[phase train CLI] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2894,6 +3095,22 @@ def main() -> int:
                     "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
                     "launches": sum(c.get("fbank_fft", 0) for c in rnnt_launches.values()),
                     **rnnt["fbank"], "library_ms": None})
+    f32_tc = train_results["train attention f32 p=0.0"]["tensor_core"]
+    for part, line in (("fwd", 316), ("bwd", 390)):
+        kernels.append(
+            {"name": f"chunk_train_attention_tc_f32_{part}_cli", "route": "cuda",
+             "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+             "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+             "launches": cli_train[f"{part}_tc"], **f32_tc[part], "library_ms": None})
+    kernels += [
+        {"name": "chunk_attention_tc_f32_cli", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": cli_decode["chunk_attention_tc"], **results["attention f32 tensor cores"],
+         "library_ms": None},
+        {"name": "fbank_fft_cli", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+         "launches": cli_decode["fbank_fft"], **results["fbank_fft"], "library_ms": None}]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -2914,7 +3131,11 @@ def main() -> int:
         f"its endless_decode and batch_decode in that dtype; B4's eval forward at its "
         f"recognize batch, launches from that recognize call; B4 and B5 at the train batch, "
         f"launches from the {TRAIN_STEPS} steps in that dtype; the FFT fbank kernel on the "
-        f"{RNNT_SECONDS:.0f} s file, launches from all its decode paths; card {card}")
+        f"{RNNT_SECONDS:.0f} s file, launches from all its decode paths; the train CLI "
+        f"(*_cli): B4 and B5 in f32 on the tensor cores timed at the flagship train shape, "
+        f"launches from its three bin/train.py runs (two epochs, the resume, the DDP step); "
+        f"B1 f32 and the FFT fbank kernel timed at the main path's shapes, launches from the "
+        f"{CLI_DECODE_SECONDS:.0f} s decode of the exported average; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -229,3 +229,17 @@ class ChunkFormerConfig:
 
         with open(path, "r") as f:
             return cls.from_dict(yaml.safe_load(f))
+
+
+def override_config(d: Dict[str, Any], overrides: List[str]) -> Dict[str, Any]:
+    """Apply `a.b.c value` dot-path overrides (reference: utils/config.py:18-39)."""
+    import yaml
+
+    for item in overrides:
+        key, value = item.split(maxsplit=1)
+        parts = key.split(".")
+        node = d
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = yaml.safe_load(value)
+    return d

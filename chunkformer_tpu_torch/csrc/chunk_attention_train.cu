@@ -34,9 +34,10 @@
 // - Backward, in three kernels with no atomics, so the result is
 //   deterministic:
 //   (a) per (b, ci, h) block: recompute A = exp(s - m)/den from the forward's
-//       statistics, delta = rowsum(dctx * ctx) (FlashAttention-2; equal to
-//       the TPU kernel's rowsum(dA * A), also with dropout), dA = keep *
-//       dctx . v / (1 - p), dS = A (dA - delta); dq = (dS k + unshift(dS) p)
+//       statistics, dA = keep * dctx . v / (1 - p), delta = rowsum(A dA)
+//       (the TPU kernel's; in bf16 from a first pass over the key tiles, in
+//       f32 as rowsum(dctx * ctx), FlashAttention-2's equal form), dS = A
+//       (dA - delta); dq = (dS k + unshift(dS) p)
 //       / sqrt(dk); per-block partials of dP = unshift(dS)^T (q + v)/sqrt(dk)
 //       (a slab of its own in device memory) and of du, dv.
 //   (b) per (b, 32 key frames, h) block: dK = dS^T (q + u)/sqrt(dk) and
@@ -64,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -328,18 +331,25 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     gs[r * ld + d] = to_f32(dctx[((t0 + r) * g.H + h) * dk + d]);
   }
   for (int i = tid; i < P * dk; i += kThreads) slab[i] = 0.f;
-  for (int r = warp; r < cs; r += kThreads / 32) {   // delta = rowsum(dctx * ctx)
-    const T* cr = ctx + ((t0 + r) * g.H + h) * dk;
-    const T* gr = dctx + ((t0 + r) * g.H + h) * dk;
+  // delta: with an f32 ctx rowsum(dctx * ctx) (FlashAttention-2), equal to
+  // rowsum(A dA) up to f32 rounding; with a bf16 ctx its rounding dominates
+  // dS where attention is flat, so there the first pass below takes
+  // rowsum(A dA) in f32 from the scores and dA of the second (as the TPU
+  // kernel does)
+  constexpr bool kExactDelta = !std::is_same<T, float>::value;
+  for (int r = warp; r < cs; r += kThreads / 32) {
     float a = 0.f;
-    for (int d = lane; d < dk; d += 32) a = fmaf(to_f32(gr[d]), to_f32(cr[d]), a);
+    if (!kExactDelta) {
+      const T* cr = ctx + ((t0 + r) * g.H + h) * dk;
+      const T* gr = dctx + ((t0 + r) * g.H + h) * dk;
+      for (int d = lane; d < dk; d += 32) a = fmaf(to_f32(gr[d]), to_f32(cr[d]), a);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+    }
     if (lane == 0) {
       row_delta[r] = a;
       row_m[r] = m_in[s0 + r];
       row_den[r] = den_in[s0 + r];
-      delta_out[s0 + r] = a;
     }
   }
 
@@ -351,8 +361,8 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const T* kvb = kv + (int64_t)b * skb + (int64_t)ci * c * skt + (int64_t)h * skh;
   const T* pb = pos + (int64_t)h * sph;
 
-  for (int j0 = (lo / kTile) * kTile; j0 < hi && rows > 0; j0 += kTile) {
-    __syncthreads();
+  // the key tile at window position j0 and its positional rows
+  auto load_tile = [&](int j0) {
     for (int i = tid; i < kTile * dk; i += kThreads) {
       const int jj = i / dk, d = i % dk, j = j0 + jj;
       float kx = 0.f, vx = 0.f;
@@ -368,28 +378,55 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       const int pr = i / dk, d = i % dk, pidx = j0 + p0 + pr;
       ps[pr * ld + d] = pidx < P ? to_f32(pb[(int64_t)pidx * spp + d]) : 0.f;
     }
+  };
+  // A and dA (times keep / (1 - p)) of query row r and key j0 + lane; false
+  // where the pair is not valid
+  auto weight = [&](int r, int j0, float& att, float& da) {
+    const int j = j0 + lane;
+    if (!(r < rows && j >= lo && j < hi)) return false;
+    const float* a = qu + r * ld;
+    const float* bk = ks + lane * ld;
+    const float* e = qv + r * ld;
+    const float* f = ps + (cs - 1 - r + lane) * ld;
+    const float* gr = gs + r * ld;
+    const float* vr = vs + lane * ld;
+    float ac = 0.f, bd = 0.f;
+    da = 0.f;
+    for (int d = 0; d < dk; ++d) {
+      ac = fmaf(a[d], bk[d], ac);
+      bd = fmaf(e[d], f[d], bd);
+      da = fmaf(gr[d], vr[d], da);
+    }
+    att = expf(ac + bd - row_m[r]) / row_den[r];
+    if (use_drop) da = keep(st, ci * c + r0 + r, ci * c + j, thresh) ? da * drop_scale : 0.f;
+    return true;
+  };
+
+  if (kExactDelta) {
+    for (int j0 = (lo / kTile) * kTile; j0 < hi && rows > 0; j0 += kTile) {
+      __syncthreads();
+      load_tile(j0);
+      __syncthreads();
+      for (int r = warp; r < cs; r += kThreads / 32) {
+        float att, da, a = 0.f;
+        if (weight(r, j0, att, da)) a = att * da;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+        if (lane == 0) row_delta[r] += a;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < cs; r += kThreads) delta_out[s0 + r] = row_delta[r];
+
+  for (int j0 = (lo / kTile) * kTile; j0 < hi && rows > 0; j0 += kTile) {
+    __syncthreads();
+    load_tile(j0);
     __syncthreads();
 
     for (int r = warp; r < cs; r += kThreads / 32) {
-      const int j = j0 + lane;
-      float dsv = 0.f;
-      if (r < rows && j >= lo && j < hi) {
-        const float* a = qu + r * ld;
-        const float* bk = ks + lane * ld;
-        const float* e = qv + r * ld;
-        const float* f = ps + (cs - 1 - r + lane) * ld;
-        const float* gr = gs + r * ld;
-        const float* vr = vs + lane * ld;
-        float ac = 0.f, bd = 0.f, da = 0.f;
-        for (int d = 0; d < dk; ++d) {
-          ac = fmaf(a[d], bk[d], ac);
-          bd = fmaf(e[d], f[d], bd);
-          da = fmaf(gr[d], vr[d], da);
-        }
-        const float att = expf(ac + bd - row_m[r]) / row_den[r];
-        if (use_drop) da = keep(st, ci * c + r0 + r, ci * c + j, thresh) ? da * drop_scale : 0.f;
-        dsv = att * (da - row_delta[r]);
-      }
+      float att, da, dsv = 0.f;
+      if (weight(r, j0, att, da)) dsv = att * (da - row_delta[r]);
       ds[r * (kTile + 1) + lane] = dsv;
     }
     __syncthreads();

@@ -56,8 +56,11 @@
 // atomics: every sum has one owner and a fixed order), in four kernels:
 // (a) train_bwd_dq_tc_kernel, one block per (group of G utterances, h),
 //     walking each utterance's chunks and 64-row query blocks in order and
-//     their key tiles: recompute S from (m, den), delta = rowsum(dctx * ctx),
-//     dA = dctx V^T on the tensor cores, times keep / (1 - p), and
+//     their key tiles twice: a first pass recomputes S from (m, den) and
+//     dA = dctx V^T on the tensor cores, times keep / (1 - p), for
+//     delta = rowsum(A dA) in f32 (as the TPU kernel; rowsum(dctx * ctx) of
+//     the bf16 ctx is off by ctx's rounding, which dominates dS where
+//     attention is flat); the second recomputes them for
 //     dS = A (dA - delta), kept in f32 registers. dq = dS K + unshift(dS) P:
 //     dS K from registers (bf16 A fragments); unshift(dS) is written skewed
 //     in f32 into a [64][128] band over the two positional blocks of the
@@ -367,8 +370,8 @@ struct DqSmem {
   static constexpr int kUk = kVf + DK * 4;                // f32 u.k [64]
   static constexpr int kVp = kUk + 64 * 4;                // f32 v.p [64]
   static constexpr int kCsp = kVp + 64 * 4;               // f32 band column sums [128]
-  static constexpr int kRow = kCsp + 128 * 4;             // f32 [3][64]: m log2e, 1/den, delta
-  static constexpr int kBytes = kRow + 3 * 64 * 4 + 1024;
+  static constexpr int kRow = kCsp + 128 * 4;             // f32 [2][64]: m log2e, 1/den
+  static constexpr int kBytes = kRow + 2 * 64 * 4 + 1024;
 };
 
 template <int DK>
@@ -376,9 +379,8 @@ __global__ void __launch_bounds__(kThreads)
 train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                        const bf16* __restrict__ pos, const bf16* __restrict__ bias_u,
                        const bf16* __restrict__ bias_v, const int* __restrict__ lens,
-                       const bf16* __restrict__ ctx, const float* __restrict__ m_in,
-                       const float* __restrict__ den_in, const bf16* __restrict__ dctx,
-                       float* __restrict__ delta_out, bf16* __restrict__ dq,
+                       const float* __restrict__ m_in, const float* __restrict__ den_in,
+                       const bf16* __restrict__ dctx, float* __restrict__ delta_out, bf16* __restrict__ dq,
                        float* __restrict__ dp_part, float* __restrict__ cs_part, int B,
                        int group, Geom g, Drop drop, int64_t sqb, int64_t sqt, int64_t sqh,
                        int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph) {
@@ -400,7 +402,6 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   float* csp = reinterpret_cast<float*>(smem + S::kCsp);
   float* row_m = reinterpret_cast<float*>(smem + S::kRow);
   float* row_inv = row_m + 64;
-  float* row_delta = row_inv + 64;
 
   const int grp = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, c = g.c, H = g.H;
@@ -441,37 +442,12 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
         const bool empty = hi <= lo || rows <= 0;
         const int n_tiles = (hi - lo + 63) / 64;
         const int pb0 = lo + c - 64 - r0;
-        if (!empty) {  // the block's first tiles load while delta is computed
-          load_tile<DK>(q_addr, q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, 64, tid);
-          load_tile<DK>(g_addr, dctx + (t0 * H + h) * DK, static_cast<int64_t>(H) * DK, 0, 64,
-                        tid);
-          load_tile<DK>(k_addr, kb, skt, lo, W, tid);
-          load_tile<DK>(v_addr, kb + DK, skt, lo, W, tid);
-          load_tile<DK>(smem_u32(sP), pb, spp, pb0, p_rows, tid);
-          load_tile<DK>(smem_u32(sP + kTile), pb, spp, pb0 + 64, p_rows, tid);
+        if (tid < 64) {
+          row_m[tid] = m_in[so + tid] * kLog2e;
+          row_inv[tid] = 1.f / den_in[so + tid];
         }
-        {  // delta = rowsum(dctx * ctx): two threads a row
-          const int row = tid >> 1, half = tid & 1;
-          const float mrow = m_in[so + row], drow = den_in[so + row];
-          const int64_t off = ((t0 + row) * H + h) * DK + half * (DK / 2);
-          const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(ctx + off);
-          const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(dctx + off);
-          float a = 0.f;
-#pragma unroll 8
-          for (int i = 0; i < DK / 4; ++i) {
-            const float2 x = __bfloat1622float2(c2[i]), y = __bfloat1622float2(g2[i]);
-            a = fmaf(x.x, y.x, a);
-            a = fmaf(x.y, y.y, a);
-          }
-          a += __shfl_xor_sync(0xffffffffu, a, 1);
-          if (half == 0) {
-            row_delta[row] = a;
-            delta_out[so + row] = a;
-            row_m[row] = mrow * kLog2e;
-            row_inv[row] = 1.f / drow;
-          }
-        }
-        if (empty) {  // no valid pair: dq rows 0
+        if (empty) {  // no valid pair: delta and dq rows 0
+          if (tid < 64) delta_out[so + tid] = 0.f;
           for (int i = tid; i < 64 * DK / 2; i += kThreads) {
             const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
             *reinterpret_cast<__nv_bfloat162*>(dqb + static_cast<int64_t>(r) * H * DK + d) =
@@ -479,12 +455,21 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           }
           continue;
         }
-        cp_async_commit();
-        cp_async_wait_all();
-        fence_async_smem();
-        __syncthreads();
-
-        {
+        load_tile<DK>(q_addr, q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, 64, tid);
+        load_tile<DK>(g_addr, dctx + (t0 * H + h) * DK, static_cast<int64_t>(H) * DK, 0, 64, tid);
+        // the first key tile and positional blocks 0, 1 into ring slots 0, 1
+        auto load_first = [&]() {
+          load_tile<DK>(k_addr, kb, skt, lo, W, tid);
+          load_tile<DK>(v_addr, kb + DK, skt, lo, W, tid);
+          load_tile<DK>(smem_u32(sP), pb, spp, pb0, p_rows, tid);
+          load_tile<DK>(smem_u32(sP + kTile), pb, spp, pb0 + 64, p_rows, tid);
+        };
+        // waits for the copies, then BD of positional block 0 into stage slot 0
+        auto stage_first = [&]() {
+          cp_async_commit();
+          cp_async_wait_all();
+          fence_async_smem();
+          __syncthreads();
           float b0[32];
           fence_regs(b0);
           wgmma_fence();
@@ -497,7 +482,9 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           wgmma_wait_all();
           fence_regs(b0);
           stage_block(b0, stg, vp, ra, cb);
-        }
+        };
+        load_first();
+        stage_first();
 
         bool row_ok[2];
         uint32_t row_hash[2];
@@ -509,26 +496,12 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           row_hash[x] = drop_row(drop.seed, b, h, H, ci * c + r0 + rr);
           rm[x] = row_m[rr];
           rinv[x] = row_inv[rr];
-          rdelta[x] = row_delta[rr];
         }
-        float dacc[DK / 2];
-#pragma unroll
-        for (int i = 0; i < DK / 2; ++i) dacc[i] = 0.f;
 
-        for (int t = 0; t < n_tiles; ++t) {
-          const int j0 = lo + 64 * t;
-          const bool more = t + 1 < n_tiles;
-          cp_async_wait_all();  // K, V of tile t and positional block t + 1 have landed
-          fence_async_smem();
-          __syncthreads();
-          if (more)
-            load_tile<DK>(smem_u32(sP + ((t + 2) % 3) * kTile), pb, spp, pb0 + 64 * (t + 2),
-                          p_rows, tid);
-          cp_async_commit();
-          const uint8_t* tP0 = sP + (t % 3) * kTile;        // block t
-          const uint8_t* tP1 = sP + ((t + 1) % 3) * kTile;  // block t + 1
-
-          float s[32], da[32], bacc[32];
+        // S = q K^T, BD = q P^T of positional block t + 1 and dA = dctx V^T of
+        // the key tile on the tensor cores, with u.k and v.p beside them
+        auto tile_products = [&](const uint8_t* tP1, float(&s)[32], float(&da)[32],
+                                 float(&bacc)[32]) {
           fence_regs(s);
           fence_regs(bacc);
           fence_regs(da);
@@ -550,12 +523,13 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           fence_regs(s);
           fence_regs(bacc);
           fence_regs(da);
-          // V is read by no one else in this tile: the next tile's V loads now
-          if (more) load_tile<DK>(v_addr, kb + DK, skt, j0 + 64, W, tid);
-          stage_block(bacc, stg + ((t + 1) & 1) * kSlot, vp, ra, cb);
-          __syncthreads();
-
-          // dS = A (keep dA / (1 - p) - delta), f32, in s
+        };
+        // each fragment's A (s + u.k + the staged rel-shifted BD, the key and
+        // row masks, exp2 with m and 1/den) and dA (after the keep mask) of
+        // key tile t in f32, handed to f(k, x, att, dav): the one definition
+        // that the delta pre-pass and the dS pass share
+        auto for_each_weight = [&](int t, const float(&s)[32], const float(&da)[32], auto&& f) {
+          const int j0 = lo + 64 * t;
           const float* slot_lo = stg + (t & 1) * kSlot;
           const float* slot_hi = stg + ((t + 1) & 1) * kSlot;
 #pragma unroll
@@ -577,10 +551,78 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                   const uint32_t fk = static_cast<uint32_t>(ci * c + j0 + jj);
                   dav = mix32(row_hash[x] ^ fk) >= drop.thresh ? dav * drop.scale : 0.f;
                 }
-                s[k] = att * (dav - rdelta[x]);
+                f(k, x, att, dav);
               }
             }
           }
+        };
+
+        // delta = rowsum(A dA) in f32 (dA after the keep mask), from the same
+        // scores and dA as the pass below, as the TPU kernel and the plain
+        // version take it: a pre-pass over the key tiles. (rowsum(dctx ctx)
+        // of the bf16 ctx is off by the rounding of ctx, which dominates dS
+        // where attention is flat.)
+        float dsum[2] = {0.f, 0.f};
+        for (int t = 0; t < n_tiles; ++t) {
+          const int j0 = lo + 64 * t;
+          cp_async_wait_all();  // K, V of tile t and positional block t + 1 have landed
+          fence_async_smem();
+          __syncthreads();
+          const uint8_t* tP1 = sP + ((t + 1) % 3) * kTile;
+          float s[32], da[32], bacc[32];
+          tile_products(tP1, s, da, bacc);
+          if (t + 1 < n_tiles) {
+            load_tile<DK>(k_addr, kb, skt, j0 + 64, W, tid);
+            load_tile<DK>(v_addr, kb + DK, skt, j0 + 64, W, tid);
+            load_tile<DK>(smem_u32(sP + ((t + 2) % 3) * kTile), pb, spp, pb0 + 64 * (t + 2),
+                          p_rows, tid);
+          } else {
+            load_first();  // the pass below starts over
+          }
+          cp_async_commit();
+          stage_block(bacc, stg + ((t + 1) & 1) * kSlot, vp, ra, cb);
+          __syncthreads();
+          for_each_weight(t, s, da, [&](int k, int x, float att, float dav) {
+            dsum[x] = fmaf(att, dav, dsum[x]);
+          });
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          dsum[x] += __shfl_xor_sync(0xffffffffu, dsum[x], 1);
+          dsum[x] += __shfl_xor_sync(0xffffffffu, dsum[x], 2);
+          rdelta[x] = dsum[x];
+          if ((lane & 3) == 0) delta_out[so + ra + 8 * x] = dsum[x];
+        }
+        stage_first();
+
+        float dacc[DK / 2];
+#pragma unroll
+        for (int i = 0; i < DK / 2; ++i) dacc[i] = 0.f;
+
+        for (int t = 0; t < n_tiles; ++t) {
+          const int j0 = lo + 64 * t;
+          const bool more = t + 1 < n_tiles;
+          cp_async_wait_all();  // K, V of tile t and positional block t + 1 have landed
+          fence_async_smem();
+          __syncthreads();
+          if (more)
+            load_tile<DK>(smem_u32(sP + ((t + 2) % 3) * kTile), pb, spp, pb0 + 64 * (t + 2),
+                          p_rows, tid);
+          cp_async_commit();
+          const uint8_t* tP0 = sP + (t % 3) * kTile;        // block t
+          const uint8_t* tP1 = sP + ((t + 1) % 3) * kTile;  // block t + 1
+
+          float s[32], da[32], bacc[32];
+          tile_products(tP1, s, da, bacc);
+          // V is read by no one else in this tile: the next tile's V loads now
+          if (more) load_tile<DK>(v_addr, kb + DK, skt, j0 + 64, W, tid);
+          stage_block(bacc, stg + ((t + 1) & 1) * kSlot, vp, ra, cb);
+          __syncthreads();
+
+          // dS = A (keep dA / (1 - p) - delta), f32, in s
+          for_each_weight(t, s, da, [&](int k, int x, float att, float dav) {
+            s[k] = att * (dav - rdelta[x]);
+          });
           // dq += dS K (dS as bf16 A fragments, K as it landed: MN-major)
           {
             uint32_t a[4][4];
@@ -1010,8 +1052,7 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
   int err = set_smem(train_bwd_dq_tc_kernel<DK>, smem);
   if (err) return err;
   train_bwd_dq_tc_kernel<DK><<<dim3(groups, g.H), kThreads, smem, stream>>>(
-      qb, kvb, pb, ub, vb, lens, static_cast<const bf16*>(ctx), m, den,
-      static_cast<const bf16*>(dctx), delta, static_cast<bf16*>(dq), dp_part, cs_part, B,
+      qb, kvb, pb, ub, vb, lens, m, den, static_cast<const bf16*>(dctx), delta, static_cast<bf16*>(dq), dp_part, cs_part, B,
       group, g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;

@@ -4,8 +4,9 @@ chunkformer/text/*.py).
 - ``CharTokenizer``: character level, with non-language symbols and the
   ``▁`` space marker (reference: text/char_tokenizer.py). A copy of the JAX
   package's.
-- ``BpeTokenizer``: sentencepiece-backed in the JAX package; not ported yet
-  (ROADMAP A16), and it raises.
+- ``BpeTokenizer``: sentencepiece when it is installed (imported only on
+  first use), else a greedy longest match over the symbol table.
+- ``build_tokenizer``: the factory of the train CLI.
 
 The symbol table is the published vocab.txt (``symbol id`` lines,
 reference: utils/file_utils.py:62-80).
@@ -77,7 +78,60 @@ class CharTokenizer(BaseTokenizer):
 
 
 class BpeTokenizer(BaseTokenizer):
-    """Not ported yet: the JAX package's BPE tokenizer needs sentencepiece."""
+    def __init__(self, symbol_table: Dict[str, int], bpe_model: Optional[str] = None,
+                 non_lang_syms: Optional[List[str]] = None):
+        self.symbol_table = symbol_table
+        self.char_dict = {v: k for k, v in symbol_table.items()}
+        self.non_lang_syms = non_lang_syms or []
+        self._bpe_model_path = bpe_model
+        self._sp = None  # loaded on first use, so worker processes load their own
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("BpeTokenizer is not ported yet (ROADMAP A16)")
+    def _ensure_sp(self):
+        if self._sp is None and self._bpe_model_path:
+            try:
+                import sentencepiece as spm
+
+                self._sp = spm.SentencePieceProcessor()
+                self._sp.load(self._bpe_model_path)
+            except ImportError:
+                self._sp = False
+        return self._sp
+
+    def text2tokens(self, line: str) -> List[str]:
+        sp = self._ensure_sp()
+        if sp:
+            return sp.encode_as_pieces(line.strip())
+        return self._greedy_bpe(line.strip())
+
+    def _greedy_bpe(self, line: str) -> List[str]:
+        """Longest-match fallback over the symbol table."""
+        tokens: List[str] = []
+        for word in line.split():
+            piece = "▁" + word
+            while piece:
+                for end in range(len(piece), 0, -1):
+                    if piece[:end] in self.symbol_table:
+                        tokens.append(piece[:end])
+                        piece = piece[end:]
+                        break
+                else:
+                    tokens.append("<unk>")
+                    piece = piece[1:]
+        return tokens
+
+    def tokens2text(self, tokens: Sequence[str]) -> str:
+        return "".join(tokens).replace("▁", " ").strip()
+
+
+def build_tokenizer(tokenizer: str, conf: Dict) -> BaseTokenizer:
+    """Factory (reference: utils/init_tokenizer.py:23-45)."""
+    from ..api import read_symbol_table
+
+    table = read_symbol_table(conf["symbol_table_path"])
+    nls = None
+    if conf.get("non_lang_syms_path"):
+        with open(conf["non_lang_syms_path"]) as f:
+            nls = [ln.strip() for ln in f if ln.strip() and not ln.startswith("#")]
+    if tokenizer == "bpe":
+        return BpeTokenizer(table, conf.get("bpe_path"), nls)
+    return CharTokenizer(table, nls, conf.get("split_with_space", False))

@@ -6,8 +6,7 @@ heads over the masked mean of the encoder output.
 Parameter names are the reference state-dict names (``encoder.*``,
 ``classification_heads.<task>.linear.*``; ``chunkformer_tpu/export.py:154``
 writes them), so an exported classification ``pytorch_model.bin`` loads with
-``strict=True``. The training loss (``classification_loss``) waits for the
-training infrastructure (ROADMAP A16).
+``strict=True``. ``classification_loss`` is the training loss.
 """
 
 from __future__ import annotations
@@ -19,12 +18,13 @@ from torch import nn
 
 from ..config import ChunkFormerConfig
 from ..nn.encoder import ChunkFormerEncoder
+from ..nn.layers import dropout
 
 
 class ClassificationHead(nn.Module):
-    """Dropout -> Linear (``init_classification_head`` /
-    ``classification_head_forward``; reference classification_model.py:25-52).
-    Dropout is a training feature, so inference runs the linear layer alone."""
+    """The linear layer of Dropout -> Linear (``init_classification_head`` /
+    ``classification_head_forward``; reference classification_model.py:25-52);
+    ``classify_forward`` applies the dropout in training."""
 
     def __init__(self, input_dim: int, num_classes: int):
         super().__init__()
@@ -40,6 +40,7 @@ class ClassificationModel(nn.Module):
     def __init__(self, config: ChunkFormerConfig, cmvn: bool = True):
         super().__init__()
         self.encoder = ChunkFormerEncoder(config.encoder_conf, cmvn)
+        self.head_dropout = config.classification_conf.get("head_dropout", 0.1)
         tasks: Dict[str, int] = config.classification_conf.get("tasks", {})
         self.classification_heads = nn.ModuleDict({
             name: ClassificationHead(config.encoder_conf.output_size, n)
@@ -54,15 +55,52 @@ def masked_average_pooling(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def classify_forward(model: ClassificationModel, feats: torch.Tensor, feats_lens: torch.Tensor,
                      chunk_size: int = 0, left_context_size: int = 0,
-                     right_context_size: int = 0) -> Dict[str, torch.Tensor]:
+                     right_context_size: int = 0, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """Per-task logits [B, n_classes] in sorted task order
-    (classification_model.py:199-291), in eval: feats [B, T, feat] and
-    feats_lens [B] on the model's device; chunk_size > 0 runs the encoder at
-    limited context (c, L, R)."""
+    (classification_model.py:199-291): feats [B, T, feat] and feats_lens [B]
+    on the model's device; chunk_size > 0 runs the encoder at limited
+    context (c, L, R). In training the encoder and the heads' dropout
+    (``classification_conf.head_dropout``) draw from ``generator``."""
+    from ..train.losses import generator_on
+
     enc_out, enc_mask = model.encoder.forward_train(
-        feats, feats_lens, chunk_size, left_context_size, right_context_size, train=False)
+        feats, feats_lens, chunk_size, left_context_size, right_context_size, train,
+        generator)
     pooled = masked_average_pooling(enc_out, enc_mask)
-    return {name: head(pooled) for name, head in sorted(model.classification_heads.items())}
+    gen = generator_on(generator, feats.device, train)
+    rate = model.head_dropout
+    return {name: head(dropout(pooled, rate, gen))
+            for name, head in sorted(model.classification_heads.items())}
+
+
+def classification_loss(model: ClassificationModel, cfg: ChunkFormerConfig,
+                        feats: torch.Tensor, feats_lens: torch.Tensor,
+                        labels: Dict[str, torch.Tensor], target_lens=None,
+                        chunk_size: int = 0, left_context_size: int = 0,
+                        right_context_size: int = 0, train: bool = True,
+                        generator: Optional[torch.Generator] = None,
+                        step: int = 0) -> Dict[str, torch.Tensor]:
+    """Per-task label-smoothed cross entropy and accuracy
+    (classification_model.py:102-171): loss_<task>, acc_<task> and their
+    mean loss. ``labels`` is {task: [B] class ids}; ``target_lens`` and
+    ``step`` are unused (the loss functions share one signature)."""
+    lsm = cfg.model_conf.lsm_weight
+    logits = classify_forward(model, feats, feats_lens, chunk_size, left_context_size,
+                              right_context_size, train, generator)
+    metrics: Dict[str, torch.Tensor] = {}
+    total = torch.zeros((), device=feats.device)
+    for name, lg in logits.items():
+        y = labels[name].long()
+        v = lg.shape[-1]
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        smoothed = torch.nn.functional.one_hot(y, v).float() * (1 - lsm) + lsm / v
+        loss = -(smoothed * logp).sum(-1).mean()
+        metrics[f"loss_{name}"] = loss
+        metrics[f"acc_{name}"] = (lg.argmax(-1) == y).float().mean()
+        total = total + loss
+    metrics["loss"] = total / max(len(logits), 1)
+    return metrics
 
 
 @torch.inference_mode()

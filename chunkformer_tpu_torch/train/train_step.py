@@ -6,18 +6,21 @@ The step takes a batch that is already on the model's device. With
 ``accum_steps`` = A the batch is cut into A micro-batches along its first
 axis; their gradients and metrics are averaged before one update (the JAX
 ``lax.scan`` over micro-batches; reference executor.py:85-98). Gradients land
-in each parameter's ``.grad``, clipped in place before the update.
+in each parameter's ``.grad``, clipped in place before the update. For a
+classification model ``targets`` is the {task: labels} dict.
 ``autocast`` = torch.bfloat16 runs the forward under ``torch.autocast`` with
 f32 parameters and optimizer state. ``loss_fn`` is ``asr_model_loss`` by
 default or ``transducer_model_loss``; it gets the optimizer step (the
 scheduler's count of finished steps), which the transducer's warmup mixing
-reads.
+reads. ``no_sync`` is the context in which every micro-batch but the last
+runs: DDP's ``no_sync``, so that the gradients are all-reduced once an
+update.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, ContextManager, Dict, Optional, Tuple
 
 import torch
 
@@ -26,12 +29,21 @@ from .losses import asr_model_loss
 from .optim import clip_by_global_norm_
 
 
+def _split(x, a: int):
+    """``a`` micro-batches of a tensor or of a {task: labels} dict."""
+    if isinstance(x, dict):
+        parts = {k: v.chunk(a) for k, v in x.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(a)]
+    return x.chunk(a)
+
+
 def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
                     optimizer: torch.optim.Optimizer,
                     scheduler: torch.optim.lr_scheduler.LRScheduler,
                     chunk_cfg: Tuple[int, int, int] = (0, 0, 0), accum_steps: int = 1,
                     autocast: Optional[torch.dtype] = None, grad_clip: float = 5.0,
-                    loss_fn: Callable[..., Dict[str, torch.Tensor]] = asr_model_loss
+                    loss_fn: Callable[..., Dict[str, torch.Tensor]] = asr_model_loss,
+                    no_sync: Callable[[], ContextManager] = contextlib.nullcontext
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(feats [A*B, T, F], feats_lens, targets, target_lens,
     generator) -> metrics (``loss_fn``'s, e.g. loss, loss_ctc, loss_att,
@@ -52,12 +64,13 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
         sums: Dict[str, torch.Tensor] = {}
         ctx = (torch.autocast(feats.device.type, dtype=autocast) if autocast is not None
                else contextlib.nullcontext())
-        for f, fl, t, tl in zip(feats.chunk(a), feats_lens.chunk(a), targets.chunk(a),
-                                target_lens.chunk(a)):
-            with ctx:
-                metrics = loss_fn(model, cfg, f, fl, t, tl, c, left, right, train=True,
-                                  generator=generator, step=scheduler.last_epoch)
-            (metrics["loss"] / a).backward()
+        for i, (f, fl, t, tl) in enumerate(zip(feats.chunk(a), feats_lens.chunk(a),
+                                               _split(targets, a), target_lens.chunk(a))):
+            with no_sync() if i < a - 1 else contextlib.nullcontext():
+                with ctx:
+                    metrics = loss_fn(model, cfg, f, fl, t, tl, c, left, right, train=True,
+                                      generator=generator, step=scheduler.last_epoch)
+                (metrics["loss"] / a).backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v.detach().float()
         for p in params:  # optax updates (and decays) every parameter

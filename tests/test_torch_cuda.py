@@ -372,8 +372,7 @@ def test_train_attention_kernels_match_plain(cuda_device, dtype, b, n, c, L, R, 
     gradients atol 1e-4 rtol 1e-5 (summation order only; a single dropout
     mask difference would move ctx by a whole weight). bf16: ctx atol 1e-2
     plus one bf16 ulp relative (both accumulate in f32 and round once);
-    gradients within 1e-2 relative L2 (the kernel takes rowsum(dctx * ctx)
-    from the bf16-rounded ctx)."""
+    gradients within 1e-2 relative L2 (the gradients come out in bf16)."""
     args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device)
     kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
     seed = 1234
@@ -525,6 +524,53 @@ def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d
     for i, ln in enumerate(lens):
         assert not bool(got[1][i, L + ln:L + n * c].any())
         assert not bool(got[0][i, ln:].any())
+
+
+@pytest.mark.parametrize("route", ["tensor_core", "cuda_core"])
+@pytest.mark.parametrize("heads", [4, 8])
+def test_train_attention_bf16_flat_attention(cuda_device, heads, route):
+    """C13 (tensor cores) and C14 (CUDA cores): bf16 B5 where attention is
+    flat (q, k, p, u, v of norm 0.05 a component) over values with a large
+    common offset (4 a component, spread 0.2), the case where delta taken
+    from the bf16 ctx, rowsum(dctx * ctx), missed by 0.03 relative L2 (CPU
+    emulation): every gradient within 1e-2 relative L2 of autograd through
+    the plain forward, which takes delta = rowsum(dA * A) in f32."""
+    b, n, c, L, R, d_k = 3, 3, 64, 64, 64, 64
+    g = torch.Generator(device="cpu").manual_seed(heads)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+
+    tp = n * c
+    kv = rnd(b, L + tp + R, heads, 2 * d_k)
+    kv[..., :d_k] *= 0.05
+    kv[..., d_k:] = kv[..., d_k:] * 0.2 + 4.0 * rnd(1, 1, heads, d_k)
+    kv[:, :L] = 0
+    kv[:, L + tp:] = 0
+    small = [rnd(b, tp, heads, d_k) * 0.05, kv, rnd(2 * c - 1 + L + R, heads, d_k) * 0.05,
+             rnd(heads, d_k) * 0.05, rnd(heads, d_k) * 0.05]
+    args = [a.to(device=cuda_device, dtype=torch.bfloat16) for a in small]
+    args.append(torch.tensor([tp, tp - 50, 70], dtype=torch.int32, device=cuda_device))
+    assert cat.route(*args[:3], c) == "tensor_core"
+    w = torch.randn((b, tp, heads, d_k), generator=g).to(device=cuda_device,
+                                                         dtype=torch.bfloat16)
+    before = _tc_counts()
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    entry = (cat.chunk_train_attention if route == "tensor_core"
+             else cat.chunk_train_attention_cuda_core)
+    out = entry(*leaves, args[5], 0, chunk=c, left=L, right=R)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
+    torch.cuda.synchronize()
+    tc = route == "tensor_core"
+    assert _tc_counts() == (before[0] + (not tc), before[1] + (not tc), before[2] + tc,
+                            before[3] + tc)
+    leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
+    ref = cat.forward_plain(*leaves, args[5], 0, c, L, R, 0.0)[0]
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), leaves)
+    rels = {name: float((a.float() - e.float()).norm() / e.float().norm())
+            for name, a, e in zip(("q", "kv", "p", "u", "v"), got, want)}
+    print("flat attention relative L2", route, heads, rels)
+    assert max(rels.values()) <= 1e-2, rels
 
 
 @pytest.mark.parametrize("dtype,d_k", [(torch.bfloat16, 64), (torch.float32, 64),

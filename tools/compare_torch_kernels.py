@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time and fingerprint the CUDA-core attention kernels (decode; training
-forward and backward) and both fbank kernels at the main paths' shapes, so
-that two checkouts can be compared on one card in one call.
+forward and backward), the tensor-core training attention kernels (B4 and
+B5, f32 and bf16) and both fbank kernels at the main paths' shapes, so that
+two checkouts can be compared on one card in one call.
 
     cd <checkout> && python3 <this repo>/tools/compare_torch_kernels.py <tag> <out_dir>
     python3 tools/compare_torch_kernels.py --compare <out_dir>/ab_<a>.pt <out_dir>/ab_<b>.pt
@@ -62,6 +63,18 @@ def fingerprint(tag, out_dir):
             *targs, *st, path="cuda_core"), iters=10) for _ in range(3)]
         times[f"train bwd {dtype}"] = [cs.cuda_ms(lambda: cat.backward_kernel(
             *targs, ctx, m, den, dctx, *st, path="cuda_core"), iters=5) for _ in range(3)]
+        for drop in (0.0, 0.1):
+            st = (3, 64, 128, 128, drop)
+            ctx, m, den = cat.forward_kernel(*targs, *st, path="tensor_core")
+            grads = cat.backward_kernel(*targs, ctx, m, den, dctx, *st, path="tensor_core")
+            outs[f"train tc fwd {dtype} p={drop}"] = ctx
+            outs[f"train tc bwd {dtype} p={drop}"] = torch.cat(
+                [x.float().reshape(-1) for x in grads])
+            times[f"train tc fwd {dtype} p={drop}"] = [cs.cuda_ms(lambda: cat.forward_kernel(
+                *targs, *st, path="tensor_core"), iters=20) for _ in range(3)]
+            times[f"train tc bwd {dtype} p={drop}"] = [cs.cuda_ms(lambda: cat.backward_kernel(
+                *targs, ctx, m, den, dctx, *st, path="tensor_core"), iters=20)
+                for _ in range(3)]
     for sr, sec in ((16000, 2040.0), (8000, 120.0), (16000, 120.0)):
         wave = torch.from_numpy(cs.speechlike(np.random.default_rng(0), sec, sr)
                                 .astype(np.float32)).to(dev)
