@@ -7,8 +7,9 @@ Phases, each printing its elapsed seconds; any failure ends the run with a
 non-zero exit code and no result line:
 
 1. device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the CUDA kernels from ``chunkformer_tpu_torch/csrc`` (nvcc, printing
-   registers and shared memory per kernel);
+2. build the native host library (g++) and the CUDA kernels from
+   ``chunkformer_tpu_torch/csrc`` (nvcc, printing registers and shared
+   memory per kernel);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (chunk attention: the CUDA-core kernel in f32, at
    an odd N, in bf16 and at head_dim 32, the shape it is the route of; the
@@ -35,12 +36,21 @@ non-zero exit code and no result line:
    the bf16-vs-f32 CTC token-flip rate of ``endless_decode``, held on frames
    that are not near ties and against the same bf16 model through the plain
    attention, and the card's encoder against the CPU's on a small input;
+   then, in bf16 and f32, ``endless_encode_tokens`` of the same file's
+   features on the card and from the host (fetched, written and read back
+   by ``data/kaldi_io.py``, passed as numpy; int8 with one global scale in
+   bf16), tokens equal to ``endless_decode``'s, the host library's int8
+   tensor and scale equal to the card quantizer's, with the bytes
+   uploaded, the pinned copy's time and each way's wall time;
 5. the training attention kernels (forward and backward) against their plain
    versions at the flagship train shape (B = 32, 199 subsampled frames,
    c = 64, L = R = 128, H = 8, dk = 64), at dropout 0 and 0.1 (identical
    keep masks), in f32 and bf16, each on the tensor-core kernels (f32:
    3xTF32; backward run twice, bitwise equal) and on the CUDA-core kernels,
-   timed in turns with the plain version on the same inputs;
+   timed in turns with the plain version on the same inputs; then B4 and
+   B5 of each route on heads 4-7 of 8 with a head offset of 4, bitwise
+   the full call's slice (a tensor-parallel rank's share), and the plain
+   version on those heads;
 6. the train path: three bf16 steps of the hybrid CTC/AED configuration of
    bench.py:149-177 (ChunkFormer-large encoder with gradient checkpointing,
    bitransformer decoder 3 + 3, vocab 6992, adamw) on 32 seeded synthetic
@@ -96,14 +106,18 @@ non-zero exit code and no result line:
    dataset_conf of ``examples/asr/ctc/conf/chunkformer-ctc-small.yaml`` at
    51200 frames a batch, chunks fixed at (64, 128, 128), f32) on 64
    synthetic WAVs of 4-16 s with a 6992-symbol char vocabulary and a CMVN
-   file: ``bin/train.py`` ``main(argv)`` for two epochs (each step's time
-   beside its host data time, audio-s/s, peak memory, 17 + 17 tensor-core
-   B4/B5 launches a step and no other attention kernel), a resume from
-   epoch_0 (the saved step and Adam's state continue), one step with
-   ``--distributed`` at world size 1 on NCCL, ``bin/average_model.py --num
-   2``, ``export_model_dir`` of the average (``from_pretrained`` bitwise
-   equal) and a 120 s f32 ``endless_decode`` of it equal to the in-memory
-   average's tokens, with B1 and B2 launches;
+   file (features from the native host library's fbank, timed beside its
+   numpy twin): ``bin/train.py`` ``main(argv)`` for two epochs (each step's
+   time beside its host data time, audio-s/s, peak memory, 17 + 17
+   tensor-core B4/B5 launches a step and no other attention kernel), a
+   resume from epoch_0 (the saved step and Adam's state continue), one
+   step with ``--distributed`` at world size 1 on NCCL, two steps each with
+   ``--distributed --sharding fsdp``, ``tp`` and ``fsdp_tp`` at world size
+   1 against a dp run of the same two steps (losses, gradient norms,
+   parameters), and for the two-epoch run and the fsdp_tp run
+   ``bin/average_model.py --num 2``, ``export_model_dir`` of the average
+   (``from_pretrained`` bitwise equal) and a 120 s f32 ``endless_decode``
+   of it equal to the in-memory average's tokens, with B1 and B2 launches;
 13. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
@@ -219,6 +233,10 @@ def phase_device():
 def phase_build():
     from chunkformer_tpu_torch.ops import kernels
 
+    from chunkformer_tpu_torch import native
+
+    t = time.time()
+    log(f"built {os.path.relpath(native.build())} (host library, g++) in {time.time() - t:.1f} s")
     path = kernels.build()
     log(f"built {os.path.relpath(path)}")
     for line in kernels.build_log().splitlines():
@@ -778,7 +796,7 @@ def phase_main_path(tmp, card, device):
         f"{enc_err:.3g} (limit 2e-3)")
     require(bool(torch.isfinite(outs[0]).all()) and enc_err <= 2e-3,
             f"card vs CPU encoder differ by {enc_err}")
-    return main_counts, counts, capacity
+    return main_counts, counts, capacity, (cfg, sd, long_wav)
 
 
 def train_attention_inputs(dtype, gen, dev):
@@ -1423,14 +1441,16 @@ class CaptureTrainAttention:
 
         self.module, self.routed = attention_module, attention_module.chunk_train_attention
 
-        def call(q, kv, p, u, v, lens, seed=0, *, chunk, left, right, drop_rate=0.0):
+        def call(q, kv, p, u, v, lens, seed=0, *, chunk, left, right, drop_rate=0.0,
+                 head_offset=0, heads_total=0):
             if self.args is None:
                 self.args = [q, kv, p, u, v, lens]
             if self.plain:
                 return cat.forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right,
-                                         drop_rate)[0]
+                                         drop_rate, head_offset, heads_total)[0]
             return self.routed(q, kv, p, u, v, lens, seed, chunk=chunk, left=left, right=right,
-                               drop_rate=drop_rate)
+                               drop_rate=drop_rate, head_offset=head_offset,
+                               heads_total=heads_total)
 
         attention_module.chunk_train_attention = call
         return self
@@ -2792,22 +2812,21 @@ def phase_train_cli(tmp, card):
     dataset_conf of chunkformer-ctc-small.yaml at 51200 frames a batch,
     dynamic chunks fixed at (64, 128, 128), f32) on ``write_train_data``:
     two epochs; a resume from epoch_0; one step through DDP at world size 1
-    on NCCL (the one card: larger worlds are not tested here);
-    bin/average_model.py --num 2; export_model_dir of the average, which
-    from_pretrained loads bitwise, and a 120 s f32 endless_decode of it
-    against the same decode of the in-memory average. Returns the launch
-    counts of the train runs and of the decode."""
+    on NCCL (the one card: larger worlds are not tested here); the sharding
+    modes at world size 1 against a dp run (``sharded_train_cli``); for the
+    two-epoch run and the fsdp_tp run, ``check_average_export``. The
+    features come from the native host library's fbank (dither on), timed
+    beside its numpy twin on the train files. Returns the launch counts of
+    the dp train runs, of the decode of their average, of the sharded runs
+    and of the decode of the fsdp_tp average."""
     import torch.distributed as dist
 
-    from chunkformer_tpu_torch.api import ChunkFormerModel, read_symbol_table
-    from chunkformer_tpu_torch.bin import average_model
-    from chunkformer_tpu_torch.config import ChunkFormerConfig
-    from chunkformer_tpu_torch.export import export_model_dir
     from chunkformer_tpu_torch.train.checkpoint import list_checkpoints, load_checkpoint
 
     root = os.path.join(tmp, "train_cli")
     os.makedirs(root)
     config = write_train_data(root)
+    host_fbank_times(root)
     conf_path = os.path.join(root, "conf.yaml")
     with open(conf_path, "w") as f:
         json.dump(config, f)
@@ -2844,24 +2863,104 @@ def phase_train_cli(tmp, card):
         f"the saved state")
     del opt1
 
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost"}
+    with world_of_one():
+        dex, dcounts, _ = run_train_cli(
+            argv[:-1] + [os.path.join(root, "ddp"), "--distributed", "--override_config",
+                         "max_epoch 1", "--override_config", "dataset_conf.epoch_steps 1"],
+            "train CLI --distributed", card)
+        require(dist.is_initialized() and dist.get_world_size() == 1
+                and dist.get_backend() == "nccl" and dex.parallel.loss_fn is not dex.loss_fn
+                and dex.step == 1, "the DDP run did not step once through DDP on nccl")
+        log("train CLI --distributed: one step through DistributedDataParallel on nccl "
+            "at world size 1 (one card: larger worlds are not tested here)")
+    del dex
+    shard_counts, fsdp_tp_exp = sharded_train_cli(argv, root, card)
+    total = {k: counts[k] + rcounts[k] + dcounts[k] for k in counts}
+    decode_counts = check_average_export(exp, config, root, "export", card)
+    decode_counts_sharded = check_average_export(fsdp_tp_exp, config, root, "export_fsdp_tp",
+                                                 card)
+    return total, decode_counts, shard_counts, decode_counts_sharded
+
+
+def sharded_train_cli(argv, root, card):
+    """bin/train.py --distributed at world size 1 on NCCL with --sharding
+    fsdp, tp and fsdp_tp (mesh (1, 1): DTensor parameters, FSDP's hooks,
+    the tensor-parallel operators and the kernels on the rank's heads),
+    two steps each (one an epoch) on the data and seed of a plain dp run
+    of the same two steps: losses within rtol 1e-5, gradient norms within
+    1e-4 and parameters within 1e-5 of the dp run's, 17 + 17 tensor-core B4/B5 launches a step
+    (``run_train_cli``). Returns the sharded runs' launch counts and the
+    fsdp_tp run's model_dir."""
+    import torch.distributed as dist
+
+    from chunkformer_tpu_torch.train.checkpoint import load_checkpoint
+
+    def two_steps(name, *extra):
+        out = os.path.join(root, name)
+        return argv[:-1] + [out, "--override_config", "dataset_conf.epoch_steps 1",
+                            *extra], out
+
+    ref_argv, ref_dir = two_steps("dp_ref")
+    ref, _, _ = run_train_cli(ref_argv, "train CLI dp, two steps", card)
+    del ref
+    with open(os.path.join(ref_dir, "metrics.jsonl")) as f:
+        want_metrics = [json.loads(x) for x in f]
+    want = load_checkpoint(ref_dir, "epoch_1")[0]
+    total = None
+    for mode in ("fsdp", "tp", "fsdp_tp"):
+        mode_argv, mode_dir = two_steps(mode, "--distributed", "--sharding", mode)
+        with world_of_one():
+            sex, counts, _ = run_train_cli(mode_argv, f"train CLI --sharding {mode}", card)
+            require(dist.get_backend() == "nccl" and sex.dp.mode == mode
+                    and sex.dp.mesh is not None and sex.step == 2,
+                    f"--sharding {mode}: not two steps on a nccl mesh")
+            sharded = any(hasattr(p, "device_mesh") for p in sex.model.parameters())
+            require(sharded == (mode != "tp"), f"--sharding {mode}: DTensor parameters "
+                    f"{sharded}")
+            tp_modules = sum(getattr(m, "tp", None) is not None for m in sex.model.modules())
+            require((tp_modules > 0) == (mode != "fsdp"),
+                    f"--sharding {mode}: {tp_modules} tensor-parallel modules")
+        del sex
+        torch.cuda.empty_cache()
+        with open(os.path.join(mode_dir, "metrics.jsonl")) as f:
+            got_metrics = [json.loads(x) for x in f]
+        def rel(keys):
+            return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                       for g, w in zip(got_metrics, want_metrics) for k in keys)
+
+        loss_err, norm_err = rel(("loss", "loss_ctc", "loss_att")), rel(("grad_norm",))
+        got = load_checkpoint(mode_dir, "epoch_1")[0]
+        require(got.keys() == want.keys(), f"--sharding {mode}: checkpoint keys differ")
+        param_err = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+        log(f"train CLI --sharding {mode} (world size 1, nccl): losses within rtol "
+            f"{loss_err:.3g} of the dp run's (limit 1e-5), gradient norms within "
+            f"{norm_err:.3g} (limit 1e-4, the gradients' bar), parameters after two steps "
+            f"within {param_err:.3g} (limit 1e-5); launches {counts}; card {card}")
+        require(len(got_metrics) == len(want_metrics) == 2 and loss_err <= 1e-5
+                and norm_err <= 1e-4 and param_err <= 1e-5,
+                f"--sharding {mode} differs from dp: losses {loss_err}, gradient norms "
+                f"{norm_err}, parameters {param_err}")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+        del got
+    return total, mode_dir
+
+
+@contextlib.contextmanager
+def world_of_one():
+    """torchrun's environment for a world of one process (a free local port),
+    the process group destroyed and the environment restored after."""
     import socket
 
+    import torch.distributed as dist
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost"}
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         env["MASTER_PORT"] = str(sock.getsockname()[1])
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        dex, dcounts, _ = run_train_cli(
-            argv[:-1] + [os.path.join(root, "ddp"), "--distributed", "--override_config",
-                         "max_epoch 1", "--override_config", "dataset_conf.epoch_steps 1"],
-            "train CLI --distributed", card)
-        require(dist.is_initialized() and dist.get_world_size() == 1
-                and dist.get_backend() == "nccl" and dex._train_loss_fn is not dex.loss_fn
-                and dex.step == 1, "the DDP run did not step once through DDP on nccl")
-        log("train CLI --distributed: one step through DistributedDataParallel on nccl "
-            "at world size 1 (one card: larger worlds are not tested here)")
+        yield
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2870,6 +2969,207 @@ def phase_train_cli(tmp, card):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def host_fbank_times(root):
+    """The native host library's fbank (the train CLI's features) against its
+    numpy twin on the train files at the CLI's dither 1.0, in host seconds;
+    the twin within 2e-3 of the library at dither 0 on 5 s of Gaussian noise
+    (the bar of tests/test_native.py; on the train files' tones and pauses
+    the quietest bands differ more, printed)."""
+    from scipy.io import wavfile
+
+    from chunkformer_tpu_torch import native
+    from chunkformer_tpu_torch.data.processor import compute_fbank_numpy
+
+    waves = [wavfile.read(os.path.join(root, f"utt{i:02d}.wav"))[1].astype(np.float32)
+             for i in range(CLI_FILES)]
+    audio_s = sum(len(w) for w in waves) / 16000.0
+    t = time.perf_counter()
+    feats = [native.fbank(w, dither=1.0, seed=i) for i, w in enumerate(waves)]
+    t_native = time.perf_counter() - t
+    rng = np.random.default_rng(SEED)
+    t = time.perf_counter()
+    for w in waves:
+        compute_fbank_numpy(w, dither=1.0, rng=rng)
+    t_numpy = time.perf_counter() - t
+    noise = (np.random.default_rng(SEED).normal(size=16000 * 5) * 3000).astype(np.float32)
+    err = float(np.abs(native.fbank(noise) - compute_fbank_numpy(noise)).max())
+    err_file = float(np.abs(native.fbank(waves[0]) - compute_fbank_numpy(waves[0])).max())
+    log(f"host fbank on the {CLI_FILES} train files ({audio_s:.1f} audio-s, dither 1.0, "
+        f"{os.cpu_count()} host cores): native library {t_native:.3f} s "
+        f"({audio_s / t_native:.0f} audio-s/s), numpy twin {t_numpy:.3f} s "
+        f"({audio_s / t_numpy:.0f} audio-s/s); twin vs library at dither 0, max abs diff "
+        f"{err:.3g} on 5 s of noise (limit 2e-3), {err_file:.3g} on the first train file")
+    require(all(np.isfinite(f).all() for f in feats) and err <= 2e-3,
+            f"native fbank: twin differs by {err}")
+
+
+def phase_upload(card, device, cfg, sd, long_wav):
+    """The long-form entries from host features at ChunkFormer-large width,
+    bf16 (int8 crossing with one global scale) and f32: ``endless_decode`` of
+    the 2040 s file (features on the card, quantized there in bf16), then
+    ``endless_encode_tokens`` from the same features fetched to the host,
+    written with ``data/kaldi_io.py:write_ark`` and read back as numpy; its
+    tokens must equal endless_decode's exactly, and the host quantizer's int8
+    tensor and scale the card's bit for bit. Prints the bytes each way
+    uploads, the host-to-device copy time, wall times and audio-s/s.
+    Returns the launch counts of the host-feature runs."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel, quantize_int8, quantize_int8_tensor
+    from chunkformer_tpu_torch.data import kaldi_io
+
+    n_layers = cfg.encoder_conf.num_blocks
+    counts = {}
+    tmp = os.path.dirname(long_wav)
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        model = ChunkFormerModel(cfg, sd, None, dtype=dtype, device=device)
+        model.endless_decode(long_wav, C, LEFT, RIGHT, BUDGET)  # warm-up
+
+        def timed(fn, *args):
+            """(result, wall seconds of three calls, median first)"""
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                out = fn(*args, C, LEFT, RIGHT, BUDGET)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+            return out, [sorted(walls)[1]] + walls
+
+        want, t_decode = timed(model.endless_decode, long_wav)
+        feats = model.extract_features(long_wav)
+        on_card, t_card = timed(model.endless_encode_tokens, feats)
+        card_bytes = model.bytes_uploaded
+
+        t0 = time.time()
+        host = feats.cpu().numpy()
+        t_fetch = time.time() - t0
+        ark = os.path.join(tmp, f"feats_{tag}.ark")
+        kaldi_io.write_ark(ark, [("long", host)])
+        (key, host_read), = list(kaldi_io.read_ark(ark))
+        require(key == "long" and np.array_equal(host_read, host),
+                "kaldi_io did not read back the features it wrote")
+        os.remove(ark)
+        reset_counts()
+        from_host = model.endless_encode_tokens(host_read, C, LEFT, RIGHT, BUDGET)
+        counts[tag] = read_counts()
+        _, t_host = timed(model.endless_encode_tokens, host_read)
+        host_bytes = model.bytes_uploaded
+        n_seg = counts[tag]["chunk_attention_tc"] // n_layers
+        require(counts[tag]["chunk_attention_tc"] == n_layers * n_seg and n_seg >= 3
+                and counts[tag]["chunk_attention"] == 0 and counts[tag]["fbank_fft"] == 0,
+                f"{tag} host-feature launches {counts[tag]}")
+        same = (np.array_equal(on_card, want) and np.array_equal(from_host, want))
+        log(f"{tag} long-form tokens from features on the card and from the host (kaldi ark "
+            f"read back as numpy) equal endless_decode's: {same} ({want.size} frames)")
+        require(same, f"{tag}: tokens differ between the ways in")
+
+        q_card, s_card = quantize_int8_tensor(feats)
+        q_host, s_host = quantize_int8(host_read)
+        require(s_card == s_host and np.array_equal(q_card.cpu().numpy(), q_host),
+                f"int8: the card's quantizer differs from the host library's "
+                f"(scales {s_card} {s_host})")
+        staged = torch.from_numpy(q_host if tag == "bf16" else host_read).pin_memory()
+        dst = torch.empty(staged.shape, dtype=staged.dtype, device=device)
+        copy_ms = cuda_ms(lambda: dst.copy_(staged, non_blocking=True), iters=5)
+        want_bytes = host.shape[0] * host.shape[1] * (1 if tag == "bf16" else 4)
+        require(host_bytes == want_bytes and card_bytes == 0,
+                f"{tag}: uploaded {host_bytes} bytes from the host (want {want_bytes}), "
+                f"{card_bytes} from card features (want 0)")
+        log(f"{tag} upload: {host_bytes / 1e6:.1f} MB of "
+            f"{'int8 (scale ' + format(s_host, '.6g') + ')' if tag == 'bf16' else 'f32'} "
+            f"for {tuple(host.shape)} features (f32 would be {host.size * 4 / 1e6:.1f} MB); "
+            f"host-to-device copy of them from pinned memory {copy_ms:.3f} ms "
+            f"({host_bytes / copy_ms / 1e6:.1f} GB/s); fetching the features to the host "
+            f"{1e3 * t_fetch:.1f} ms; card quantizer and host library: int8 and scale equal")
+        def wall(ts):
+            return (f"{ts[0]:.3f} s, {LONG_SECONDS / ts[0]:.1f} audio-s/s (median of "
+                    f"{', '.join(f'{t:.3f}' for t in ts[1:])} s)")
+
+        log(f"{tag} wall, {LONG_SECONDS:.0f} s: endless_decode (wav, features on the card) "
+            f"{wall(t_decode)}; endless_encode_tokens from features on the card "
+            f"{wall(t_card)}; from host features {wall(t_host)} (quantize, pin, copies "
+            f"overlapped with compute); launches {counts[tag]}; card {card}")
+        del model, feats, staged, dst
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_local_heads(card, device):
+    """B4 and B5 of each training route on heads 4-7 of 8 alone with
+    head_offset 4 (a tensor-parallel rank's share), at dropout 0.1: every
+    output bit for bit heads 4-7 of the call on all 8 heads (bf16 and f32 on
+    the tensor cores at the flagship train shape, f32 on the CUDA cores at
+    c = 8, dk = 32); the plain version on the same heads within 1e-6 of its
+    full call, its dropout masks equal."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    st = (77, C, LEFT, RIGHT, 0.1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    cases = [("tensor_core", torch.bfloat16, None), ("tensor_core", torch.float32, None),
+             ("cuda_core", torch.float32, (3, 3, 8, 16, 8, 32))]
+    for path, dtype, small in cases:
+        if small is None:
+            args = train_attention_inputs(dtype, gen, device)
+            stt = st
+        else:
+            b, n, c, left, right, dk = small
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+            args = [rnd(b, n * c, 8, dk), rnd(b, left + n * c + right, 8, 2 * dk),
+                    rnd(2 * c - 1 + left + right, 8, dk), rnd(8, dk), rnd(8, dk),
+                    torch.tensor([n * c - 3, n * c - 9, c + 2], dtype=torch.int32,
+                                 device=device)]
+            stt = (77, c, left, right, 0.1)
+        ctx, m, den = cat.forward_kernel(*args, *stt, path=path)
+        dctx = torch.randn(ctx.shape, generator=gen, device=device).to(dtype)
+        full = cat.backward_kernel(*args, ctx, m, den, dctx, *stt, path=path)
+        q, kv, p, u, v, lens = args
+        loc = [t[..., 4:8, :].contiguous() for t in (q, kv, p)] + [
+            u[4:8].contiguous(), v[4:8].contiguous(), lens]
+        lctx, lm, lden = cat.forward_kernel(*loc, *stt, path=path, head_offset=4,
+                                            heads_total=8)
+        part = cat.backward_kernel(*loc, lctx, lm, lden, dctx[:, :, 4:8].contiguous(), *stt,
+                                   path=path, head_offset=4, heads_total=8)
+        torch.cuda.synchronize()
+        same = [torch.equal(lctx, ctx[:, :, 4:8]), torch.equal(lm, m[:, 4:8]),
+                torch.equal(lden, den[:, 4:8])]
+        same += [torch.equal(a, e[..., 4:8, :]) for a, e in zip(part, full)]
+        log(f"B4/B5 {path} {str(dtype).split('.')[-1]} on heads 4-7 with head_offset 4 vs heads "
+            f"4-7 of the full call, dropout 0.1, B = {q.shape[0]}, c = {stt[1]}: ctx, m, den, "
+            f"dq, dkv, dp, du, dv bitwise equal {same}")
+        require(all(same), f"{path} {dtype}: the local-head call is not the full call's slice")
+        if small is not None or dtype == torch.float32:
+            pf = cat.forward_plain(*args, *stt)
+            pl = cat.forward_plain(*loc, *stt, head_offset=4, heads_total=8)
+            err = max(float((a.float() - e[..., 4:8, :].float() if a.dim() == 4
+                             else a - e[:, 4:8]).abs().max()) for a, e in zip(pl, pf))
+            n_keep = stt[1]
+            keep = cat.window_keep_mask(77, lens, q.shape[1] // n_keep, 8, n_keep,
+                                        stt[2] + n_keep + stt[3], 0.1)
+            lkeep = cat.window_keep_mask(77, lens, q.shape[1] // n_keep, 4, n_keep,
+                                         stt[2] + n_keep + stt[3], 0.1, 4, 8)
+            log(f"plain version ({path} shape) on heads 4-7: within {err:.3g} of the full "
+                f"call's slice (limit 1e-6), dropout masks equal "
+                f"{torch.equal(lkeep, keep[:, :, 4:8])}")
+            require(err <= 1e-6 and torch.equal(lkeep, keep[:, :, 4:8]),
+                    f"plain version on local heads: {err}")
+        del args, loc, full, part
+    torch.cuda.empty_cache()
+    log(f"local heads: card {card}")
+
+
+def check_average_export(exp, config, root, name, card):
+    """bin/average_model.py --num 2 over ``exp``'s epochs, export_model_dir of
+    the average, which from_pretrained loads bitwise, and a 120 s f32
+    endless_decode of it equal to the in-memory average's. Returns the
+    decode's launch counts."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel, read_symbol_table
+    from chunkformer_tpu_torch.bin import average_model
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.export import export_model_dir
+    from chunkformer_tpu_torch.train.checkpoint import load_checkpoint
 
     require(average_model.main(["--src_path", exp, "--num", "2"]) == 0, "average_model failed")
     avg = load_checkpoint(exp, "avg")[0]
@@ -2884,7 +3184,7 @@ def phase_train_cli(tmp, card):
 
         raw = yaml.safe_load(f)
     table = read_symbol_table(config["tokenizer_conf"]["symbol_table_path"])
-    out = export_model_dir(os.path.join(root, "export"), raw, avg, table)
+    out = export_model_dir(os.path.join(root, name), raw, avg, table)
     device = torch.device("cuda")
     served = ChunkFormerModel.from_pretrained(out, dtype=torch.float32, device=device)
     got = served.model.state_dict()
@@ -2906,14 +3206,14 @@ def phase_train_cli(tmp, card):
     require(decode_counts["chunk_attention_tc"] > 0 and decode_counts["fbank_fft"] > 0
             and decode_counts["chunk_attention"] == 0 and decode_counts["fbank"] == 0,
             f"export decode launches {decode_counts}")
-    log(f"export of the average (bin/average_model.py --num 2): from_pretrained bitwise equal "
+    log(f"export of {os.path.basename(exp)}'s average (bin/average_model.py --num 2): "
+        f"from_pretrained bitwise equal "
         f"to the checkpoint; {CLI_DECODE_SECONDS:.0f} s f32 endless_decode at ({C}, {LEFT}, {RIGHT}): "
         f"{len(tokens)} frame tokens ({len(set(np.asarray(tokens).tolist()))} distinct), "
         f"equal to the in-memory average's; launches {decode_counts}; card {card}")
     del served, memory, avg
     torch.cuda.empty_cache()
-    total = {k: counts[k] + rcounts[k] + dcounts[k] for k in counts}
-    return total, decode_counts
+    return decode_counts
 
 
 def main() -> int:
@@ -2945,12 +3245,22 @@ def main() -> int:
         log(f"[phase kernels] {time.time() - t:.1f} s")
 
         t = time.time()
-        launches, f32_launches, capacity = phase_main_path(tmp, card, torch.device("cuda"))
+        launches, f32_launches, capacity, main_model = phase_main_path(tmp, card,
+                                                                       torch.device("cuda"))
         log(f"[phase main path] {time.time() - t:.1f} s")
+
+        t = time.time()
+        upload_launches = phase_upload(card, torch.device("cuda"), *main_model)
+        del main_model
+        log(f"[phase host-feature upload] {time.time() - t:.1f} s")
 
         t = time.time()
         train_results = phase_train_kernels(torch.device("cuda"))
         log(f"[phase train kernels] {time.time() - t:.1f} s")
+
+        t = time.time()
+        phase_local_heads(card, torch.device("cuda"))
+        log(f"[phase kernels on local heads] {time.time() - t:.1f} s")
 
         t = time.time()
         train_launches, f32_train_launches, _, _ = phase_train(card, torch.device("cuda"))
@@ -2981,7 +3291,7 @@ def main() -> int:
         log(f"[phase transducer path] {time.time() - t:.1f} s")
 
         t = time.time()
-        cli_train, cli_decode = phase_train_cli(tmp, card)
+        cli_train, cli_decode, sharded_train, sharded_decode = phase_train_cli(tmp, card)
         log(f"[phase train CLI] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -3111,6 +3421,27 @@ def main() -> int:
         {"name": "fbank_fft_cli", "route": "cuda", "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": cli_decode["fbank_fft"], **results["fbank_fft"], "library_ms": None}]
+    for part, line in (("fwd", 316), ("bwd", 390)):
+        kernels.append(
+            {"name": f"chunk_train_attention_tc_f32_{part}_sharded", "route": "cuda",
+             "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+             "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+             "launches": sharded_train[f"{part}_tc"], **f32_tc[part], "library_ms": None})
+    kernels += [
+        {"name": "chunk_attention_tc_upload", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": upload_launches["bf16"]["chunk_attention_tc"],
+         **results["attention bf16 tensor cores"], "library_ms": None},
+        {"name": "chunk_attention_tc_f32_upload", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": upload_launches["f32"]["chunk_attention_tc"] + sharded_decode[
+             "chunk_attention_tc"], **results["attention f32 tensor cores"], "library_ms": None},
+        {"name": "fbank_fft_sharded_export", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+         "launches": sharded_decode["fbank_fft"], **results["fbank_fft"], "library_ms": None}]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -3135,7 +3466,12 @@ def main() -> int:
         f"(*_cli): B4 and B5 in f32 on the tensor cores timed at the flagship train shape, "
         f"launches from its three bin/train.py runs (two epochs, the resume, the DDP step); "
         f"B1 f32 and the FFT fbank kernel timed at the main path's shapes, launches from the "
-        f"{CLI_DECODE_SECONDS:.0f} s decode of the exported average; card {card}")
+        f"{CLI_DECODE_SECONDS:.0f} s decode of the exported average; the sharding modes "
+        f"(*_sharded): B4 and B5 f32 timed as *_cli, launches from the fsdp, tp and fsdp_tp "
+        f"runs of bin/train.py; the host-feature upload (*_upload): B1 timed at the main "
+        f"path's shapes, launches from endless_encode_tokens of the 2040 s file's host "
+        f"features in bf16 and in f32 (f32 also from the decode of the fsdp_tp run's export); "
+        f"fbank_fft_sharded_export: launches from that decode; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -23,8 +23,14 @@ encoder outputs per file and searches them as one padded batch
 
 Everything runs on ``device``, which is ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no explicit device the constructor
-raises. Features are computed on the device and stay there in the working
-dtype; only the frame tokens come back to the host.
+raises. ``endless_decode`` computes its features on the device; the
+``endless_*`` entries also take host features (a numpy array or a CPU
+tensor, as ``chunkformer_tpu``'s do) and upload them segment by segment:
+each segment copies only the frames not yet on the device, from pinned
+host memory on a side stream, while the previous segment computes. In
+bf16 the features cross as int8 with one global scale and are dequantized
+on the device as ``chunkformer_tpu`` does by default (api.py:410-411,
+566-583); in f32 they cross as f32. Only the frame tokens come back.
 """
 
 from __future__ import annotations
@@ -102,6 +108,37 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def quantize_int8(feats) -> Tuple[object, float]:
+    """Symmetric int8 quantization with one global scale, the native host
+    library's arithmetic (``ck_quantize_int8``): scale = max(max|x|, 1e-6) /
+    127 in float32, q = clip(nearbyint(x * (1 / scale)), -127, 127). A numpy
+    array or a CPU tensor goes through the host library and comes back as
+    numpy; a tensor on a card stays there (one amax reduction, one
+    elementwise pass). Both give the same q and scale, bit for bit."""
+    if not isinstance(feats, torch.Tensor) or feats.device.type == "cpu":
+        from . import native
+
+        return native.quantize_int8(np.asarray(feats, dtype=np.float32))
+    return quantize_int8_tensor(feats)
+
+
+def quantize_int8_tensor(x: torch.Tensor) -> Tuple[torch.Tensor, float]:
+    """``quantize_int8`` in PyTorch on ``x``'s device (the path of features
+    on a card): the scale from one amax reduction, in float32 on the host;
+    one elementwise pass of float32 products rounded half to even."""
+    x = x.float()
+    amax = np.float32(x.abs().amax().item()) if x.numel() else np.float32(0.0)
+    scale = np.maximum(amax, np.float32(1e-6)) / np.float32(127.0)
+    inv = np.float32(1.0) / scale
+    q = torch.round(x * float(inv)).clamp_(-127, 127).to(torch.int8)
+    return q, float(scale)
+
+
+def dequantize(q: torch.Tensor, scale: float, dtype: torch.dtype) -> torch.Tensor:
+    """``q.astype(dtype) * scale.astype(dtype)`` (chunkformer_tpu/api.py:411)."""
+    return q.to(dtype) * torch.tensor(scale, dtype=torch.float32).to(dtype).to(q.device)
+
+
 def endless_sizing(cfg: EncoderConfig, chunk_size: int, right: int,
                    total_batch_duration: int):
     """Macro-segment sizing of ``endless_decode`` (chunkformer_model.py:344-371).
@@ -127,6 +164,74 @@ def endless_sizing(cfg: EncoderConfig, chunk_size: int, right: int,
 RNNT_STEPS = 8  # symbols a frame in the transducer's greedy decode (as chunkformer_tpu)
 
 
+class FeatureUpload:
+    """The long-form walk's feature buffer on ``device``: [rows, feat],
+    zero past the audio, in int8 (with ``scale``) or float32.
+
+    Features already on the device are quantized (or copied) there. Host
+    features (a numpy array or a CPU tensor) are quantized on the host by
+    the native library, staged once in pinned memory and copied to a card
+    only as the walk reaches them: ``prefetch(end)`` queues the copy of the
+    frames up to ``end`` not yet queued on a side stream, ``wait(end)``
+    makes the current stream wait for them and returns the buffer. So each
+    frame crosses once, and the next segment's frames cross while this one
+    computes (``chunkformer_tpu/api.py:536-702`` plans the same with a
+    thread). ``bytes_uploaded`` counts what crossed from the host.
+    """
+
+    def __init__(self, feats, rows: int, transfer: str, device: torch.device):
+        if transfer not in ("int8", "f32"):
+            raise ValueError(f"transfer must be int8 or f32, got {transfer!r}")
+        self.device = device
+        self.scale = 1.0
+        self.t_total = int(feats.shape[0])
+        self.bytes_uploaded = 0
+        self._queued = self._ready = 0  # frames whose copy is queued / waited for
+        self._events: List[Tuple[int, object]] = []
+        self._stream = None
+        on_host = not isinstance(feats, torch.Tensor) or feats.device.type == "cpu"
+        if transfer == "int8":
+            feats, self.scale = quantize_int8(feats)
+        if isinstance(feats, np.ndarray):
+            feats = torch.from_numpy(np.ascontiguousarray(feats))
+        if transfer == "f32":
+            feats = feats.float()
+        self.buf = torch.zeros((rows, feats.shape[1]), dtype=feats.dtype, device=device)
+        if not on_host or device.type != "cuda":
+            self.buf[:self.t_total] = feats.to(device)
+            self._queued = self._ready = self.t_total
+            return
+        self._host = feats.contiguous().pin_memory()
+        self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream(device))  # the zeroed buffer
+        self.buf.record_stream(self._stream)
+
+    def prefetch(self, end: int) -> None:
+        end = min(end, self.t_total)
+        if self._stream is None or end <= self._queued:
+            return
+        with torch.cuda.stream(self._stream):
+            self.buf[self._queued:end].copy_(self._host[self._queued:end], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self.bytes_uploaded += (end - self._queued) * self._host[0].nbytes
+        self._queued = end
+        self._events.append((end, event))
+
+    def wait(self, end: int) -> torch.Tensor:
+        self.prefetch(end)
+        end = min(end, self.t_total)
+        while self._ready < end:
+            self._ready, event = self._events.pop(0)
+            torch.cuda.current_stream(self.device).wait_event(event)
+        return self.buf
+
+    def close(self) -> None:
+        """Wait for the side stream, so the pinned staging memory outlives its copies."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
+
 class ChunkFormerModel:
     """Inference-facing model wrapper around an ``ASRModel`` (or, when
     ``config.model`` is "classification" or "transducer", a
@@ -140,6 +245,7 @@ class ChunkFormerModel:
         self.char_dict = char_dict
         self.dtype = dtype
         self.label_mapping: Optional[Dict[str, List[str]]] = None
+        self.bytes_uploaded = 0  # host feature bytes the last long-form walk copied to a card
         cmvn = "encoder.global_cmvn.mean" in state_dict
         if self.is_classification:
             model = ClassificationModel(config, cmvn)
@@ -266,18 +372,20 @@ class ChunkFormerModel:
         return result
 
     @torch.inference_mode()
-    def endless_encode_tokens(self, feats: torch.Tensor, chunk_size: int, left: int,
-                              right: int, total_batch_duration: int) -> np.ndarray:
-        """Stream features [T, feat] through the encoder; return frame-level CTC tokens."""
+    def endless_encode_tokens(self, feats, chunk_size: int, left: int, right: int,
+                              total_batch_duration: int) -> np.ndarray:
+        """Stream features [T, feat] (on the model's device, or on the host)
+        through the encoder; return frame-level CTC tokens."""
         parts = self._endless_segments(
             feats, chunk_size, left, right, total_batch_duration,
             lambda out, keep: self.model.ctc.argmax(out).reshape(-1)[:keep])
         return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int64)
 
     @torch.inference_mode()
-    def endless_encode(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
+    def endless_encode(self, feats, chunk_size: int, left: int, right: int,
                        total_batch_duration: int) -> torch.Tensor:
-        """Stream features [T, feat] through the encoder; return its outputs
+        """Stream features [T, feat] (on the model's device, or on the host)
+        through the encoder; return its outputs
         [T', D] as float32 on the model's device (``chunkformer_tpu`` returns
         them as a numpy float32 array)."""
         d = self.config.encoder_conf.output_size
@@ -289,9 +397,10 @@ class ChunkFormerModel:
         return torch.cat(parts).float()
 
     @torch.inference_mode()
-    def endless_rnnt_tokens(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
+    def endless_rnnt_tokens(self, feats, chunk_size: int, left: int, right: int,
                             total_batch_duration: int) -> np.ndarray:
-        """Long-form RNN-T greedy: frame tokens [T', 8] (blank-padded).
+        """Long-form RNN-T greedy of features [T, feat] (on the model's
+        device, or on the host): frame tokens [T', 8] (blank-padded).
 
         Each macro-segment's kept encoder frames are searched as it comes out
         of the encoder, with the predictor carry (last non-blank token and
@@ -323,15 +432,18 @@ class ChunkFormerModel:
                                                 RNNT_STEPS, blank)
         return greedy_tokens_to_sequences(frame_tokens, enc_lens, blank)
 
-    def _endless_segments(self, feats: torch.Tensor, chunk_size: int, left: int, right: int,
-                          total_batch_duration: int, segment) -> List[torch.Tensor]:
-        """The macro-segment walk of ``endless_encode`` and
-        ``endless_encode_tokens``: ``segment(out [capacity, c, D], keep)``
+    def _endless_segments(self, feats, chunk_size: int, left: int, right: int,
+                          total_batch_duration: int, segment,
+                          _transfer: Optional[str] = None) -> List[torch.Tensor]:
+        """The macro-segment walk of ``endless_encode``, ``endless_encode_tokens``
+        and ``endless_rnnt_tokens``: ``segment(out [capacity, c, D], keep)``
         of every segment, in order.
 
         Each macro-segment's chunk rows are gathered from one zero-padded
         feature buffer on the device; the caches carry across segments, and
         each segment keeps ``trunc`` frames (all of them when it is the last).
+        ``_transfer`` ("int8" or "f32") overrides the dtype's default, int8
+        in bf16 (the tests force int8 in f32).
         """
         cfg = self.config.encoder_conf
         sub = cfg.subsampling_rate
@@ -347,19 +459,23 @@ class ChunkFormerModel:
                 break
         if not starts:
             return []
-        buf = feats.new_zeros((max(t_total, starts[-1] + span), feats.shape[1]),
-                              dtype=self.dtype)
-        buf[:t_total] = feats
+        transfer = _transfer or ("int8" if self.dtype == torch.bfloat16 else "f32")
+        upload = FeatureUpload(feats, max(t_total, starts[-1] + span), transfer, self.device)
 
         encoder = self.model.encoder
         att, cnn = encoder.init_caches(left, self.dtype, self.device)
         chunk_idx = self._meta(np.arange(capacity))
         offset = 0
         parts = []
-        for start in starts:
+        for i, start in enumerate(starts):
+            buf = upload.wait(start + span)
+            if i + 1 < len(starts):  # the next segment's new frames cross meanwhile
+                upload.prefetch(starts[i + 1] + span)
             x_len = min(seg_raw, t_total - start)
             max_len = 1 + (x_len - chunk_ops.SUBSAMPLING_CONTEXT) // sub
             xs = chunk_ops.device_pack_segment(buf, start, c, sub, capacity)
+            xs = (dequantize(xs, upload.scale, self.dtype) if transfer == "int8"
+                  else xs.to(self.dtype))
             out, att, cnn = encoder.parallel_chunk(
                 xs, chunk_idx, self._meta(np.full(capacity, offset)),
                 self._meta(np.full(capacity, max_len)), c, left, right, att, cnn, trunc)
@@ -368,6 +484,8 @@ class ChunkFormerModel:
             keep = max(enc_len if is_last else min(trunc, enc_len), 0)
             parts.append(segment(out, keep))
             offset += keep
+        upload.close()
+        self.bytes_uploaded = upload.bytes_uploaded
         return parts
 
     @torch.inference_mode()

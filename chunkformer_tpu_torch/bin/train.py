@@ -7,9 +7,14 @@ chunkformer/bin/train.py:89-214), driven by the reference YAML schema.
 
 Per epoch: train, CV, then the checkpoint ``epoch_N``. It trains in float32
 on the card unless ``--device cpu``. ``--distributed`` joins the process
-group torchrun describes (one process per card, DistributedDataParallel,
-each process reading its shard of the train list); only ``--sharding dp``
-with ``--tp_size 1`` is ported.
+group torchrun describes (one process per card). ``--sharding`` places the
+model on the (data, model = ``--tp_size``) mesh as ``chunkformer_tpu``'s
+train CLI does: ``dp`` (DistributedDataParallel), ``fsdp`` (parameters,
+gradients and Adam sharded over data), ``tp`` (attention heads and FFN
+hidden units over model) or ``fsdp_tp`` (both); each data index reads its
+shard of the train list, and the processes of one model group read the
+same. A sharded mode outside torchrun runs as a world of one process.
+Checkpoints hold full state dicts in every mode.
 """
 
 from __future__ import annotations
@@ -31,8 +36,11 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default=None, help="resume tag")
     p.add_argument("--override_config", action="append", default=[],
                    help='dot-path override: "a.b.c value"')
-    p.add_argument("--sharding", default="dp", choices=["dp", "fsdp", "tp", "fsdp_tp"])
-    p.add_argument("--tp_size", type=int, default=1)
+    p.add_argument("--sharding", default="dp", choices=["dp", "fsdp", "tp", "fsdp_tp"],
+                   help="dp: replicated (DDP); fsdp: sharded over data; tp: heads and FFN "
+                        "over model; fsdp_tp: both")
+    p.add_argument("--tp_size", type=int, default=1,
+                   help="the model axis of the (data, model) mesh")
     p.add_argument("--seed", type=int, default=777)
     p.add_argument("--freeze_modules", default=None,
                    help="comma list of parameter-name substrings to freeze "
@@ -42,7 +50,7 @@ def parse_args(argv=None):
                    help="comma-separated parameter-name regexes to copy")
     p.add_argument("--distributed", action="store_true",
                    help="join torchrun's process group (RANK, WORLD_SIZE, ... in the "
-                        "environment): DDP, one process per card")
+                        "environment): one process per card")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -78,16 +86,18 @@ def run(argv=None):
     from ..config import ChunkFormerConfig, override_config
     from ..data.pipeline import Dataset
     from ..data.tokenizer import build_tokenizer
-    from ..parallel.mesh import DataParallel, check_sharding, init_distributed
+    from ..parallel.mesh import DataParallel, Parallel, init_distributed
     from ..train.checkpoint import load_checkpoint, load_trained_modules
-    from ..train.executor import Executor
+    from ..train.executor import Executor, pick_loss_fn
     from ..train.optim import build_optimizer, freeze_modules
 
-    check_sharding(args.sharding, args.tp_size)
     device = resolve_device(args.device)
-    dp = init_distributed(device) if args.distributed else DataParallel(device=device)
-    if args.distributed:
-        logging.info("distributed: rank %d of %d on %s", dp.rank, dp.world, dp.device)
+    if args.distributed or args.sharding != "dp" or args.tp_size > 1:
+        dp = init_distributed(device, args.sharding, args.tp_size, from_env=args.distributed)
+        logging.info("distributed: rank %d of %d on %s, --sharding %s --tp_size %d", dp.rank,
+                     dp.world, dp.device, dp.mode, dp.tp_size)
+    else:
+        dp = DataParallel(device=device)
 
     with open(args.config) as f:
         raw = yaml.safe_load(f)
@@ -105,7 +115,7 @@ def run(argv=None):
     is_classification = cfg.model == "classification"
     dataset_conf = raw.get("dataset_conf", {})
     train_ds = Dataset(args.data_type, args.train_data, tokenizer, dataset_conf,
-                       partition=True, num_shards=dp.world, shard_id=dp.rank,
+                       partition=True, num_shards=dp.data_size, shard_id=dp.data_rank,
                        seed=args.seed, is_classification=is_classification)
     cv_conf = copy.deepcopy(dataset_conf)
     for k in ("speed_perturb", "spec_aug", "spec_sub", "spec_trim", "shuffle"):
@@ -118,19 +128,22 @@ def run(argv=None):
     model = build_model(cfg, args.seed, cmvn)
     if args.enc_init:
         load_trained_modules(model, args.enc_init, "init", args.enc_init_mods.split(","))
-    model.to(dp.device)
-    params = (freeze_modules(model, args.freeze_modules.split(",")) if args.freeze_modules
-              else list(model.parameters()))
-    optimizer, scheduler = build_optimizer(
-        params, raw.get("optim", "adam"), raw.get("optim_conf", {"lr": 1e-3}),
-        raw.get("scheduler", "warmuplr"), raw.get("scheduler_conf", {}))
-
+    if args.freeze_modules:
+        freeze_modules(model, args.freeze_modules.split(","))
     start_epoch = 0
-    if args.checkpoint:
+    if args.checkpoint:  # one format in every mode: full state dicts
         state, opt_state, sched_state, info = load_checkpoint(args.model_dir, args.checkpoint)
         model.load_state_dict(state, strict=True)
+    model.to(dp.device)
+    # placed before the optimizer, which then holds the shards
+    parallel = Parallel(model, cfg, pick_loss_fn(cfg), dp)
+    optimizer, scheduler = build_optimizer(
+        [p for p in model.parameters() if p.requires_grad], raw.get("optim", "adam"),
+        raw.get("optim_conf", {"lr": 1e-3}), raw.get("scheduler", "warmuplr"),
+        raw.get("scheduler_conf", {}))
+    if args.checkpoint:
         if opt_state is not None:
-            optimizer.load_state_dict(opt_state)
+            parallel.load_optimizer_state(optimizer, opt_state)
         if sched_state is not None:
             scheduler.load_state_dict(sched_state)
         start_epoch = info.get("epoch", 0) + 1
@@ -146,7 +159,7 @@ def run(argv=None):
                         log_interval=raw.get("log_interval", 100),
                         accum_grad=raw.get("accum_grad", 1),
                         save_interval=raw.get("save_interval"), seed=args.seed,
-                        grad_clip=raw.get("grad_clip", 5.0), dp=dp)
+                        grad_clip=raw.get("grad_clip", 5.0), dp=dp, parallel=parallel)
     for epoch in range(start_epoch, raw.get("max_epoch", 100)):
         train_ds.set_epoch(epoch)
         executor.train_epoch(iter(train_ds), epoch, iter(cv_ds))

@@ -13,7 +13,8 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,3 +158,90 @@ def state_dict_from_jax_params(params: Dict[str, Any],
         if "output_layer" in dp:
             linear(f"{sp}output_layer", dp["output_layer"])
     return sd
+
+
+# port module prefix -> (JAX path, kind); "{0}", "{1}" take the regex's
+# groups, and a group named "layer" is the index on the JAX leaves' stacked
+# layer axis. Kinds map the leaf names: linear weight -> w (transposed),
+# bias -> b; conv weight -> w, bias -> b; norm weight -> scale, bias,
+# running_mean -> mean, running_var -> var; raw weight -> w, others as named.
+_EMBED_CONVS = {"0": "conv0", "2": "dw1", "3": "pw1", "5": "dw2", "6": "pw2"}
+_LAYOUT = [
+    (r"encoder\.global_cmvn", "encoder/cmvn", "raw"),
+    (r"encoder\.embed\.conv\.(\d)", "encoder/embed/{conv}", "conv"),
+    (r"encoder\.embed\.out", "encoder/embed/out", "linear"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.self_attn\.linear_(q|k|v|out|pos)",
+     "encoder/layers/self_attn/{1}", "linear"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.self_attn", "encoder/layers/self_attn", "raw"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.feed_forward(_macaron)?\.w_([12])",
+     "encoder/layers/ff{1}/w{2}", "linear"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.conv_module\.pointwise_conv1",
+     "encoder/layers/conv/pw1", "conv"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.conv_module\.depthwise_conv",
+     "encoder/layers/conv/dw", "conv"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.conv_module\.pointwise_conv2",
+     "encoder/layers/conv/pw2", "conv"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.conv_module\.norm", "encoder/layers/conv/norm",
+     "norm"),
+    (r"encoder\.encoders\.(?P<layer>\d+)\.(norm_\w+)", "encoder/layers/{1}", "norm"),
+    (r"encoder\.after_norm", "encoder/after_norm", "norm"),
+    (r"ctc\.ctc_lo", "ctc/lo", "linear"),
+    (r"classification_heads\.(\w+)\.linear", "heads/{0}/linear", "linear"),
+    (r"predictor\.rnn", "predictor/rnn", "rnn"),
+    (r"predictor\.(embed|pos_embed)", "predictor/{0}", "raw"),
+    (r"predictor\.(projection|ffn)", "predictor/{0}", "linear"),
+    (r"predictor\.conv", "predictor/conv", "conv"),
+    (r"predictor\.norm", "predictor/norm", "norm"),
+    (r"joint\.(enc_ffn|pred_ffn|post_ffn|ffn_out)", "joint/{0}", "linear"),
+    (r"joint\.(blank_pred|token_pred)\.2", "joint/{0}", "linear"),
+    (r"(simple_am_proj|simple_lm_proj)", "{0}", "linear"),
+    (r"decoder\.(left|right)_decoder\.embed\.0", "decoder/{0}/embed", "raw"),
+    (r"decoder\.(left|right)_decoder\.decoders\.(?P<layer>\d+)\.(self_attn|src_attn)"
+     r"\.linear_(q|k|v|out)", "decoder/{0}/layers/{2}/{3}", "linear"),
+    (r"decoder\.(left|right)_decoder\.decoders\.(?P<layer>\d+)\.feed_forward\.w_([12])",
+     "decoder/{0}/layers/ff/w{2}", "linear"),
+    (r"decoder\.(left|right)_decoder\.decoders\.(?P<layer>\d+)\.(norm[123])",
+     "decoder/{0}/layers/{2}", "norm"),
+    (r"decoder\.(left|right)_decoder\.after_norm", "decoder/{0}/after_norm", "norm"),
+    (r"decoder\.(left|right)_decoder\.output_layer", "decoder/{0}/output_layer", "linear"),
+]
+_LEAVES = {"linear": {"weight": "w", "bias": "b"}, "conv": {"weight": "w", "bias": "b"},
+           "norm": {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}}
+
+
+def jax_layout(names) -> Dict[str, Tuple[Tuple, Optional[int], bool]]:
+    """Where each port state-dict entry sits in the JAX package's parameter
+    tree, the inverse of ``state_dict_from_jax_params``: name -> (JAX path,
+    index on the leaf's stacked layer axis or None, transposed). The JAX
+    tree holds no counterpart of ``num_batches_tracked``, which is left out;
+    any other unknown name raises."""
+    out = {}
+    for name in names:
+        prefix, leaf = name.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        for pattern, path, kind in _LAYOUT:
+            m = re.fullmatch(pattern, prefix)
+            if m:
+                break
+        else:
+            raise KeyError(f"no JAX counterpart for {name}")
+        groups = [g or "" for g in m.groups()]
+        layer = m.groupdict().get("layer")
+        parts = tuple(path.format(*groups, conv=_EMBED_CONVS.get(groups[0] if groups else "",
+                                                                 "")).split("/"))
+        if kind == "rnn":  # weight_ih_l0 -> rnn[0]["w_ih"]
+            gate, ih, idx = re.fullmatch(r"(weight|bias)_(ih|hh)_l(\d+)", leaf).groups()
+            out[name] = (parts + (int(idx), f"{gate[0]}_{ih}"), None, False)
+            continue
+        key = _LEAVES.get(kind, {"weight": "w"}).get(leaf, leaf)
+        out[name] = (parts + (key,), None if layer is None else int(layer),
+                     kind == "linear" and leaf == "weight")
+    return out
+
+
+def jax_leaf_order(paths):
+    """The JAX paths in ``jax.tree`` leaf order: dict keys sorted, list items
+    in order (a node's children are all names or all list indices)."""
+    return sorted(set(paths))

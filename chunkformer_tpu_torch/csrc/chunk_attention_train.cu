@@ -105,10 +105,6 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// Hash state of (seed, b, h): mix(mix(b*H + h) ^ seed).
-__device__ __forceinline__ uint32_t drop_state(uint32_t seed, int b, int h, int H) {
-  return mix32(mix32((uint32_t)(b * H + h)) ^ seed);
-}
 
 __device__ __forceinline__ bool keep(uint32_t state, int fq, int fk, uint32_t thresh) {
   return mix32(mix32(state ^ (uint32_t)fq) ^ (uint32_t)fk) >= thresh;
@@ -116,10 +112,18 @@ __device__ __forceinline__ bool keep(uint32_t state, int fq, int fk, uint32_t th
 
 struct Geom {
   int n, H, c, dk, L, R;
+  // the dropout hash's head offset and head count: the tensor's head h is
+  // head h0 + h of Ht (a tensor-parallel rank holds heads [h0, h0 + H))
+  int h0, Ht;
   __host__ __device__ int W() const { return L + c + R; }
   __host__ __device__ int P() const { return 2 * c - 1 + L + R; }
   __host__ __device__ int T() const { return n * c; }
 };
+
+// Hash state of (seed, b, h): mix(mix(b*Ht + h0 + h) ^ seed).
+__device__ __forceinline__ uint32_t drop_state(uint32_t seed, int b, int h, const Geom& g) {
+  return mix32(mix32((uint32_t)(b * g.Ht + g.h0 + h)) ^ seed);
+}
 
 // ---------------------------------------------------------------- forward
 
@@ -159,7 +163,7 @@ train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
   const int rows = min(cs, max(0, len - ci * c - r0));   // valid query rows of the slice
-  const uint32_t st = drop_state(seed, b, h, g.H);
+  const uint32_t st = drop_state(seed, b, h, g);
   const int64_t fq0 = (int64_t)ci * c + r0;   // the slice's first query frame
 
   const T* qb = q + (int64_t)b * sqb + fq0 * sqt + (int64_t)h * sqh;
@@ -313,7 +317,7 @@ train_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
   const int rows = min(cs, max(0, len - ci * c - r0));   // valid query rows of the slice
-  const uint32_t st = drop_state(seed, b, h, g.H);
+  const uint32_t st = drop_state(seed, b, h, g);
   const int64_t fq0 = (int64_t)ci * c + r0;   // the slice's first query frame
   // partials of cell (b, ci, slice), in that order
   const int64_t blk = (kSliced ? (int64_t)blockIdx.x * gridDim.z + blockIdx.z
@@ -526,7 +530,7 @@ train_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 
   const float scale = rsqrtf((float)dk);
   const int len = lens[b];
-  const uint32_t st = drop_state(seed, b, h, g.H);
+  const uint32_t st = drop_state(seed, b, h, g);
 
   const T* kvb = kv + (int64_t)b * skb + (int64_t)h * skh;
   for (int i = tid; i < kTile * dk; i += kThreads) {
@@ -801,17 +805,20 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
 // a block may take, 256 and more on an H100); ctx, dctx, dq are contiguous
 // [B, n*c, H, dk], m, den, delta contiguous [B, H, n*c]. dp_part holds
 // B * n * slices_of(c, dk) * H slabs [P, dk] and duv_part as many [2, dk].
-// Strides: q (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h).
+// Strides: q (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h). h0, Ht: the
+// tensor's head h is head h0 + h of Ht in the dropout hash (0 and H on one
+// process).
 extern "C" int cf_chunk_train_attn_fwd(int dtype, const void* q, const void* kv,
                                        const void* pos, const void* u, const void* v,
                                        const int* lens, void* ctx, float* m, float* den,
                                        int B, int n, int H, int c, int dk, int L, int R,
                                        uint32_t seed, uint32_t thresh, float drop_scale,
-                                       int use_drop, int64_t sqb, int64_t sqt, int64_t sqh,
+                                       int use_drop, int h0, int Ht, int64_t sqb, int64_t sqt,
+                                       int64_t sqh,
                                        int64_t skb, int64_t skt, int64_t skh, int64_t spp,
                                        int64_t sph, void* stream) {
   if (B == 0 || n == 0) return 0;
-  const Geom g{n, H, c, dk, L, R};
+  const Geom g{n, H, c, dk, L, R, h0, Ht};
   const int64_t s[8] = {sqb, sqt, sqh, skb, skt, skh, spp, sph};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
@@ -830,12 +837,13 @@ extern "C" int cf_chunk_train_attn_bwd(int dtype, const void* q, const void* kv,
                                        void* dq, void* dkv, float* dp_part, float* duv_part,
                                        void* dp, void* du, void* dv, int B, int n, int H,
                                        int c, int dk, int L, int R, uint32_t seed,
-                                       uint32_t thresh, float drop_scale, int use_drop,
+                                       uint32_t thresh, float drop_scale, int use_drop, int h0,
+                                       int Ht,
                                        int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                                        int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                        int64_t sdb, int64_t sdt, int64_t sdh, void* stream) {
   if (B == 0 || n == 0) return 0;
-  const Geom g{n, H, c, dk, L, R};
+  const Geom g{n, H, c, dk, L, R, h0, Ht};
   const int64_t s[11] = {sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb, sdt, sdh};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)

@@ -210,7 +210,7 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     row_ok[x] = ra + 8 * x < rows;
-    row_hash[x] = drop_row(drop.seed, b, h, H, ci * c + r0 + ra + 8 * x);
+    row_hash[x] = drop_row(drop, b, h, ci * c + r0 + ra + 8 * x);
   }
   float o[DK / 2];
 #pragma unroll
@@ -493,7 +493,7 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
         for (int x = 0; x < 2; ++x) {
           const int rr = ra + 8 * x;
           row_ok[x] = rr < rows;
-          row_hash[x] = drop_row(drop.seed, b, h, H, ci * c + r0 + rr);
+          row_hash[x] = drop_row(drop, b, h, ci * c + r0 + rr);
           rm[x] = row_m[rr];
           rinv[x] = row_inv[rr];
         }
@@ -934,7 +934,7 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           float adrop = att, dav = da[k];
           if (drop.on) {
             const bool kp =
-                mix32(drop_row(drop.seed, b, h, H, ci * c + r0 + rr) ^ fk) >= drop.thresh;
+                mix32(drop_row(drop, b, h, ci * c + r0 + rr) ^ fk) >= drop.thresh;
             adrop = kp ? att * drop.scale : 0.f;
             dav = kp ? dav * drop.scale : 0.f;
           }
@@ -1080,6 +1080,7 @@ extern "C" int cf_chunk_train_attn_tc_f32_fwd(const void* q, const void* kv, con
                                               void* ctx, float* m, float* den, int B, int n,
                                               int H, int c, int dk, int L, int R, uint32_t seed,
                                               uint32_t thresh, float drop_scale, int use_drop,
+                                              int h0, int Ht,
                                               int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                                               int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                               void* stream);
@@ -1088,7 +1089,8 @@ extern "C" int cf_chunk_train_attn_tc_f32_bwd(
     const int* lens, const void* ctx, const float* m, const float* den, const void* dctx,
     float* delta, void* dq, void* dkv, float* dp_part, float* cs_part, float* du_part, void* dp,
     void* du, void* dv, int B, int n, int H, int c, int dk, int L, int R, int group,
-    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int64_t sqb, int64_t sqt,
+    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht, int64_t sqb,
+    int64_t sqt,
     int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph, int64_t sdb,
     int64_t sdt, int64_t sdh, void* stream);
 
@@ -1096,25 +1098,28 @@ extern "C" int cf_chunk_train_attn_tc_f32_bwd(
 // 1 = bfloat16 (this file's kernels); dk 64 or 128; c a multiple of 64; every
 // row 16-byte aligned; ctx, dctx, dq contiguous [B, n*c, H, dk]; m, den,
 // delta contiguous [B, H, n*c] (checked by the Python wrapper). Strides: q
-// (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h). Return a cudaError_t (0 =
-// launched).
+// (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h). h0, Ht: the tensor's head h
+// is head h0 + h of Ht in the dropout hash (0 and H on one process). Return a
+// cudaError_t (0 = launched).
 extern "C" int cf_chunk_train_attn_tc_fwd(int dtype, const void* q, const void* kv,
                                           const void* pos, const void* u, const void* v,
                                           const int* lens, void* ctx, float* m, float* den,
                                           int B, int n, int H, int c, int dk, int L, int R,
                                           uint32_t seed, uint32_t thresh, float drop_scale,
-                                          int use_drop, int64_t sqb, int64_t sqt, int64_t sqh,
+                                          int use_drop, int h0, int Ht, int64_t sqb, int64_t sqt,
+                                          int64_t sqh,
                                           int64_t skb, int64_t skt, int64_t skh, int64_t spp,
                                           int64_t sph, void* stream) {
   if (dtype == 0)
     return cf_chunk_train_attn_tc_f32_fwd(q, kv, pos, u, v, lens, ctx, m, den, B, n, H, c, dk,
-                                          L, R, seed, thresh, drop_scale, use_drop, sqb, sqt,
+                                          L, R, seed, thresh, drop_scale, use_drop, h0, Ht, sqb,
+                                          sqt,
                                           sqh, skb, skt, skh, spp, sph, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
-  const Drop drop{seed, thresh, drop_scale, use_drop};
+  const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[8] = {sqb, sqt, sqh, skb, skt, skh, spp, sph};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dk == 64) return launch_fwd<64>(q, kv, pos, u, v, lens, ctx, m, den, B, g, drop, s, st);
@@ -1132,7 +1137,8 @@ extern "C" int cf_chunk_train_attn_tc_bwd(int dtype, const void* q, const void* 
                                           float* dp_part, float* cs_part, float* du_part,
                                           void* dp, void* du, void* dv, int B, int n, int H,
                                           int c, int dk, int L, int R, int group, uint32_t seed,
-                                          uint32_t thresh, float drop_scale, int use_drop,
+                                          uint32_t thresh, float drop_scale, int use_drop, int h0,
+                                          int Ht,
                                           int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                                           int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                           int64_t sdb, int64_t sdt, int64_t sdh, void* stream) {
@@ -1140,13 +1146,14 @@ extern "C" int cf_chunk_train_attn_tc_bwd(int dtype, const void* q, const void* 
     return cf_chunk_train_attn_tc_f32_bwd(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq,
                                           dkv, dp_part, cs_part, du_part, dp, du, dv, B, n, H,
                                           c, dk, L, R, group, seed, thresh, drop_scale,
-                                          use_drop, sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb,
+                                          use_drop, h0, Ht, sqb, sqt, sqh, skb, skt, skh, spp,
+                                          sph, sdb,
                                           sdt, sdh, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
-  const Drop drop{seed, thresh, drop_scale, use_drop};
+  const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[11] = {sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb, sdt, sdh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dk == 64)

@@ -24,11 +24,6 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 15;
   return x;
 }
-// hash state of a query frame fq of (seed, b, h); keep key stream row fk
-// iff mix32(row_state ^ fk) >= thresh
-__device__ __forceinline__ uint32_t drop_row(uint32_t seed, int b, int h, int H, int fq) {
-  return mix32(mix32(mix32(static_cast<uint32_t>(b * H + h)) ^ seed) ^ static_cast<uint32_t>(fq));
-}
 
 struct Geom {
   int n, H, c, L, R;
@@ -41,7 +36,17 @@ struct Drop {
   uint32_t seed, thresh;
   float scale;  // 1 / (1 - p)
   int on;
+  // the tensor's head h is head h0 + h of Ht in the hash (a tensor-parallel
+  // rank holds heads [h0, h0 + H) of Ht); h0 = 0, Ht = H on one process
+  int h0, Ht;
 };
+
+// hash state of a query frame fq of (seed, b, h0 + h); keep key stream row
+// fk iff mix32(row_state ^ fk) >= thresh
+__device__ __forceinline__ uint32_t drop_row(const Drop& d, int b, int h, int fq) {
+  return mix32(mix32(mix32(static_cast<uint32_t>(b * d.Ht + d.h0 + h)) ^ d.seed) ^
+               static_cast<uint32_t>(fq));
+}
 
 // The next (query chunk, 64-row block) after (ci, r0) for a key tile of
 // utterance len: r0 advances within the chunk while rows remain.

@@ -331,7 +331,7 @@ train_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     row_ok[x] = ra + 8 * x < rows;
-    row_hash[x] = drop_row(drop.seed, b, h, H, ci * c + r0 + ra + 8 * x);
+    row_hash[x] = drop_row(drop, b, h, ci * c + r0 + ra + 8 * x);
   }
   float o[DK / 2];
 #pragma unroll
@@ -569,7 +569,7 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
             if (z == 0) delta_out[so + row] = a;
             row_m[row] = m_in[so + row] * kLog2e;
             row_inv[row] = 1.f / den_in[so + row];
-            row_hash[row] = drop_row(drop.seed, b, h, H, ci * c + r0 + row);
+            row_hash[row] = drop_row(drop, b, h, ci * c + r0 + row);
           }
         }
         if (hi <= lo || rows <= 0) {  // no valid pair: dq rows 0
@@ -949,7 +949,7 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
       rs_m[tid] = m_in[so] * kLog2e;
       rs_inv[tid] = 1.f / den_in[so];
       rs_delta[tid] = delta_in[so];
-      rs_hash[tid] = drop_row(drop.seed, b, h, H, ci * c + r0 + tid);
+      rs_hash[tid] = drop_row(drop, b, h, ci * c + r0 + tid);
     }
     if (tid < 128) vp[tid] = dot_global<DK>(pb, spp, pbase + tid, p_rows, vf);
 
@@ -1176,13 +1176,14 @@ extern "C" int cf_chunk_train_attn_tc_f32_fwd(const void* q, const void* kv, con
                                               void* ctx, float* m, float* den, int B, int n,
                                               int H, int c, int dk, int L, int R, uint32_t seed,
                                               uint32_t thresh, float drop_scale, int use_drop,
+                                              int h0, int Ht,
                                               int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
                                               int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                               void* stream) {
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
-  const Drop drop{seed, thresh, drop_scale, use_drop};
+  const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[8] = {sqb, sqt, sqh, skb, skt, skh, spp, sph};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
@@ -1204,13 +1205,14 @@ extern "C" int cf_chunk_train_attn_tc_f32_bwd(
     const int* lens, const void* ctx, const float* m, const float* den, const void* dctx,
     float* delta, void* dq, void* dkv, float* dp_part, float* cs_part, float* du_part, void* dp,
     void* du, void* dv, int B, int n, int H, int c, int dk, int L, int R, int group,
-    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int64_t sqb, int64_t sqt,
+    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht, int64_t sqb,
+    int64_t sqt,
     int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph, int64_t sdb,
     int64_t sdt, int64_t sdh, void* stream) {
   if (B == 0 || n == 0) return 0;
   if (c % 64 != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
-  const Drop drop{seed, thresh, drop_scale, use_drop};
+  const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[11] = {sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb, sdt, sdh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);

@@ -96,3 +96,12 @@ def speed_perturb(x: np.ndarray, speed: float, sample_rate: int = 16000) -> np.n
     if speed == 1.0:
         return x
     return _resample_poly(x, int(round(sample_rate * speed)), sample_rate)
+
+
+def resample_linear(x: np.ndarray, in_rate: float, out_rate: float) -> np.ndarray:
+    """Linear resampling through the native host library (``native.resample_linear``,
+    the JAX package's ``chunkformer_tpu.native.resample_linear``):
+    floor(len * out_rate / in_rate) samples, float32."""
+    from .. import native
+
+    return native.resample_linear(x, in_rate, out_rate)

@@ -3,9 +3,11 @@
 chunkformer/dataset/processor.py:104-619).
 
 Host-side numpy, so data workers never touch the card. The training fbank
-is the vectorized numpy Kaldi fbank with ``dither`` and ``window_type``
-(the card's ``ops/fbank.py`` serves decoding: povey, no dither); it shares
-the package's mel bank (``ops/fbank.py:mel_banks``). Every random draw comes
+is the native host library's (``native/``, dither from its own generator);
+``compute_fbank_numpy`` is its vectorized numpy twin with ``dither`` and
+``window_type``, the plain version the tests hold it against (the card's
+``ops/fbank.py`` serves decoding: povey, no dither); it shares the
+package's mel bank (``ops/fbank.py:mel_banks``). Every random draw comes
 from the ``rng`` passed in, in the JAX package's order, so one seed gives
 the same samples in both packages.
 """
@@ -167,16 +169,15 @@ def do_speed_perturb(sample: Dict, speeds=(0.9, 1.0, 1.1),
 def compute_fbank(sample: Dict, num_mel_bins: int = 80, frame_length: float = 25,
                   frame_shift: float = 10, dither: float = 0.0,
                   rng: Optional[np.random.Generator] = None) -> Dict:
-    """(processor.py:210-239) The numpy fbank; dither draws
-    ``rng.standard_normal`` over the frames. With dither, one
-    ``rng.integers(2**63)`` is drawn first, as the JAX package draws the
-    seed of its native extractor before it falls back to numpy, so that one
-    seed gives the same stream in both packages."""
-    if rng is not None and dither > 0:
-        rng.integers(2**63)
-    sample["feat"] = compute_fbank_numpy(
+    """(processor.py:210-239) The native host library's fbank
+    (``native.fbank``), as the JAX package's default path: with dither its
+    generator is seeded by one ``rng.integers(2**63)``, drawn only then."""
+    from .. import native
+
+    sample["feat"] = native.fbank(
         sample["waveform"], num_mel_bins, frame_length, frame_shift, dither,
-        sample["sample_rate"], rng=rng)
+        sample["sample_rate"],
+        seed=int(rng.integers(2**63)) if (rng is not None and dither > 0) else 0)
     return sample
 
 

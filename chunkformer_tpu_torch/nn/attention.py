@@ -18,6 +18,13 @@
 Attention-weight dropout in the chunked modes is the counter-based mask of
 ``ops.chunk_attention_train`` (seeded per layer), so the kernel and the
 oracle drop the same weights; in full mode it draws from a generator.
+
+Under tensor parallelism (``tp``, set by
+``parallel.tensor_parallel.apply_tensor_parallel``) the module holds a
+slice of the heads: the local head count comes from the weights, the
+training attention hashes its dropout by global head, full-mode dropout
+draws the full-width mask and keeps its heads, and the output projection
+sums over the group.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from torch import nn
 from ..ops.chunk_attention import chunk_attention, masked_softmax
 from ..ops.chunk_attention_train import chunk_train_attention, window_keep_mask
 from ..ops.relshift import rel_shift
+from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
 from .layers import dropout
 
 
@@ -50,6 +58,11 @@ class RelPositionMultiHeadedAttention(nn.Module):
         bound = math.sqrt(6.0 / (heads + self.d_k))
         self.pos_bias_u = nn.Parameter(torch.empty(heads, self.d_k).uniform_(-bound, bound))
         self.pos_bias_v = nn.Parameter(torch.empty(heads, self.d_k).uniform_(-bound, bound))
+        self.tp = None
+
+    def _head_span(self, local: int) -> Tuple[int, int]:
+        """(first global head, global heads) of ``local`` heads; (0, 0) on one process."""
+        return (0, 0) if self.tp is None else self.tp.span(local)
 
     def parallel_chunk(
         self, x: torch.Tensor, pos_emb: torch.Tensor, chunk_idx: torch.Tensor,
@@ -76,7 +89,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
 
     def _heads(self, linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         y = linear(x)
-        return y.view(*y.shape[:-1], self.heads, self.d_k)
+        return y.view(*y.shape[:-1], -1, self.d_k)
 
     def rel_attention_core(self, q, k, v, pos_emb, mask, left: int, right: int,
                            drop=None) -> torch.Tensor:
@@ -96,7 +109,7 @@ class RelPositionMultiHeadedAttention(nn.Module):
         if drop is not None:
             attn = drop(attn)
         out = torch.einsum("nhts,nshd->nthd", attn.to(v.dtype), v)
-        return self.linear_out(out.reshape(n, t1, h * d_k))
+        return row_parallel_linear(self.linear_out, out.reshape(n, t1, h * d_k), self.tp)
 
     def streaming(self, x: torch.Tensor, pos_emb: torch.Tensor, mask: torch.Tensor,
                   cache: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -113,9 +126,11 @@ class RelPositionMultiHeadedAttention(nn.Module):
              drop_rate: float = 0.0, generator: Optional[torch.Generator] = None
              ) -> torch.Tensor:
         """Full-context self attention: x [B, T, D], pos_emb [2T - 1, D], mask [B, 1, T]."""
+        x = copy_to_tp(x, self.tp)
         q, k, v = (self._heads(lin, x) for lin in (self.linear_q, self.linear_k, self.linear_v))
+        shard = None if self.tp is None else (1, *self._head_span(q.shape[2]))
         return self.rel_attention_core(q, k, v, pos_emb, mask, 0, 0,
-                                       lambda a: dropout(a, drop_rate, generator))
+                                       lambda a: dropout(a, drop_rate, generator, shard))
 
     def attention_chunked_train(self, x: torch.Tensor, pos_emb: torch.Tensor,
                                 lens: torch.Tensor, chunk: int, left: int, right: int,
@@ -125,7 +140,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         window of L + c + R keys. x [B, T, D]; lens [B] valid frames;
         pos_emb [2c - 1 + L + R, D]. The gradient oracle of ``chunked_train``."""
         b, t, d = x.shape
-        c, h = chunk, self.heads
+        x = copy_to_tp(x, self.tp)
+        c, h = chunk, self.linear_q.weight.shape[0] // self.d_k
         n = -(-t // c)
         w = left + c + right
         pad_t = n * c - t
@@ -140,7 +156,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         mask = mask_q[:, :, None] & mask_kv[:, None, :]
         drop = None
         if drop_rate > 0.0:
-            keep = window_keep_mask(drop_seed, lens, n, h, c, w, drop_rate).view(b * n, h, c, w)
+            keep = window_keep_mask(drop_seed, lens, n, h, c, w, drop_rate,
+                                    *self._head_span(h)).view(b * n, h, c, w)
             drop = lambda a: a * keep / (1.0 - drop_rate)  # noqa: E731
         out = self.rel_attention_core(q, k, v, pos_emb, mask, left, right, drop)
         return out.reshape(b, n * c, d)[:, :t]
@@ -154,19 +171,22 @@ class RelPositionMultiHeadedAttention(nn.Module):
         stream per utterance behind L zero rows and ahead of R zero rows, the
         per-head positional projection, and ``lens`` in subsampled frames."""
         b, t, d = x.shape
-        c, h, d_k = chunk, self.heads, self.d_k
+        d_k = self.d_k
+        c, h = chunk, self.linear_q.weight.shape[0] // d_k  # this rank's heads
         n = -(-t // c)
-        x_pad = F.pad(x, (0, 0, 0, n * c - t))
+        x_pad = F.pad(copy_to_tp(x, self.tp), (0, 0, 0, n * c - t))
         q = self._heads(self.linear_q, x_pad)
         w_kv = torch.stack([self.linear_k.weight.view(h, d_k, d),
-                            self.linear_v.weight.view(h, d_k, d)], 1).reshape(2 * d, d)
+                            self.linear_v.weight.view(h, d_k, d)], 1).reshape(2 * h * d_k, d)
         b_kv = torch.stack([self.linear_k.bias.view(h, d_k),
-                            self.linear_v.bias.view(h, d_k)], 1).reshape(2 * d)
+                            self.linear_v.bias.view(h, d_k)], 1).reshape(2 * h * d_k)
         kv = F.linear(x_pad, w_kv, b_kv).view(b, n * c, h, 2 * d_k)
         kv = F.pad(kv, (0, 0, 0, 0, left, right))
         p = self.linear_pos(pos_emb.to(q.dtype)).view(-1, h, d_k)
+        offset, total = self._head_span(h)
         ctx = chunk_train_attention(
             q, kv, p, self.pos_bias_u.to(q.dtype), self.pos_bias_v.to(q.dtype),
             lens.to(torch.int32), drop_seed, chunk=c, left=left, right=right,
-            drop_rate=drop_rate)
-        return self.linear_out(ctx.reshape(b, n * c, d))[:, :t]
+            drop_rate=drop_rate, head_offset=offset, heads_total=total)
+        return row_parallel_linear(self.linear_out, ctx.reshape(b, n * c, h * d_k),
+                                   self.tp)[:, :t]

@@ -21,6 +21,7 @@ from torch import nn
 from ..config import DecoderConfig
 from ..ops.chunk_attention import masked_softmax
 from ..ops.masks import make_non_pad_mask, subsequent_mask
+from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
 from .embedding import abs_pos_table
 from .layers import PositionwiseFeedForward, dropout
 
@@ -35,25 +36,28 @@ class MultiHeadedAttention(nn.Module):
         self.linear_k = nn.Linear(d_model, d_model)
         self.linear_v = nn.Linear(d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
+        self.tp = None  # this rank's place under tensor parallelism (slices of the heads)
 
     def forward(self, query, key, value, mask, drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query [B, T1, D], key and value [B, T2, D], mask [B, 1 | T1, T2] (True = valid)."""
-        return self.attend(query, self.linear_k(key), self.linear_v(value), mask, drop_rate,
-                           generator)
+        return self.attend(query, self.linear_k(copy_to_tp(key, self.tp)),
+                           self.linear_v(copy_to_tp(value, self.tp)), mask, drop_rate, generator)
 
     def attend(self, query, k, v, mask, drop_rate: float = 0.0,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``forward`` from keys and values already projected ([B, T2, D])."""
         b, t1, d = query.shape
-        h = self.heads
-        q = self.linear_q(query).view(b, t1, h, d // h)
-        k = k.view(b, k.shape[1], h, d // h)
-        v = v.view(b, v.shape[1], h, d // h)
-        scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(d // h)
-        attn = dropout(masked_softmax(scores, mask[:, None]), drop_rate, generator)
+        d_k = d // self.heads
+        q = self.linear_q(copy_to_tp(query, self.tp)).view(b, t1, -1, d_k)
+        h = q.shape[2]  # this rank's heads
+        k = k.view(b, k.shape[1], h, d_k)
+        v = v.view(b, v.shape[1], h, d_k)
+        scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(d_k)
+        shard = None if self.tp is None else (1, *self.tp.span(h))
+        attn = dropout(masked_softmax(scores, mask[:, None]), drop_rate, generator, shard)
         out = torch.einsum("bhts,bshd->bthd", attn.to(v.dtype), v)
-        return self.linear_out(out.reshape(b, t1, d))
+        return row_parallel_linear(self.linear_out, out.reshape(b, t1, h * d_k), self.tp)
 
 
 class DecoderLayer(nn.Module):

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
+
 
 class RMSNorm(nn.Module):
     """RMSNorm computed in f32 (reference: modules/norm.py:4-21)."""
@@ -49,15 +51,23 @@ def activation(name: str):
     return _ACTIVATIONS[name]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout (``chunkformer_tpu/nn/layers.py:158``); the identity
     when ``generator`` is None (eval) or the rate is 0. The mask is drawn from
     ``generator``, which the caller seeds, so a recompute that re-seeds it
-    draws the same mask."""
+    draws the same mask. ``shard`` = (axis, offset, full size) marks x as a
+    tensor-parallel slice of a wider tensor: the mask is drawn at full width
+    and sliced, so each rank keeps the single-process mask of its slice."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if shard is not None:
+        shape[shard[0]] = shard[2]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(shard[0], shard[1], x.shape[shard[0]])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -107,15 +117,21 @@ def batch_norm_train(norm: nn.BatchNorm1d, x: torch.Tensor, channel_axis: int = 
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(act(w_1(x))) (reference: modules/positionwise_feed_forward.py:21)."""
+    """w_2(act(w_1(x))) (reference: modules/positionwise_feed_forward.py:21).
+    Under tensor parallelism (``tp``, set by
+    ``parallel.tensor_parallel.apply_tensor_parallel``) it holds a slice of
+    the hidden units."""
 
     def __init__(self, d_model: int, hidden: int, act: str = "swish"):
         super().__init__()
         self.w_1 = nn.Linear(d_model, hidden)
         self.w_2 = nn.Linear(hidden, d_model)
         self.act = activation(act)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.w_2(dropout(self.act(self.w_1(x)), drop_rate, generator))
+        h = self.act(self.w_1(copy_to_tp(x, self.tp)))
+        shard = None if self.tp is None else (-1, *self.tp.span(h.shape[-1]))
+        return row_parallel_linear(self.w_2, dropout(h, drop_rate, generator, shard), self.tp)
 

@@ -27,7 +27,10 @@ Dropout: ``keep`` is a counter-based hash of (seed, b, h, query frame, key
 stream row), a function of absolute positions only, so the forward, the
 backward, any recompute and the plain version regenerate the same mask. The
 TPU kernel's PRNG stream has no counterpart; the Bernoulli(1 - p) law is the
-same.
+same. Under tensor parallelism a rank holds heads [h0, h0 + H) of Ht: every
+entry takes ``head_offset`` = h0 and ``heads_total`` = Ht (0 = H), used only
+in the hash (b * Ht + h0 + h), so a rank draws the full run's mask of its
+heads; the defaults leave the mask of one process as it was.
 
 The forward and backward are custom operators (``torch.library``), so a
 selective-checkpoint policy can name the forward's outputs (the encoder's
@@ -109,17 +112,19 @@ def _valid(lens, n, c, left, w) -> torch.Tensor:
     return ok[:, :, None]
 
 
-def window_keep_mask(seed, lens, n, heads, c, w, drop_rate) -> torch.Tensor:
+def window_keep_mask(seed, lens, n, heads, c, w, drop_rate, head_offset: int = 0,
+                     heads_total: int = 0) -> torch.Tensor:
     """[B, n, H, c, W] dropout keep mask: keep iff the hash of (seed,
-    utterance b, head h, query frame ci*c + r, key stream row ci*c + j) is
-    >= ``drop_threshold`` (the kernels compute the same hash)."""
+    utterance b, head head_offset + h of heads_total (0 = H), query frame
+    ci*c + r, key stream row ci*c + j) is >= ``drop_threshold`` (the kernels
+    compute the same hash)."""
     dev = lens.device
     bi = torch.arange(lens.shape[0], device=dev).view(-1, 1, 1, 1, 1)
     ci = torch.arange(n, device=dev).view(1, -1, 1, 1, 1)
     hi = torch.arange(heads, device=dev).view(1, 1, -1, 1, 1)
     r = torch.arange(c, device=dev).view(1, 1, 1, -1, 1)
     j = torch.arange(w, device=dev).view(1, 1, 1, 1, -1)
-    s = _mix(_mix((bi * heads + hi) & _M32) ^ (seed & _M32))
+    s = _mix(_mix((bi * (heads_total or heads) + head_offset + hi) & _M32) ^ (seed & _M32))
     s = _mix(s ^ (ci * c + r))
     return _mix(s ^ (ci * c + j)) >= drop_threshold(drop_rate)
 
@@ -139,7 +144,8 @@ def _scores(q, kv, p, u, v, chunk, left, right):
 
 
 def forward_plain(q, kv, p, u, v, lens, seed: int, chunk: int, left: int, right: int,
-                  drop_rate: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  drop_rate: float, head_offset: int = 0, heads_total: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel, differentiable by autograd:
     (ctx [B, n*c, H, dk] in q's dtype, m and den [B, H, n*c] f32)."""
     b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
@@ -151,7 +157,8 @@ def forward_plain(q, kv, p, u, v, lens, seed: int, chunk: int, left: int, right:
     den = e.sum(-1, keepdim=True).clamp_min(1e-30)
     attn = e / den
     if drop_rate > 0.0:
-        keep = window_keep_mask(seed, lens, n, heads, chunk, w, drop_rate)
+        keep = window_keep_mask(seed, lens, n, heads, chunk, w, drop_rate, head_offset,
+                                heads_total)
         attn = attn * keep / (1.0 - drop_rate)
     ctx = torch.einsum("bnhcw,bnhdw->bnchd", attn, vals)
     stats = lambda x: x[..., 0].permute(0, 2, 1, 3).reshape(b, heads, n * chunk)  # noqa: E731
@@ -159,7 +166,7 @@ def forward_plain(q, kv, p, u, v, lens, seed: int, chunk: int, left: int, right:
 
 
 def backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed: int, chunk: int, left: int,
-                   right: int, drop_rate: float):
+                   right: int, drop_rate: float, head_offset: int = 0, heads_total: int = 0):
     """Plain PyTorch version of the backward kernel: (dq, dkv, dp, du, dv).
 
     Recomputes the weights from (m, den); dS = A * (dA - rowsum(dA * A));
@@ -177,7 +184,8 @@ def backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed: int, chunk: int, le
     da = torch.einsum("bnchd,bnhdw->bnhcw", g, vals)
     attn_drop = attn
     if drop_rate > 0.0:
-        keep = window_keep_mask(seed, lens, n, heads, c, w, drop_rate) / (1.0 - drop_rate)
+        keep = window_keep_mask(seed, lens, n, heads, c, w, drop_rate, head_offset,
+                                heads_total) / (1.0 - drop_rate)
         attn_drop = attn * keep
         da = da * keep
     dvals = torch.einsum("bnhcw,bnchd->bnhwd", attn_drop, g)
@@ -271,23 +279,26 @@ def dp_group(b: int, heads: int, p_len: int, d_k: int) -> int:
     return -(-b // slabs)
 
 
-def partial_shapes(path, b, n, heads, chunk, p_len, d_k):
+def partial_shapes(path, b, n, heads, chunk, p_len, d_k, heads_total: int = 0):
     """(shape, zeroed) of each f32 partial buffer a backward launch of
     ``path`` allocates, in the order its entry takes them; ``zeroed`` marks
     the buffers the kernels add into. Tensor cores (f32 and bf16 alike): per
     (group of ``dp_group`` utterances, h) a dP slab [P, dk] and the band's
     column sums [P] (the v terms of dP and dv), both added into, and per (64
-    key frames, h) a du partial [dk]. CUDA cores: per (b, ci, slice of the
-    chunk's rows, h) a dP slab [P, dk] and du | dv [2, dk]."""
+    key frames, h) a du partial [dk]; the groups are sized by the global
+    head count ``heads_total`` (0 = heads), so a tensor-parallel rank sums
+    dP over the full call's groups, in its order. CUDA cores: per (b, ci,
+    slice of the chunk's rows, h) a dP slab [P, dk] and du | dv [2, dk]."""
     if path == "tensor_core":
-        cells = -(-b // dp_group(b, heads, p_len, d_k))
+        cells = -(-b // dp_group(b, heads_total or heads, p_len, d_k))
         return [((cells, heads, p_len, d_k), True), ((cells, heads, p_len), True),
                 ((b * n * chunk // 64, heads, d_k), False)]
     cells = b * n * cuda_core_slices(chunk, d_k)
     return [((cells * heads, p_len, d_k), False), ((cells * heads, 2, d_k), False)]
 
 
-def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *, path: str):
+def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *, path: str,
+                   head_offset: int = 0, heads_total: int = 0):
     """Launch the forward kernel of ``path`` ("cuda_core" or "tensor_core"):
     (ctx, m, den) as ``forward_plain``; raises where that route cannot take
     the operands."""
@@ -304,8 +315,8 @@ def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *,
             _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),
             v.data_ptr(), lens.data_ptr(), ctx.data_ptr(), m.data_ptr(), den.data_ptr(),
             b, n, heads, chunk, d_k, left, right, seed & 0xFFFFFFFF, drop_threshold(drop_rate),
-            float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
-            *_strides(q), *_strides(kv), *_strides(p),
+            float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0), head_offset,
+            heads_total or heads, *_strides(q), *_strides(kv), *_strides(p),
             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(err, f"chunk_train_attention forward ({path})")
     if tc:
@@ -316,7 +327,7 @@ def forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, *,
 
 
 def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
-                    drop_rate, *, path: str):
+                    drop_rate, *, path: str, head_offset: int = 0, heads_total: int = 0):
     """Launch the backward kernels of ``path``: (dq, dkv, dp, du, dv) as
     ``backward_plain``; raises where that route cannot take the operands.
 
@@ -335,8 +346,9 @@ def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, 
     dkv[:, left + n * chunk:].zero_()
     delta = torch.empty_like(m)
     parts = [(torch.zeros if zeroed else torch.empty)(shape, dtype=torch.float32, device=dev)
-             for shape, zeroed in partial_shapes(path, b, n, heads, chunk, p_len, d_k)]
-    group = dp_group(b, heads, p_len, d_k)
+             for shape, zeroed in partial_shapes(path, b, n, heads, chunk, p_len, d_k,
+                                                 heads_total)]
+    group = dp_group(b, heads_total or heads, p_len, d_k)
     dp = torch.empty((p_len, heads, d_k), dtype=p.dtype, device=dev)
     du = torch.empty((heads, d_k), dtype=u.dtype, device=dev)
     dv = torch.empty((heads, d_k), dtype=v.dtype, device=dev)
@@ -351,6 +363,7 @@ def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, 
             *(t.data_ptr() for t in parts), dp.data_ptr(), du.data_ptr(),
             dv.data_ptr(), *shape, seed & 0xFFFFFFFF,
             drop_threshold(drop_rate), float(1.0 / (1.0 - drop_rate)), int(drop_rate > 0.0),
+            head_offset, heads_total or heads,
             *_strides(q), *_strides(kv), *_strides(p), *_strides(dkv),
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, f"chunk_train_attention backward ({path})")
@@ -373,38 +386,42 @@ def _path(path: str, q, kv, p, chunk: int) -> str:
 @torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_fwd", mutates_args=())
 def _fwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
             v: torch.Tensor, lens: torch.Tensor, seed: int, chunk: int, left: int,
-            right: int, drop_rate: float, path: str) -> Tuple[torch.Tensor, torch.Tensor,
-                                                               torch.Tensor]:
+            right: int, drop_rate: float, path: str, head_offset: int,
+            heads_total: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     how = _path(path, q, kv, p, chunk)
     if how == "plain":
-        return forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate)
-    return forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, path=how)
+        return forward_plain(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate,
+                             head_offset, heads_total)
+    return forward_kernel(q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, path=how,
+                          head_offset=head_offset, heads_total=heads_total)
 
 
 @torch.library.custom_op("chunkformer_tpu_torch::chunk_train_attention_bwd", mutates_args=())
 def _bwd_op(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, u: torch.Tensor,
             v: torch.Tensor, lens: torch.Tensor, ctx: torch.Tensor, m: torch.Tensor,
             den: torch.Tensor, dctx: torch.Tensor, seed: int, chunk: int, left: int,
-            right: int, drop_rate: float, path: str) -> Tuple[
+            right: int, drop_rate: float, path: str, head_offset: int,
+            heads_total: int) -> Tuple[
                 torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     how = _path(path, q, kv, p, chunk)
     if how == "plain":
         return backward_plain(q, kv, p, u, v, lens, m, den, dctx, seed, chunk, left, right,
-                              drop_rate)
+                              drop_rate, head_offset, heads_total)
     return backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, right,
-                           drop_rate, path=how)
+                           drop_rate, path=how, head_offset=head_offset,
+                           heads_total=heads_total)
 
 
 def _setup(ctx, inputs, output):
-    q, kv, p, u, v, lens, seed, chunk, left, right, drop_rate, path = inputs
+    q, kv, p, u, v, lens, *statics = inputs
     ctx.save_for_backward(q, kv, p, u, v, lens, *output)
-    ctx.statics = (seed, chunk, left, right, drop_rate, path)
+    ctx.statics = tuple(statics)
 
 
 def _backward(ctx, dctx, _dm, _dden):
     q, kv, p, u, v, lens, out, m, den = ctx.saved_tensors
     dq, dkv, dp, du, dv = _bwd_op(q, kv, p, u, v, lens, out, m, den, dctx, *ctx.statics)
-    return dq, dkv, dp, du, dv, None, None, None, None, None, None, None
+    return (dq, dkv, dp, du, dv) + (None,) * (1 + len(ctx.statics))
 
 
 _fwd_op.register_autograd(_backward, setup_context=_setup)
@@ -414,36 +431,41 @@ FORWARD_OP = torch.ops.chunkformer_tpu_torch.chunk_train_attention_fwd.default
 
 
 def chunk_train_attention(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int, left: int,
-                          right: int, drop_rate: float = 0.0) -> torch.Tensor:
+                          right: int, drop_rate: float = 0.0, head_offset: int = 0,
+                          heads_total: int = 0) -> torch.Tensor:
     """Differentiable limited-context training attention: ctx [B, n*c, H, dk].
 
     On a CPU tensor the forward and backward are the plain versions; on a
     CUDA tensor they launch the kernels that ``route`` names, or raise.
-    ``seed`` is ignored when ``drop_rate`` is 0.
+    ``seed`` is ignored when ``drop_rate`` is 0. ``head_offset`` and
+    ``heads_total`` (0 = q's heads) place q's heads among a tensor-parallel
+    run's in the dropout hash.
     """
     return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
-                   "auto")[0]
+                   "auto", int(head_offset), int(heads_total))[0]
 
 
 def chunk_train_attention_cuda_core(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int,
-                                    left: int, right: int,
-                                    drop_rate: float = 0.0) -> torch.Tensor:
+                                    left: int, right: int, drop_rate: float = 0.0,
+                                    head_offset: int = 0,
+                                    heads_total: int = 0) -> torch.Tensor:
     """``chunk_train_attention`` through the CUDA-core kernels
     (``csrc/chunk_attention_train.cu``) on CUDA tensors, whatever ``route``
     says; raises on others."""
     return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
-                   "cuda_core")[0]
+                   "cuda_core", int(head_offset), int(heads_total))[0]
 
 
 def chunk_train_attention_tensor_core(q, kv, p, u, v, lens, seed: int = 0, *, chunk: int,
-                                      left: int, right: int,
-                                      drop_rate: float = 0.0) -> torch.Tensor:
+                                      left: int, right: int, drop_rate: float = 0.0,
+                                      head_offset: int = 0,
+                                      heads_total: int = 0) -> torch.Tensor:
     """``chunk_train_attention`` through the tensor-core kernels
     (``csrc/chunk_attention_train_tc.cu``, f32 through
     ``csrc/chunk_attention_train_tc_f32.cu``) on CUDA tensors that ``route``
     sends to them; raises on others."""
     return _fwd_op(q, kv, p, u, v, lens, int(seed), chunk, left, right, float(drop_rate),
-                   "tensor_core")[0]
+                   "tensor_core", int(head_offset), int(heads_total))[0]
 
 
 chunk_train_attention.fwd_launches = 0     # CUDA-core forward launches since the last reset

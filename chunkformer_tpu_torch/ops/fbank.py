@@ -302,5 +302,22 @@ def fbank(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 
     return launch(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
 
 
+def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor, num_mel_bins: int = 80,
+                frame_length: float = 25.0, frame_shift: float = 10.0,
+                sample_rate: int = 16000) -> tuple:
+    """``fbank`` of each padded waveform of [B, max_samples] float32
+    (``chunkformer_tpu/ops/fbank.py:189``): (feats [B, max_frames,
+    num_mel_bins], frame lengths [B]). Frames past a row's own count are
+    the fbank of its zero padding; mask them with the frame lengths. One
+    kernel launch a row on a card."""
+    feats = torch.stack([fbank(w, num_mel_bins, frame_length, frame_shift, sample_rate)
+                         for w in waveforms])
+    window_size = int(sample_rate * frame_length * 0.001)
+    window_shift = int(sample_rate * frame_shift * 0.001)
+    frame_lengths = torch.clamp_min(1 + torch.div(lengths - window_size, window_shift,
+                                                  rounding_mode="floor"), 0)
+    return feats, frame_lengths
+
+
 fbank.launches = 0      # DFT kernel launches (csrc/fbank.cu) since the last reset
 fbank.fft_launches = 0  # FFT kernel launches (csrc/fbank_fft.cu) since the last reset

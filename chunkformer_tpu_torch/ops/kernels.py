@@ -42,15 +42,20 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    """Path of the shared library for the current sources and headers."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
-                     + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+def hashed_library_path(stem: str, sources, flags) -> str:
+    """``BUILD_DIR/<stem>_<hash>.so``, the hash over the compiler flags and
+    every source's name and bytes: a changed source or flag builds anew."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sorted(sources):
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"libcf_kernels_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and headers."""
+    return hashed_library_path("libcf_kernels", glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                               + glob.glob(os.path.join(CSRC_DIR, "*.cuh")), NVCC_FLAGS)
 
 
 def build() -> str:
@@ -108,16 +113,17 @@ def library() -> ctypes.CDLL:
     lib.cf_fbank.restype = _I
     lib.cf_fbank_fft.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.cf_fbank_fft.restype = _I
-    lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I, _I, _I]
                                             + [_L] * 8 + [_P])
     lib.cf_chunk_train_attn_fwd.restype = _I
-    lib.cf_chunk_train_attn_bwd.argtypes = ([_I] + [_P] * 18 + [_I] * 7 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_bwd.argtypes = ([_I] + [_P] * 18 + [_I] * 7 + [_U, _U, _F, _I, _I, _I]
                                             + [_L] * 11 + [_P])
     lib.cf_chunk_train_attn_bwd.restype = _I
-    lib.cf_chunk_train_attn_tc_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_tc_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I, _I, _I]
                                                + [_L] * 8 + [_P])
     lib.cf_chunk_train_attn_tc_fwd.restype = _I
-    lib.cf_chunk_train_attn_tc_bwd.argtypes = ([_I] + [_P] * 19 + [_I] * 8 + [_U, _U, _F, _I]
+    lib.cf_chunk_train_attn_tc_bwd.argtypes = ([_I] + [_P] * 19 + [_I] * 8
+                                               + [_U, _U, _F, _I, _I, _I]
                                                + [_L] * 11 + [_P])
     lib.cf_chunk_train_attn_tc_bwd.restype = _I
     return lib

@@ -6,9 +6,11 @@ One train step per batch through ``make_train_step``, cached per (chunk, L,
 R) drawn with ``random.Random(seed)`` in the JAX package's order (reference
 encoder.py:198-218). Dropout draws from a ``torch.Generator`` seeded from
 the seed (and the rank), so its bits are not the JAX package's rbg keys.
-Under ``torchrun`` the loss runs through DistributedDataParallel
-(``parallel/mesh.py``); metrics are averaged over the processes and only
-rank 0 writes them and the checkpoints.
+Under ``torchrun`` the model is placed for the sharding mode
+(``parallel/mesh.py``: DDP, FSDP, tensor parallelism or both); metrics are
+averaged over the processes, every process joins the gathering of a
+checkpoint's full state dicts, and only rank 0 writes them and the
+metrics.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import ChunkFormerConfig
-from ..parallel.mesh import DataParallel, all_reduce_mean, ddp_loss_fn
+from ..parallel.mesh import DataParallel, Parallel, all_reduce_mean
 from .checkpoint import save_checkpoint
 from .losses import asr_model_loss, transducer_model_loss
 from .train_step import make_eval_step, make_train_step
@@ -60,14 +62,17 @@ class MetricsWriter:
 class Executor:
     """Trains ``model`` in place, in its parameters' dtype, with
     ``optimizer`` and ``scheduler`` (from ``optim.build_optimizer``); the
-    scheduler's count is the step."""
+    scheduler's count is the step. ``parallel`` is the model's placement
+    where the caller sharded it before building the optimizer; by default
+    the Executor places it for ``dp`` (DDP where a process group exists)."""
 
     def __init__(self, cfg: ChunkFormerConfig, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
                  scheduler: torch.optim.lr_scheduler.LRScheduler, model_dir: str,
                  log_interval: int = 100, accum_grad: int = 1,
                  save_interval: Optional[int] = None, seed: int = 777,
-                 grad_clip: float = 5.0, dp: Optional[DataParallel] = None):
+                 grad_clip: float = 5.0, dp: Optional[DataParallel] = None,
+                 parallel: Optional[Parallel] = None):
         self.cfg = cfg
         self.model = model
         self.optimizer = optimizer
@@ -80,9 +85,10 @@ class Executor:
         self.dp = dp or DataParallel(device=next(model.parameters()).device)
         self.device = self.dp.device
         self.rng = random.Random(seed)
-        self.generator = torch.Generator().manual_seed(seed + self.dp.rank)
+        # the processes of one model group draw the same dropout masks
+        self.generator = torch.Generator().manual_seed(seed + self.dp.data_rank)
         self.loss_fn = pick_loss_fn(cfg)
-        self._train_loss_fn, self._no_sync = ddp_loss_fn(model, cfg, self.loss_fn, self.dp)
+        self.parallel = parallel or Parallel(model, cfg, self.loss_fn, self.dp)
         self._step_cache: Dict[Tuple[int, int, int], Any] = {}
         self._eval_step = None
         # every train step's (host data seconds, step seconds, feature frames);
@@ -149,10 +155,11 @@ class Executor:
 
     def _get_train_step(self, chunk_cfg):
         if chunk_cfg not in self._step_cache:
+            par = self.parallel
             self._step_cache[chunk_cfg] = make_train_step(
                 self.model, self.cfg, self.optimizer, self.scheduler, chunk_cfg,
-                self.accum_grad, grad_clip=self.grad_clip, loss_fn=self._train_loss_fn,
-                no_sync=self._no_sync)
+                self.accum_grad, grad_clip=self.grad_clip, loss_fn=par.loss_fn,
+                no_sync=par.no_sync, reduce_grads=par.reduce_grads, grad_norm=par.grad_norm)
         return self._step_cache[chunk_cfg]
 
     def _sample_chunk_cfg(self):
@@ -196,7 +203,7 @@ class Executor:
         """Cross-validation loss, utterance-weighted over the batches
         (reference executor.py:132-190), at full context without dropout."""
         if self._eval_step is None:
-            self._eval_step = make_eval_step(self.model, self.cfg, self.loss_fn)
+            self._eval_step = make_eval_step(self.model, self.cfg, self.parallel.eval_loss_fn)
         total, count = 0.0, 0
         for batch in dataset:
             metrics = self._eval_step(*self.place_batch(self._batch_arrays(batch)))
@@ -206,12 +213,16 @@ class Executor:
         return total / max(count, 1)
 
     def save(self, epoch: int, tag: str, cv_loss: Optional[float] = None) -> None:
+        if not (self.dp.is_main or self.parallel.sharded):
+            return
+        model_state = self.parallel.full_state_dict()
+        optimizer_state = self.parallel.full_optimizer_state(self.optimizer)
         if not self.dp.is_main:
             return
         info = {"epoch": epoch, "step": self.step,
                 "save_time": time.strftime("%d/%m/%Y %H:%M:%S")}
         if cv_loss is not None:
             info["cv_loss"] = float(cv_loss)
-        save_checkpoint(self.model_dir, tag, self.model.state_dict(),
-                        self.optimizer.state_dict(), self.scheduler.state_dict(), info)
+        save_checkpoint(self.model_dir, tag, model_state, optimizer_state,
+                        self.scheduler.state_dict(), info)
         logging.info("saved checkpoint %s (cv_loss=%s)", tag, cv_loss)

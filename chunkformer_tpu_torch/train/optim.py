@@ -151,9 +151,15 @@ def freeze_modules(model: torch.nn.Module, patterns: Sequence[str]
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax ``clip_by_global_norm`` in place; returns the norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """optax ``clip_by_global_norm`` in place; returns the norm before
+    clipping. ``norm`` is the global norm where the gradients are shards
+    (``parallel.mesh.Parallel.grad_norm``); a DTensor is scaled through its
+    local shard."""
+    grads = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     if max_norm and max_norm > 0:
         torch._foreach_mul_(grads, torch.where(norm < max_norm, torch.ones_like(norm),
                                                max_norm / norm))

@@ -13,14 +13,16 @@ f32 parameters and optimizer state. ``loss_fn`` is ``asr_model_loss`` by
 default or ``transducer_model_loss``; it gets the optimizer step (the
 scheduler's count of finished steps), which the transducer's warmup mixing
 reads. ``no_sync`` is the context in which every micro-batch but the last
-runs: DDP's ``no_sync``, so that the gradients are all-reduced once an
-update.
+runs: DDP's ``no_sync`` or FSDP's, so that the gradients are averaged once
+an update. Under a sharded placement (``parallel.mesh.Parallel``)
+``reduce_grads`` averages the gradients over the data axis where no
+wrapper does, and ``grad_norm`` gives their global norm for the clip.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, ContextManager, Dict, Optional, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,8 +45,10 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
                     chunk_cfg: Tuple[int, int, int] = (0, 0, 0), accum_steps: int = 1,
                     autocast: Optional[torch.dtype] = None, grad_clip: float = 5.0,
                     loss_fn: Callable[..., Dict[str, torch.Tensor]] = asr_model_loss,
-                    no_sync: Callable[[], ContextManager] = contextlib.nullcontext
-                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+                    no_sync: Callable[[], ContextManager] = contextlib.nullcontext,
+                    reduce_grads: Optional[Callable[[List[torch.Tensor]], None]] = None,
+                    grad_norm: Optional[Callable[[List[torch.Tensor]], Optional[torch.Tensor]]]
+                    = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns step(feats [A*B, T, F], feats_lens, targets, target_lens,
     generator) -> metrics (``loss_fn``'s, e.g. loss, loss_ctc, loss_att,
     acc_att, and grad_norm, step) as 0-dim tensors. ``generator`` (CPU)
@@ -76,8 +80,11 @@ def make_train_step(model: torch.nn.Module, cfg: ChunkFormerConfig,
         for p in params:  # optax updates (and decays) every parameter
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if reduce_grads is not None:
+            reduce_grads(params)
         out = {k: v / a for k, v in sums.items()}
-        out["grad_norm"] = clip_by_global_norm_([p.grad for p in params], grad_clip)
+        out["grad_norm"] = clip_by_global_norm_([p.grad for p in params], grad_clip,
+                                                grad_norm(params) if grad_norm else None)
         optimizer.step()
         scheduler.step()
         out["step"] = torch.tensor(scheduler.last_epoch)

@@ -526,6 +526,42 @@ def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d
         assert not bool(got[0][i, ln:].any())
 
 
+def _head_slice(args, h0, h1):
+    """The operands of heads [h0, h1), contiguous, as a tensor-parallel rank holds them."""
+    q, kv, p, u, v, lens = args
+    return [t[..., h0:h1, :].contiguous() for t in (q, kv, p)] + [
+        u[h0:h1].contiguous(), v[h0:h1].contiguous(), lens]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path,c,d_k", [("tensor_core", 64, 64), ("cuda_core", 64, 64),
+                                        ("cuda_core", 8, 32)])
+def test_train_attention_on_local_heads_equals_the_slice(cuda_device, path, c, d_k, dtype):
+    """B4 and B5 on heads 4-7 of 8 alone, with head_offset 4 and
+    heads_total 8, at dropout 0.1: every output equals, bit for bit, heads
+    4-7 of the call on all 8 (a head's arithmetic never reads another's,
+    and the dropout hash sees the global head)."""
+    b, n, L, R, drop, seed = 3, 3, 16, 8, 0.1, 77
+    args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k)
+    st = (seed, c, L, R, drop)
+    ctx, m, den = cat.forward_kernel(*args, *st, path=path)
+    dctx = torch.randn(ctx.shape, generator=torch.Generator(device=cuda_device).manual_seed(9),
+                       device=cuda_device).to(dtype)
+    full = cat.backward_kernel(*args, ctx, m, den, dctx, *st, path=path)
+    loc = _head_slice(args, 4, 8)
+    lctx, lm, lden = cat.forward_kernel(*loc, *st, path=path, head_offset=4, heads_total=8)
+    part = cat.backward_kernel(*loc, lctx, lm, lden, dctx[:, :, 4:8].contiguous(), *st,
+                               path=path, head_offset=4, heads_total=8)
+    torch.cuda.synchronize()
+    assert torch.equal(lctx, ctx[:, :, 4:8])
+    assert torch.equal(lm, m[:, 4:8]) and torch.equal(lden, den[:, 4:8])
+    for name, a, e in zip(("dq", "dkv", "dp", "du", "dv"), part, full):
+        assert torch.equal(a, e[..., 4:8, :]), name
+    # without the offset the local call draws another mask
+    other = cat.forward_kernel(*loc, *st, path=path)[0]
+    assert not torch.equal(other, lctx)
+
+
 @pytest.mark.parametrize("route", ["tensor_core", "cuda_core"])
 @pytest.mark.parametrize("heads", [4, 8])
 def test_train_attention_bf16_flat_attention(cuda_device, heads, route):

@@ -4,11 +4,14 @@
 stage of ``data/pipeline.py``, then ``Dataset`` end to end.
 
 Inputs are seeded numpy; every random stage gets generators of the same
-seed on both sides, so the draws must line up one for one. The JAX fbank is
-forced onto its numpy path (``CHUNKFORMER_NO_NATIVE=1``), whose draws are
-the port's. Bars: fbank, log-mel and MFCC atol 1e-5 (float32 FFTs of two
-implementations); ``Dataset`` keys, lengths and labels identical, feats
-atol 1e-6; everything else exactly equal.
+seed on both sides, so the draws must line up one for one. Both packages'
+``compute_fbank`` run their native host library (the port's own copy,
+``native/``), whose dither generator is seeded from the same draw, so the
+stage and ``Dataset``'s fbank features are bit for bit equal; the port's
+numpy twin is held against the JAX numpy path (``CHUNKFORMER_NO_NATIVE=1``
+on the JAX side only). Bars: the numpy fbank, log-mel and MFCC atol 1e-5
+(float32 FFTs of two implementations); ``Dataset`` keys, lengths and labels
+identical, feats atol 1e-6; everything else exactly equal.
 """
 
 import json
@@ -172,8 +175,8 @@ def test_log_mel_and_mfcc_match_jax():
         atol=1e-5, rtol=0)
 
 
-def test_decode_speed_perturb_and_fbank_stages_match_jax(corpus, monkeypatch):
-    monkeypatch.setenv("CHUNKFORMER_NO_NATIVE", "1")
+def test_decode_speed_perturb_and_fbank_stages_match_jax(corpus):
+    """The stages against JAX's default path: its native fbank, dither on."""
     for i in (0, 3, 4):
         sample = {"key": f"u{i}", "wav": str(corpus / f"u{i}.wav"), "start": 0.02, "end": 0.5}
         got = tproc.decode_wav(dict(sample))
@@ -183,10 +186,26 @@ def test_decode_speed_perturb_and_fbank_stages_match_jax(corpus, monkeypatch):
         got = tproc.compute_fbank(tproc.do_speed_perturb(got, rng=g_rng), dither=1.0, rng=g_rng)
         want = jproc.compute_fbank(jproc.do_speed_perturb(want, rng=j_rng), dither=1.0,
                                    rng=j_rng)
-        np.testing.assert_allclose(got["feat"], want["feat"], atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(got["feat"], want["feat"])
         assert g_rng.integers(1 << 30) == j_rng.integers(1 << 30)
     raw = {"key": "b", "wav": (corpus / "u2.wav").read_bytes()}
     _same(tproc.decode_wav(dict(raw)), jproc.decode_wav(dict(raw)))
+
+
+@pytest.mark.parametrize("dither", [0.0, 1.0])
+def test_numpy_fbank_twin_matches_jax_numpy_path(corpus, monkeypatch, dither):
+    """The port's numpy twin against the JAX ``compute_fbank`` forced onto
+    its numpy fallback, which draws its native seed first."""
+    monkeypatch.setenv("CHUNKFORMER_NO_NATIVE", "1")
+    sample = tproc.decode_wav({"key": "u1", "wav": str(corpus / "u1.wav")})
+    g_rng, j_rng = np.random.default_rng(5), np.random.default_rng(5)
+    if dither > 0:
+        g_rng.integers(2**63)
+    got = tproc.compute_fbank_numpy(sample["waveform"], dither=dither,
+                                    sample_rate=sample["sample_rate"], rng=g_rng)
+    want = jproc.compute_fbank(dict(sample), dither=dither, rng=j_rng)["feat"]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert g_rng.integers(1 << 30) == j_rng.integers(1 << 30)
 
 
 def test_tokenize_and_filter_match_jax(corpus):
@@ -361,10 +380,10 @@ _AUG = {"speed_perturb": True, "fbank_conf": {"num_mel_bins": 80, "dither": 1.0}
     ("log_mel", "raw", {"feats_type": "log_mel_spectrogram", "speed_perturb": True,
                         "batch_conf": {"batch_size": 4}}, False),
 ])
-def test_dataset_matches_jax(corpus, monkeypatch, name, data_type, conf, classification):
+def test_dataset_matches_jax(corpus, name, data_type, conf, classification):
     """Two epochs of ``Dataset`` in both packages, one of them a shard of
-    two: keys, lengths, labels identical, feats atol 1e-6."""
-    monkeypatch.setenv("CHUNKFORMER_NO_NATIVE", "1")
+    two, each package on its default (native) fbank: keys, lengths, labels
+    identical, feats atol 1e-6."""
     tconf = {"symbol_table_path": str(corpus / "units.txt")}
     lst = {"shard": "shards.list"}.get(data_type, "data.jsonl" if classification
                                        else "data.list")

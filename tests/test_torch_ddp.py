@@ -181,12 +181,18 @@ def test_train_step_runs_all_micro_batches_but_the_last_under_no_sync():
     assert calls == [False, False, False, True]
 
 
-def test_only_dp_sharding_is_ported():
+@pytest.mark.parametrize("mode,tp_size,world,ok", [
+    ("dp", 1, 1, True), ("fsdp", 1, 2, True), ("tp", 2, 2, True), ("fsdp_tp", 2, 4, True),
+    ("dp", 2, 4, True), ("fsdp_tp", 4, 4, True),
+    ("zero3", 1, 1, False), ("tp", 3, 4, False), ("fsdp_tp", 0, 4, False),
+])
+def test_check_sharding(mode, tp_size, world, ok):
+    """Every mode of the JAX package is accepted; an unknown mode or a
+    tp_size that does not divide the world is refused."""
     from chunkformer_tpu_torch.parallel.mesh import check_sharding
 
-    check_sharding("dp")
-    for mode, tp in (("fsdp", 1), ("tp", 2), ("fsdp_tp", 2), ("dp", 2)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            check_sharding(mode, tp)
-    with pytest.raises(ValueError):
-        check_sharding("zero3")
+    if ok:
+        check_sharding(mode, tp_size, world)
+    else:
+        with pytest.raises(ValueError):
+            check_sharding(mode, tp_size, world)

@@ -115,13 +115,6 @@ def test_train_cli_resume_and_average(micro, tmp_path):
                                atol=0, rtol=0)
 
 
-def test_train_cli_rejects_unported_sharding(micro, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(_argv(micro, tmp_path / "x", "--sharding", "fsdp"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(_argv(micro, tmp_path / "x", "--tp_size", "2"))
-
-
 def _cmvn(dim=80, seed=3):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=dim).astype(np.float32),
