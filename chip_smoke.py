@@ -118,7 +118,22 @@ non-zero exit code and no result line:
    ``bin/average_model.py --num 2``, ``export_model_dir`` of the average
    (``from_pretrained`` bitwise equal) and a 120 s f32 ``endless_decode``
    of it equal to the in-memory average's tokens, with B1 and B2 launches;
-13. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+13. the CTC recipe twin, ``examples/asr/ctc/run_torch.sh``, at its defaults
+   (the card) with its own ``conf/chunkformer-ctc-small.yaml`` (256 d, 12
+   blocks, 3 + 3 decoder) cut to two epochs and a log line a step, on the
+   train CLI's synthetic WAVs, ``avg_num=2``: each stage's wall and exit
+   code, stage 3's B4/B5 launches against the train CLI's rule for its
+   steps and drawn chunks (no decode kernel), stage 6's ctc_greedy_search
+   file equal to ``bin/recognize.py`` in-process on the same export;
+14. one f32 step of the flagship model with a batch-norm conv module and
+   the length-normalized loss under ``dp`` at world size 1 (NCCL, the
+   world's group as data group) against the same step with no group:
+   parameters within 1e-6, ``acc_att`` equal;
+15. the app twins: ``apps/realtime-asr-torch``'s ``RealtimeASR.run`` on
+   the streaming phase's 60 s file equal to ``bin/stream.py``'s
+   transcript, and ``apps/streamlit_torch``'s ``transcribe_audio`` of the
+   2040 s file equal to ``endless_decode``'s segments of the same export;
+16. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -558,23 +573,29 @@ def write_wav(path, samples):
     return path
 
 
-def reset_counts():
-    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention
-    from chunkformer_tpu_torch.ops.fbank import fbank
+# the decode kernels' and the training attention's launch counts, by the
+# names of ops/kernels.py:launch_counts
+DECODE_COUNTS = ("chunk_attention", "chunk_attention_tc", "fbank", "fbank_fft")
+TRAIN_COUNTS = ("train_fwd", "train_bwd", "train_fwd_tc", "train_bwd_tc")
 
-    chunk_attention.launches = 0
-    chunk_attention.tc_launches = 0
-    fbank.launches = 0
-    fbank.fft_launches = 0
+
+def reset_counts():
+    from chunkformer_tpu_torch.ops.kernels import reset_launch_counts
+
+    reset_launch_counts(*DECODE_COUNTS)
 
 
 def read_counts():
-    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention
-    from chunkformer_tpu_torch.ops.fbank import fbank
+    from chunkformer_tpu_torch.ops.kernels import launch_counts
 
-    return {"chunk_attention": chunk_attention.launches,
-            "chunk_attention_tc": chunk_attention.tc_launches, "fbank": fbank.launches,
-            "fbank_fft": fbank.fft_launches}
+    counts = launch_counts()
+    return {k: counts[k] for k in DECODE_COUNTS}
+
+
+def main_vocabulary(size):
+    """The main path's {id: symbol} table."""
+    return {0: "<blank>", **{i: f"w{i}▁" if i % 7 == 0 else chr(0x4E00 + i)
+                             for i in range(1, size)}}
 
 
 def phase_main_path(tmp, card, device):
@@ -601,8 +622,7 @@ def phase_main_path(tmp, card, device):
     feats = fbank(head.to(device))
     sd["encoder.global_cmvn.mean"] = feats.mean(0).cpu()
     sd["encoder.global_cmvn.istd"] = (1.0 / feats.std(0).clamp_min(1e-3)).cpu()
-    char_dict = {0: "<blank>", **{i: f"w{i}▁" if i % 7 == 0 else chr(0x4E00 + i)
-                                  for i in range(1, cfg.vocab_size)}}
+    char_dict = main_vocabulary(cfg.vocab_size)
 
     t_total = num_frames(int(LONG_SECONDS * 16000))
     bf16 = ChunkFormerModel(cfg, sd, char_dict, dtype=torch.bfloat16, device=device)
@@ -1031,20 +1051,17 @@ def train_batch(cfg, device, seed):
 
 
 def reset_train_counts():
-    from chunkformer_tpu_torch.ops.chunk_attention_train import chunk_train_attention
+    from chunkformer_tpu_torch.ops.kernels import reset_launch_counts
 
-    chunk_train_attention.fwd_launches = 0
-    chunk_train_attention.bwd_launches = 0
-    chunk_train_attention.fwd_tc_launches = 0
-    chunk_train_attention.bwd_tc_launches = 0
+    reset_launch_counts(*TRAIN_COUNTS)
 
 
 def read_train_counts():
-    from chunkformer_tpu_torch.ops.chunk_attention_train import chunk_train_attention
+    """The training attention's counts, keyed without the ``train_``."""
+    from chunkformer_tpu_torch.ops.kernels import launch_counts
 
-    return {"fwd": chunk_train_attention.fwd_launches, "bwd": chunk_train_attention.bwd_launches,
-            "fwd_tc": chunk_train_attention.fwd_tc_launches,
-            "bwd_tc": chunk_train_attention.bwd_tc_launches}
+    counts = launch_counts()
+    return {k[len("train_"):]: counts[k] for k in TRAIN_COUNTS}
 
 
 def new_trainer(train_dict, device, autocast):
@@ -3216,6 +3233,281 @@ def check_average_export(exp, config, root, name, card):
     return decode_counts
 
 
+# ---- since PR 16: the CTC recipe twin on the card, the data-parallel
+# statistics at world size 1, and the app twins
+REPO = os.path.dirname(os.path.abspath(__file__))
+RECIPE = os.path.join(REPO, "examples", "asr", "ctc", "run_torch.sh")
+RECIPE_CONF = os.path.join(REPO, "examples", "asr", "ctc", "conf", "chunkformer-ctc-small.yaml")
+# the recipe's cuts: two epochs (stage 4 averages both), every step logged
+# (each step's drawn chunk in stage 3's log)
+RECIPE_CUTS = {"max_epoch": 2, "log_interval": 1}
+RECIPE_STAGES = ("tsv -> data lists", "global CMVN", "vocabulary", "train", "average",
+                 "export", "recognize")
+APP_MODULES = ("config", "utils", "transcription", "ui_components", "audio_processing", "app",
+               "stream_asr", "audio_capture")
+
+
+def phase_recipe(tmp, card, device="cuda"):
+    """``examples/asr/ctc/run_torch.sh`` at its defaults (``device`` cuda)
+    with its own ``conf/chunkformer-ctc-small.yaml`` (256 d, 12 blocks, 3 +
+    3 decoder, accum_grad 4, dynamic chunks) cut by RECIPE_CUTS, avg_num=2,
+    on the train CLI's synthetic WAVs (``write_train_data``) as its
+    train.tsv; one stage a call, each stage's wall and exit code; stage 3's
+    kernel launch counts (its last log line) against the train CLI's rule
+    for its steps: B4 and B5 on the tensor cores once a layer a
+    micro-batch whose drawn chunk is above 0, no other training attention
+    and no decode kernel (the features come from the host); stage 6's
+    ctc_greedy_search file equal to ``bin/recognize.py`` run in-process on
+    the same export and list. Returns stage 3's launch counts."""
+    import re
+
+    import yaml
+
+    from chunkformer_tpu_torch.bin import recognize
+
+    if device == "cuda":  # the recipe's processes need the card's memory
+        torch.cuda.empty_cache()
+    root = os.path.join(tmp, "recipe")
+    os.makedirs(os.path.join(root, "data"))
+    os.makedirs(os.path.join(root, "bin"))
+    write_train_data(root)
+    with open(os.path.join(root, "train.list"), encoding="utf-8") as f:
+        rows = [line for line in f if line.strip()]
+    with open(os.path.join(root, "train.tsv"), "w", encoding="utf-8") as f:
+        f.writelines(["key\twav\ttxt\n"] + rows)
+    with open(RECIPE_CONF) as f:
+        conf = {**yaml.safe_load(f), **RECIPE_CUTS}
+    conf_path = os.path.join(root, "conf.yaml")
+    with open(conf_path, "w") as f:
+        yaml.safe_dump(conf, f)
+    # the recipe calls `python`: this interpreter
+    python = os.path.join(root, "bin", "python")
+    with open(python, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(python, 0o755)
+    data, exp = os.path.join(root, "data"), os.path.join(root, "exp")
+    env = {**os.environ, "PATH": os.path.join(root, "bin") + os.pathsep + os.environ["PATH"],
+           "PYTHONPATH": REPO, "data": data, "exp": exp, "config": conf_path,
+           "train_tsv": os.path.join(root, "train.tsv"), "avg_num": "2"}
+    if device != "cuda":
+        env["device"] = device
+    walls, logs = [], []
+    for stage, what in enumerate(RECIPE_STAGES):
+        t0 = time.time()
+        out = subprocess.run(["bash", RECIPE], env={**env, "stage": str(stage),
+                                                    "stop_stage": str(stage)},
+                             capture_output=True, text=True, timeout=600)
+        walls.append(time.time() - t0)
+        logs.append(out.stdout + out.stderr)
+        require(out.returncode == 0 and f"stage {stage}:" in out.stdout,
+                f"recipe stage {stage} ({what}) exited {out.returncode}: {logs[-1][-3000:]}")
+    log("recipe examples/asr/ctc/run_torch.sh (device " + device + ", avg_num=2, "
+        + ", ".join(f"{k} {v}" for k, v in RECIPE_CUTS.items()) + ") on "
+        f"{len(rows)} synthetic WAVs: " + "; ".join(
+            f"stage {i} ({what}) {w:.1f} s" for i, (what, w) in enumerate(zip(RECIPE_STAGES,
+                                                                               walls)))
+        + f"; all {sum(walls):.1f} s, every exit code 0; card {card}")
+
+    # stage 3: its drawn chunks, one a step, and its kernels' launch counts
+    chunks = [int(c) for c in re.findall(r"step \d+ chunk=\((-?\d+), -?\d+, -?\d+\)", logs[3])]
+    found = re.findall(r"kernel launches: (\{.*\})", logs[3])
+    require(len(chunks) > 0 and len(found) == 1, f"recipe stage 3: {len(chunks)} step lines, "
+            f"{len(found)} launch lines")
+    counts = json.loads(found[0])
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        steps = [json.loads(x) for x in f if '"train"' in x]
+    n_layers, accum = conf["encoder_conf"]["num_blocks"], conf["accum_grad"]
+    limited = accum * n_layers * sum(c > 0 for c in chunks)
+    want = {"chunk_attention": 0, "chunk_attention_tc": 0, "train_fwd": 0, "train_bwd": 0,
+            "train_fwd_tc": limited, "train_bwd_tc": limited, "fbank": 0, "fbank_fft": 0}
+    losses = ", ".join(f"{s['loss']:.4g}" for s in steps)
+    log(f"recipe stage 3: {len(steps)} steps (accum_grad {accum}) at chunks {chunks}, "
+        f"losses {losses}; launches {counts}")
+    if device == "cuda":
+        require(counts == want, f"recipe stage 3 launches {counts}, expected {want}")
+    require(len(steps) == len(chunks) and all(np.isfinite(s["loss"]) for s in steps),
+            f"recipe stage 3 metrics {steps}")
+    require(os.path.exists(os.path.join(exp, "avg_2.pt")) and "exported avg_2" in logs[5],
+            "recipe stages 4-5 did not export avg_2")
+
+    # stage 6 against bin/recognize.py in this process on the same export
+    mine = os.path.join(root, "recognize")
+    require(recognize.main(["--model_checkpoint", os.path.join(exp, "export"), "--test_data",
+                            os.path.join(data, "internal_test.list"), "--modes",
+                            "ctc_greedy_search", "--result_dir", mine,
+                            "--device", device]) == 0, "in-process recognize failed")
+    with open(os.path.join(exp, "results", "ctc_greedy_search.txt"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(mine, "ctc_greedy_search.txt"), "rb") as f:
+        want_text = f.read()
+    n_lines = len(got.decode("utf-8").splitlines())
+    log(f"recipe stage 6: ctc_greedy_search on {n_lines} test files equal to bin/recognize.py "
+        f"in-process on the same export: {got == want_text}")
+    require(n_lines > 0 and got == want_text, "recipe stage 6's ctc_greedy_search file differs "
+            "from bin/recognize.py's")
+    return counts
+
+
+def phase_data_parallel_one(card, device):
+    """One f32 step of the flagship train model with a batch-norm conv
+    module and the length-normalized attention loss (dropout 0) under
+    ``dp`` at world size 1 on NCCL (``Parallel``: DDP), its modules given
+    the world's group as their data group (``set_data_group``), against the
+    same step of the same model with no group: a group of one takes the
+    single-process statistics (``data_group.active`` is false), so the
+    parameters are within 1e-6 and ``acc_att`` equal. Returns the grouped
+    step's training-attention launch counts."""
+    import torch.distributed as dist
+
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
+    from chunkformer_tpu_torch.parallel.data_group import active, set_data_group
+    from chunkformer_tpu_torch.parallel.mesh import Parallel, init_distributed
+    from chunkformer_tpu_torch.train.losses import asr_model_loss
+    from chunkformer_tpu_torch.train.optim import build_optimizer
+    from chunkformer_tpu_torch.train.train_step import make_train_step
+
+    plain = no_dropout(TRAIN)
+    cfg_dict = {**plain, "encoder_conf": {**plain["encoder_conf"], "cnn_module_norm": "batch_norm"},
+                "model_conf": {**plain["model_conf"], "length_normalized_loss": True}}
+    cfg = ChunkFormerConfig.from_dict(cfg_dict)
+    batch = train_batch(cfg, device, SEED + 61)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    runs = {}
+    for grouped in (False, True):
+        model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED)).to(device)
+        opt, sched = build_optimizer(list(model.parameters()), "adamw", {"lr": 1e-3},
+                                     "warmuplr", {"warmup_steps": 25000})
+        kw = dict(chunk_cfg=(C, LEFT, RIGHT), grad_clip=GRAD_CLIP)
+        with world_of_one() if grouped else contextlib.nullcontext():
+            if grouped:
+                dp = init_distributed(device, "dp")
+                par = Parallel(model, cfg, asr_model_loss, dp)
+                set_data_group(model, dist.group.WORLD)
+                groups = [m.data_group for m in model.modules() if hasattr(m, "data_group")]
+                require(dist.get_backend() == backend and len(groups) == 1 + cfg.encoder_conf
+                        .num_blocks and all(g is dist.group.WORLD for g in groups)
+                        and not active(groups[0]), f"data groups {len(groups)}")
+                kw.update(loss_fn=par.loss_fn, no_sync=par.no_sync,
+                          reduce_grads=par.reduce_grads, grad_norm=par.grad_norm)
+            step = make_train_step(model, cfg, opt, sched, **kw)
+            reset_train_counts()
+            t0 = time.time()
+            metrics = {k: float(v) for k, v in step(*batch).items()}
+            runs[grouped] = (metrics, [p.detach().clone() for p in model.parameters()],
+                             read_train_counts(), time.time() - t0)
+        del model, opt, step
+    (m0, p0, _, t_plain), (m1, p1, counts, t_grouped) = runs[False], runs[True]
+    err = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+    log(f"batch-norm, length-normalized step under dp at world size 1 ({backend}, DDP, the "
+        f"world group as data group) vs no group: parameters within {err:.3g} (limit 1e-6), "
+        f"acc_att {m1['acc_att']:.6g} vs {m0['acc_att']:.6g}, loss {m1['loss']:.6g} vs "
+        f"{m0['loss']:.6g}, loss_att {m1['loss_att']:.6g} vs {m0['loss_att']:.6g}; "
+        f"{1e3 * t_grouped:.1f} / {1e3 * t_plain:.1f} ms (first step of each); launches "
+        f"{counts}; card {card}")
+    n_layers = cfg.encoder_conf.num_blocks
+    recompute = 2 if cfg.encoder_conf.remat_policy == "nothing" else 1
+    require(err <= 1e-6 and m1["acc_att"] == m0["acc_att"] and np.isfinite(m1["loss"]),
+            f"dp at world size 1 differs from the plain step: parameters {err}, acc_att "
+            f"{m1['acc_att']} vs {m0['acc_att']}")
+    require(device.type != "cuda" or counts == {
+        "fwd": 0, "bwd": 0, "fwd_tc": n_layers * recompute, "bwd_tc": n_layers},
+        f"dp step launches {counts}")
+    return counts
+
+
+@contextlib.contextmanager
+def app_modules(name):
+    """``apps/<name>`` first on sys.path, with none of the apps' module
+    names loaded from elsewhere; yields an importer."""
+    import importlib
+
+    path = os.path.join(REPO, "apps", name)
+    for n in APP_MODULES:
+        sys.modules.pop(n, None)
+    sys.path.insert(0, path)
+    try:
+        yield importlib.import_module
+    finally:
+        sys.path.remove(path)
+
+
+def write_main_export(tmp, cfg, sd):
+    """The main path's model (its random weights and CMVN) as an export
+    directory with its vocabulary."""
+    from chunkformer_tpu_torch.export import export_model_dir
+
+    return export_model_dir(os.path.join(tmp, "main_export"), LARGE, sd,
+                            {sym: i for i, sym in main_vocabulary(cfg.vocab_size).items()})
+
+
+def phase_apps(tmp, card, device, main_export, long_wav):
+    """The app twins at ChunkFormer-large width: ``apps/realtime-asr-torch``'s
+    ``RealtimeASR.run`` on the streaming phase's 60 s file and export at
+    speed 0, f32, (6, 50, 0), its transcript equal to ``bin/stream.py``'s
+    on that file (``run_stream``), one FFT fbank launch a step and no
+    attention kernel; ``apps/streamlit_torch``'s
+    ``transcription.transcribe_audio`` of the 2040 s decode file through its
+    ``load_model(dir, "cuda")`` at the app's defaults (64, 128, 128, 1800 s
+    budget, 0.5 s silence), its segments equal to ``endless_decode``'s of
+    the same export. Returns the launch counts of both."""
+    from chunkformer_tpu_torch.api import ChunkFormerModel
+
+    model_dir, wav = os.path.join(tmp, "stream_export"), os.path.join(tmp, "stream.wav")
+    c, left, right = STREAM_CTX
+    with app_modules("realtime-asr-torch") as load:
+        stream_asr = load("stream_asr")
+        asr = stream_asr.RealtimeASR(ChunkFormerModel.from_pretrained(
+            model_dir, dtype=torch.float32, device=device), c, left, right)
+        reset_counts()
+        t0 = time.time()
+        text = asr.run(wav, speed=0.0)
+        t_app = time.time() - t0
+        app_counts = read_counts()
+    want, t_cli, final, _ = run_stream(model_dir, wav, "fp32")
+    steps = len(asr.step_seconds)
+    log(f"apps/realtime-asr-torch RealtimeASR.run on {STREAM_SECONDS:.0f} s at speed 0 "
+        f"(f32, {STREAM_CTX}): {t_app:.2f} s, {steps} steps, RTF {t_app / STREAM_SECONDS:.4f}, "
+        f"{len(text)} characters; bin/stream.py on the same file {t_cli:.2f} s (model load "
+        f"included); transcripts equal: {text == want.text()}; launches {app_counts}; "
+        f"card {card}")
+    require(len(text) > 0 and text == want.text() and final.endswith(text),
+            "RealtimeASR.run's transcript differs from bin/stream.py's")
+    if device.type == "cuda":
+        require(app_counts == {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
+                               "fbank_fft": steps}, f"RealtimeASR launches {app_counts}")
+
+    kw = dict(chunk_size=64, left_context_size=128, right_context_size=128,
+              total_batch_duration=1800, max_silence_duration=0.5)
+    with app_modules("streamlit_torch") as load:
+        transcription = load("transcription")
+        t0 = time.time()
+        model = transcription.load_model(main_export, device.type)
+        t_load = time.time() - t0
+        reset_counts()
+        segments, info = transcription.transcribe_audio(model, long_wav, **kw)
+        transcribe_counts = read_counts()
+        require(transcription.load_model(main_export, device.type) is model,
+                "load_model does not cache")
+        del model
+    reference = ChunkFormerModel.from_pretrained(main_export, dtype=torch.float32, device=device)
+    want_segments = reference.endless_decode(long_wav, return_timestamps=True, **kw)
+    del reference
+    torch.cuda.empty_cache()
+    log(f"apps/streamlit_torch transcribe_audio of {LONG_SECONDS:.0f} s (f32, (64, 128, 128), "
+        f"budget 1800 s): load_model {t_load:.2f} s, decode {info['elapsed_s']:.3f} s "
+        f"({LONG_SECONDS / info['elapsed_s']:.1f} audio-s/s), {info['segments']} segments, "
+        f"{info['words']} words; equal to endless_decode's segments: "
+        f"{segments == want_segments}; launches {transcribe_counts}; card {card}")
+    require(len(segments) > 0 and segments == want_segments,
+            "transcribe_audio's segments differ from endless_decode's")
+    require(device.type != "cuda" or (
+        transcribe_counts["chunk_attention_tc"] > 0 and transcribe_counts["fbank_fft"] > 0
+        and transcribe_counts["chunk_attention"] == 0 and transcribe_counts["fbank"] == 0),
+        f"transcribe_audio launches {transcribe_counts}")
+    return app_counts, transcribe_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3251,6 +3543,8 @@ def main() -> int:
 
         t = time.time()
         upload_launches = phase_upload(card, torch.device("cuda"), *main_model)
+        main_export = write_main_export(tmp, main_model[0], main_model[1])
+        long_wav = main_model[2]
         del main_model
         log(f"[phase host-feature upload] {time.time() - t:.1f} s")
 
@@ -3293,6 +3587,19 @@ def main() -> int:
         t = time.time()
         cli_train, cli_decode, sharded_train, sharded_decode = phase_train_cli(tmp, card)
         log(f"[phase train CLI] {time.time() - t:.1f} s")
+
+        t = time.time()
+        recipe_train = phase_recipe(tmp, card)
+        log(f"[phase recipe] {time.time() - t:.1f} s")
+
+        t = time.time()
+        dp_one = phase_data_parallel_one(card, torch.device("cuda"))
+        log(f"[phase data-parallel statistics at world size 1] {time.time() - t:.1f} s")
+
+        t = time.time()
+        app_launches, transcribe_launches = phase_apps(tmp, card, torch.device("cuda"),
+                                                       main_export, long_wav)
+        log(f"[phase apps] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3442,6 +3749,27 @@ def main() -> int:
          "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": sharded_decode["fbank_fft"], **results["fbank_fft"], "library_ms": None}]
+    for part, line in (("fwd", 316), ("bwd", 390)):
+        kernels += [
+            {"name": f"chunk_train_attention_tc_f32_{part}_recipe", "route": "cuda",
+             "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+             "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+             "launches": recipe_train[f"train_{part}_tc"], **f32_tc[part], "library_ms": None},
+            {"name": f"chunk_train_attention_tc_f32_{part}_dp1", "route": "cuda",
+             "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+             "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+             "launches": dp_one[f"{part}_tc"], **f32_tc[part], "library_ms": None}]
+    kernels += [
+        {"name": "chunk_attention_tc_f32_apps", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": transcribe_launches["chunk_attention_tc"],
+         **results["attention f32 tensor cores"], "library_ms": None},
+        {"name": "fbank_fft_apps", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+         "launches": app_launches["fbank_fft"] + transcribe_launches["fbank_fft"],
+         **results["fbank_fft"], "library_ms": None}]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -3471,7 +3799,12 @@ def main() -> int:
         f"runs of bin/train.py; the host-feature upload (*_upload): B1 timed at the main "
         f"path's shapes, launches from endless_encode_tokens of the 2040 s file's host "
         f"features in bf16 and in f32 (f32 also from the decode of the fsdp_tp run's export); "
-        f"fbank_fft_sharded_export: launches from that decode; card {card}")
+        f"fbank_fft_sharded_export: launches from that decode; the recipe (*_recipe): B4 and "
+        f"B5 f32 timed as *_cli, launches from its stage 3 (bin/train.py in its own "
+        f"process); the world-of-one data-parallel step (*_dp1): the same, launches from the "
+        f"grouped step; the apps (*_apps): B1 f32 and the FFT fbank kernel timed at the main "
+        f"path's shapes, launches from transcribe_audio of the 2040 s file (fbank also from "
+        f"RealtimeASR.run's 60 s); card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

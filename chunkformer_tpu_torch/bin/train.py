@@ -14,13 +14,15 @@ gradients and Adam sharded over data), ``tp`` (attention heads and FFN
 hidden units over model) or ``fsdp_tp`` (both); each data index reads its
 shard of the train list, and the processes of one model group read the
 same. A sharded mode outside torchrun runs as a world of one process.
-Checkpoints hold full state dicts in every mode.
+Checkpoints hold full state dicts in every mode. The last log line gives
+the kernels' launch counts of the run (``ops/kernels.py:launch_counts``).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import json
 import logging
 import os
 import sys
@@ -166,6 +168,9 @@ def run(argv=None):
         cv_loss = executor.cv(iter(cv_ds))
         logging.info("epoch %d cv_loss %.4f", epoch, cv_loss)
         executor.save(epoch, tag=f"epoch_{epoch}", cv_loss=cv_loss)
+    from ..ops.kernels import launch_counts
+
+    logging.info("kernel launches: %s", json.dumps(launch_counts()))
     return executor
 
 

@@ -42,6 +42,9 @@ class ASRModel(nn.Module):
         if config.decoder:
             self.decoder = BiTransformerDecoder(config.decoder_conf, config.vocab_size,
                                                 config.encoder_conf.output_size)
+        # the data axis's process group under data parallelism
+        # (``parallel/data_group.py``): the loss's token counts over it
+        self.data_group = None
 
 
 @torch.no_grad()

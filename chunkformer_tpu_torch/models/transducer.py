@@ -238,6 +238,7 @@ class TransducerModel(nn.Module):
             self.simple_lm_proj = nn.Linear(pcfg.output_size, vocab)
         self.decoder = (BiTransformerDecoder(config.decoder_conf, vocab, d)
                         if config.decoder else None)
+        self.data_group = None  # as ``ASRModel.data_group``
 
 
 # ----------------------------------------------------------------- greedy search

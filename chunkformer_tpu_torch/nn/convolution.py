@@ -37,6 +37,9 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size, groups=channels)
         self.norm = nn.LayerNorm(channels) if self.use_layer_norm else nn.BatchNorm1d(channels)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+        # the data axis's process group under data parallelism
+        # (``parallel/data_group.py``): train-mode batch statistics over it
+        self.data_group = None
 
     def parallel_chunk(
         self, x: torch.Tensor, conv_mask: torch.Tensor, cache: torch.Tensor,
@@ -69,7 +72,7 @@ class ConvolutionModule(nn.Module):
         if self.use_layer_norm:
             y = self.norm(y.transpose(1, 2))
         elif train:
-            y, stats = batch_norm_train(self.norm, y)
+            y, stats = batch_norm_train(self.norm, y, group=self.data_group)
             y = y.transpose(1, 2)
         else:
             n = self.norm

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.data_group import active
 from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
 
 
@@ -96,23 +97,41 @@ class LSTMWeights(nn.Module):
 
 
 def batch_norm_train(norm: nn.BatchNorm1d, x: torch.Tensor, channel_axis: int = 1,
-                     momentum: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                     momentum: float = 0.1, group: Optional[object] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Train-mode BatchNorm from batch statistics, in f32
     (``chunkformer_tpu/nn/layers.py:121``). Returns (y, new running stats);
-    the module's buffers are left as they are, as the JAX function leaves them."""
+    the module's buffers are left as they are, as the JAX function leaves them.
+    With a data ``group`` of more than one process the statistics are those
+    of the group's rows together, as GSPMD takes them over the global batch:
+    each channel's sum, sum of squares and the row count are summed over the
+    group (differentiably), and the running variance's correction uses the
+    global count."""
     axes = tuple(i for i in range(x.ndim) if i != channel_axis)
     xf = x.float()
-    mean = xf.mean(axes)
-    var = xf.square().mean(axes) - mean.square()
+    count = x.numel() // x.shape[channel_axis]
+    if active(group):
+        from torch.distributed.nn.functional import all_reduce  # differentiable
+
+        c = x.shape[channel_axis]
+        sums = all_reduce(torch.cat([xf.sum(axes), xf.square().sum(axes),
+                                     xf.new_full((1,), count)]), group=group)
+        mean = sums[:c] / sums[-1]
+        var = sums[c:2 * c] / sums[-1] - mean.square()
+        count = sums[-1].detach()
+        count_less_one = (count - 1).clamp_min(1)
+    else:
+        mean = xf.mean(axes)
+        var = xf.square().mean(axes) - mean.square()
+        count_less_one = max(count - 1, 1)
     shape = [1] * x.ndim
     shape[channel_axis] = x.shape[channel_axis]
     inv = torch.rsqrt(var + norm.eps) * norm.weight.float()
     y = (xf - mean.view(shape)) * inv.view(shape) + norm.bias.float().view(shape)
-    count = x.numel() // x.shape[channel_axis]
     with torch.no_grad():
         stats = {"mean": (1 - momentum) * norm.running_mean + momentum * mean,
                  "var": (1 - momentum) * norm.running_var
-                 + momentum * var * count / max(count - 1, 1)}
+                 + momentum * var * count / count_less_one}
     return y.to(x.dtype), stats
 
 

@@ -133,3 +133,33 @@ def check(err: int, name: str) -> None:
     """Raise if a launch was refused (err is the cudaError_t it returned)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _counters() -> dict:
+    """{name: (wrapper, attribute)} of every kernel wrapper's launch count:
+    the decode attention (``chunk_attention``, ``chunk_attention_tc``), the
+    training attention (``train_fwd``, ``train_bwd``, ``train_fwd_tc``,
+    ``train_bwd_tc``) and the fbank (``fbank``, ``fbank_fft``)."""
+    from .chunk_attention import chunk_attention
+    from .chunk_attention_train import chunk_train_attention as train
+    from .fbank import fbank
+
+    return {"chunk_attention": (chunk_attention, "launches"),
+            "chunk_attention_tc": (chunk_attention, "tc_launches"),
+            "train_fwd": (train, "fwd_launches"), "train_bwd": (train, "bwd_launches"),
+            "train_fwd_tc": (train, "fwd_tc_launches"),
+            "train_bwd_tc": (train, "bwd_tc_launches"),
+            "fbank": (fbank, "launches"), "fbank_fft": (fbank, "fft_launches")}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count since its last reset, by the
+    names of ``_counters``."""
+    return {k: getattr(obj, attr) for k, (obj, attr) in _counters().items()}
+
+
+def reset_launch_counts(*names: str) -> None:
+    """Set the named launch counts (all of them with none named) to 0."""
+    for k, (obj, attr) in _counters().items():
+        if not names or k in names:
+            setattr(obj, attr, 0)

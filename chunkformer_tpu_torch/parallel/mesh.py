@@ -28,7 +28,11 @@ processes of one model group see the same batches.
   ``data`` once an update.
 - ``fsdp_tp``: tensor parallelism first, then ``fully_shard`` over ``data``.
 
-The global-norm clip counts every gradient element once whatever its
+Where the data axis is above 1 the model learns its data group
+(``parallel/data_group.py``): train-mode batch-norm statistics, the
+length-normalized attention loss's token count and the attention accuracy
+are taken over the group, as GSPMD takes them over the global batch. The
+global-norm clip counts every gradient element once whatever its
 placement (``Parallel.grad_norm``). Checkpoints keep one format in every
 mode: the full state dicts of the model and of Adam, gathered on every
 process and written by rank 0 (``Parallel.full_state_dict``,
@@ -48,6 +52,7 @@ from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .data_group import set_data_group
 from .tensor_parallel import TPShard, apply_tensor_parallel
 
 SHARDING_MODES = ("dp", "fsdp", "tp", "fsdp_tp")
@@ -185,8 +190,10 @@ class Parallel:
         if dp.mesh is None:
             if dp.world > 1 or dist.is_initialized():
                 self._ddp(cfg, None)
+                set_data_group(model, dist.group.WORLD if dp.world > 1 else None)
             return
         self._data_group = dp.mesh.get_group("data")
+        set_data_group(model, self._data_group if dp.data_size > 1 else None)
         if dp.mode in ("tp", "fsdp_tp"):
             self._tp = TPShard(dp.mesh.get_group("model"), dp.rank % dp.tp_size, dp.tp_size)
             self.tp_split = apply_tensor_parallel(model, self._tp)
@@ -338,7 +345,8 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 def all_reduce_mean(values: Dict[str, torch.Tensor], dp: Optional[DataParallel]
                     ) -> Dict[str, torch.Tensor]:
     """Mean of 0-dim metrics over the processes (the global batch's, for
-    equal per-process batches)."""
+    equal per-process batches). The caller leaves out a metric that is
+    already the global batch's (``acc_att``)."""
     if dp is None or dp.world <= 1 or not dist.is_initialized():
         return values
     keys = sorted(values)

@@ -64,7 +64,17 @@ class Executor:
     ``optimizer`` and ``scheduler`` (from ``optim.build_optimizer``); the
     scheduler's count is the step. ``parallel`` is the model's placement
     where the caller sharded it before building the optimizer; by default
-    the Executor places it for ``dp`` (DDP where a process group exists)."""
+    the Executor places it for ``dp`` (DDP where a process group exists).
+
+    The micro-batch contract under data parallelism: the train step cuts a
+    process's batch into accum_grad micro-batches along its first axis,
+    while the JAX step cuts the global batch into micro-batches and then
+    shards each over the data axis. Statistics taken over the data group
+    (batch norm, the length-normalized loss, ``acc_att``) match the JAX
+    step's only where process p's k-th micro-batch is p's share of the
+    global k-th micro-batch: of a global batch of B rows, p holds rows
+    k * B / A + p * B / (A * P) onward, B / (A * P) of them, for k = 0 ..
+    A - 1 in that order (A = accum_grad, P = the data axis's size)."""
 
     def __init__(self, cfg: ChunkFormerConfig, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer,
@@ -186,7 +196,11 @@ class Executor:
             step = self.step
             if step % self.log_interval == 0:
                 metrics.pop("step", None)
+                # acc_att is a ratio over the data group's tokens already
+                acc = metrics.pop("acc_att", None)
                 m = {k: float(v) for k, v in all_reduce_mean(metrics, self.dp).items()}
+                if acc is not None:
+                    m["acc_att"] = float(acc)
                 rate = n_seen / max(time.time() - t0, 1e-9)
                 logging.info(
                     "epoch %d step %d chunk=%s loss %.4f (%s) %.1f utts/s",

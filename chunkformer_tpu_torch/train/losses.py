@@ -10,6 +10,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import ChunkFormerConfig
 from ..models.transducer import joint_forward
@@ -17,13 +18,18 @@ from ..ops.common import IGNORE_ID, add_sos_eos, reverse_pad_list, th_accuracy
 from ..ops.ctc import ctc_loss
 from ..ops.rnnt import (rnnt_arc_loglik, rnnt_loss, rnnt_loss_pruned, rnnt_prune_bounds,
                         rnnt_smoothed_arcs)
+from ..parallel.data_group import active, count_over
 
 
 def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor, smoothing: float,
-                         ignore_id: int = IGNORE_ID,
-                         normalize_length: bool = False) -> torch.Tensor:
+                         ignore_id: int = IGNORE_ID, normalize_length: bool = False,
+                         group: Optional[object] = None) -> torch.Tensor:
     """KL(smoothed one-hot || softmax) summed over tokens, over the batch size
-    (or the token count with normalize_length) (label_smoothing_loss.py:21-103)."""
+    (or the token count with normalize_length) (label_smoothing_loss.py:21-103).
+    With normalize_length and a data ``group`` of P > 1 processes the
+    denominator is the group's token count over P: the gradient reducers'
+    mean over the P processes then gives Σ kl / Σ tokens over the global
+    batch, as the JAX package's step under GSPMD."""
     b, _, v = logits.shape
     logp = torch.log_softmax(logits.float(), dim=-1)
     mask = target != ignore_id
@@ -37,7 +43,22 @@ def label_smoothing_loss(logits: torch.Tensor, target: torch.Tensor, smoothing: 
         max(low, 1e-20))
     kl = (nll + ent).masked_fill(~mask, 0.0)
     denom = mask.sum() if normalize_length else b
+    if normalize_length and active(group):
+        denom = count_over(denom, group) / dist.get_world_size(group)
     return kl.sum() / denom
+
+
+def token_accuracy(logits: torch.Tensor, target: torch.Tensor,
+                   group: Optional[object] = None) -> torch.Tensor:
+    """``th_accuracy``; with a data ``group`` of more than one process the
+    ratio of the group's correct and counted tokens, as the JAX package's
+    over the global batch."""
+    if not active(group):
+        return th_accuracy(logits, target)
+    mask = target != IGNORE_ID
+    counts = count_over(torch.stack([((logits.argmax(-1) == target) & mask).sum(),
+                                     mask.sum()]), group)
+    return counts[0] / counts[1].clamp_min(1)
 
 
 def asr_model_loss(model, cfg: ChunkFormerConfig, feats: torch.Tensor,
@@ -75,14 +96,17 @@ def asr_model_loss(model, cfg: ChunkFormerConfig, feats: torch.Tensor,
         l_logits, r_logits = model.decoder(enc_out, enc_mask, ys_in, target_lens + 1, r_ys_in,
                                            mc.reverse_weight,
                                            generator_on(generator, feats.device, train))
+        group = model.data_group
         loss_att = label_smoothing_loss(l_logits, ys_out, mc.lsm_weight,
-                                        normalize_length=mc.length_normalized_loss)
+                                        normalize_length=mc.length_normalized_loss,
+                                        group=group)
         if r_logits is not None:
             r_loss = label_smoothing_loss(r_logits, r_ys_out, mc.lsm_weight,
-                                          normalize_length=mc.length_normalized_loss)
+                                          normalize_length=mc.length_normalized_loss,
+                                          group=group)
             loss_att = (1 - mc.reverse_weight) * loss_att + mc.reverse_weight * r_loss
         metrics["loss_att"] = loss_att
-        metrics["acc_att"] = th_accuracy(l_logits, ys_out)
+        metrics["acc_att"] = token_accuracy(l_logits, ys_out, group)
         loss = loss + (1.0 - mc.ctc_weight) * loss_att
 
     metrics["loss"] = loss
@@ -158,7 +182,8 @@ def transducer_model_loss(model, cfg: ChunkFormerConfig, feats: torch.Tensor,
         l_logits, _ = model.decoder(enc_out, enc_mask, ys_in, target_lens + 1, None, 0.0,
                                     generator_on(generator, dev, train))
         loss_att = label_smoothing_loss(l_logits, ys_out, mc.lsm_weight,
-                                        normalize_length=mc.length_normalized_loss)
+                                        normalize_length=mc.length_normalized_loss,
+                                        group=model.data_group)
         metrics["loss_att"] = loss_att
         loss = loss + mc.attention_weight * loss_att
 

@@ -10,7 +10,9 @@ and the entry points never drift to the CPU.
 
 import ast
 import contextlib
+import glob
 import os
+import re
 
 import jax
 import numpy as np
@@ -161,11 +163,25 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_jax():
+    """The package, chip_smoke.py, the tool twins and the app twins import
+    nothing of JAX or the JAX package; the recipe twins name no module of
+    the JAX package."""
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "chunkformer_tpu_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
-    for path in files:
+    for top_dir in ("chunkformer_tpu_torch", os.path.join("apps", "realtime-asr-torch"),
+                    os.path.join("apps", "streamlit_torch")):
+        for root, _, names in os.walk(os.path.join(REPO, top_dir)):
+            files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    tools = glob.glob(os.path.join(REPO, "tools", "*_torch_*.py"))
+    assert len(tools) >= 10 and len(files) > 10
+    for path in files + tools:
         for mod in _imports(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "chunkformer_tpu", "flax", "optax"), (path, mod)
+    recipes = glob.glob(os.path.join(REPO, "examples", "**", "run_torch.sh"), recursive=True)
+    assert len(recipes) == 3
+    for path in recipes:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        assert "chunkformer_tpu_torch." in text, path
+        assert not re.search(r"\bchunkformer_tpu\.", text), path
+        assert not re.search(r"\bjax\b", text), path
