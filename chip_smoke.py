@@ -133,7 +133,18 @@ non-zero exit code and no result line:
    the streaming phase's 60 s file equal to ``bin/stream.py``'s
    transcript, and ``apps/streamlit_torch``'s ``transcribe_audio`` of the
    2040 s file equal to ``endless_decode``'s segments of the same export;
-16. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+16. decode with the chunk rows split over a process group
+   (``parallel/row_shard.py``) at world size 1 on NCCL in this process:
+   ChunkFormer-large on a middle macro-segment of the 1800 s budget (209
+   rows, trunc > 0) in bf16 and f32, ``parallel_chunk(group=...)`` with the
+   gathered CTC tokens bitwise equal to ``group=None`` (tokens, outputs,
+   both caches), 17 tensor-core B1 launches a call, both walls;
+17. the five measurement-tool twins (``tools/ablate_torch_step.py``,
+   ``ablate_torch_train_step.py``, ``bench_torch_endless_breakdown.py``,
+   ``bench_torch_pipeline.py``, ``bench_torch_scaling.py`` under torchrun
+   with one process) as subprocesses at their smallest arguments: exit 0
+   and JSON naming the card;
+18. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -169,6 +180,17 @@ LARGE = {  # ChunkFormer-large, as bench.py:220-227
                                     "frame_length": 25, "dither": 0.0}},
 }
 C, LEFT, RIGHT, BUDGET = 64, 128, 128, 1800
+
+
+def scaled_large(d_model: int = 512, num_blocks: int = 17) -> dict:
+    """``LARGE`` at ``d_model`` (a head per 64 channels, FFN 4 x d_model) and
+    ``num_blocks`` (the measurement tools' widths; the defaults are LARGE)."""
+    enc = {**LARGE["encoder_conf"], "output_size": d_model,
+           "attention_heads": max(d_model // 64, 1), "linear_units": 4 * d_model,
+           "num_blocks": num_blocks}
+    return {**LARGE, "encoder_conf": enc}
+
+
 LONG_SECONDS = 2040.0     # 3 macro-segments of the 1800 s budget
 BATCH_SECONDS = (17.3, 48.1, 95.7)
 
@@ -230,6 +252,17 @@ def speechlike(rng: np.random.Generator, seconds: float, sr: int = 16000) -> np.
     env = (np.sin(np.float32(2 * np.pi * 0.4) * t) > -0.3).astype(np.float32)
     x = env * x * 2500.0 + rng.normal(0.0, 300.0, n).astype(np.float32)
     return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def card_name(device: torch.device) -> str:
+    """``nvidia-smi``'s name and power limit of the card ``device`` names, or
+    "cpu" (the measurement tools' label of their numbers)."""
+    if device.type != "cuda":
+        return "cpu"
+    smi = subprocess.run(["nvidia-smi", "-i", str(device.index or 0),
+                          "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
 
 
 def phase_device():
@@ -3416,6 +3449,138 @@ def phase_data_parallel_one(card, device):
     return counts
 
 
+def phase_sharded_decode(card, device):
+    """Masked-batch decode with the chunk rows split over a process group
+    (``parallel/row_shard.py``) at world size 1 on NCCL (gloo on the CPU), in
+    the smoke's own process: ChunkFormer-large (random weights from
+    ``random_params_like``) at (64, 128, 128) on a middle macro-segment of
+    the 1800 s budget (``endless_sizing``: 209 rows, trunc > 0; the caches
+    from the segment before it), in bf16 and f32. ``parallel_chunk(group=g)``
+    with the gathered CTC tokens must equal ``group=None`` bit for bit
+    (tokens, outputs, both new caches): at one process the halo exchange
+    copies the rank's own slab. Each sharded call launches the routed
+    tensor-core B1 once a layer and no CUDA-core B1. Prints both walls
+    (median of three calls after a warm-up). Returns the launch counts of
+    the sharded calls by dtype. The group is destroyed before returning."""
+    import torch.distributed as dist
+
+    from chunkformer_tpu_torch.api import endless_sizing
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+    from chunkformer_tpu_torch.models.asr import ASRModel
+    from chunkformer_tpu_torch.ops import chunk as chunk_ops
+    from chunkformer_tpu_torch.parallel.mesh import init_distributed
+    from chunkformer_tpu_torch.utils.params import random_params_like
+
+    cfg = ChunkFormerConfig.from_dict(LARGE)
+    enc = cfg.encoder_conf
+    n_layers = enc.num_blocks
+    trunc, _, step_raw, seg_raw, capacity = endless_sizing(enc, C, RIGHT, BUDGET)
+    span = (capacity - 1) * enc.subsampling_rate * C + (C - 1) * enc.subsampling_rate + 15
+    gen = torch.Generator().manual_seed(SEED + 71)
+    feats = torch.randn(step_raw + span, 80, generator=gen).to(device)
+    max_len = 1 + (seg_raw - 15) // enc.subsampling_rate
+
+    def meta(value):
+        return torch.full((capacity,), value, dtype=torch.int32, device=device)
+
+    chunk_idx = torch.arange(capacity, dtype=torch.int32, device=device)
+    base = random_params_like(ASRModel(cfg))
+    counts = {}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with world_of_one():
+        init_distributed(device, "dp")
+        group = dist.group.WORLD
+        backend = dist.get_backend(group)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            model = ASRModel(cfg).to(device=device, dtype=dtype).eval()
+            model.load_state_dict(base.state_dict())
+            with torch.inference_mode():
+                att, cnn = model.encoder.init_caches(LEFT, dtype, device)
+                xs = chunk_ops.device_pack_segment(feats, 0, C, capacity=capacity).to(dtype)
+                _, att, cnn = model.encoder.parallel_chunk(
+                    xs, chunk_idx, meta(0), meta(max_len), C, LEFT, RIGHT, att, cnn, trunc)
+                xs = chunk_ops.device_pack_segment(feats, step_raw, C, capacity=capacity)
+                args = (xs.to(dtype), chunk_idx, meta(trunc), meta(max_len), C, LEFT, RIGHT,
+                        att, cnn, trunc)
+
+                def plain():
+                    out, a, k = model.encoder.parallel_chunk(*args)
+                    return model.ctc.argmax(out), out, a, k
+
+                def sharded():
+                    out, a, k = model.encoder.parallel_chunk(*args, group=group)
+                    return model.ctc.gathered_argmax(out, group), out, a, k
+
+                walls = {}
+                for name, fn in (("group=None", plain), ("group", sharded)):
+                    fn()
+                    sync()
+                    times = []
+                    for _ in range(3):
+                        reset_counts()
+                        t0 = time.time()
+                        result = fn()
+                        sync()
+                        times.append(time.time() - t0)
+                    walls[name] = (sorted(times)[1], result, read_counts())
+            (t_plain, want, _), (t_sharded, got, launches) = walls["group=None"], walls["group"]
+            equal = {name: torch.equal(g, w) for name, g, w in zip(
+                ("tokens", "outputs", "attention cache", "conv cache"), got, want)}
+            log(f"sharded decode {tag}, world size 1 ({backend}), {capacity} rows, trunc "
+                f"{trunc}: group vs group=None bitwise {equal}; wall {1e3 * t_sharded:.2f} ms "
+                f"vs {1e3 * t_plain:.2f} ms (median of 3); launches {launches}; card {card}")
+            require(all(equal.values()),
+                    f"sharded decode {tag} differs from group=None: {equal}")
+            require(device.type != "cuda" or (launches["chunk_attention_tc"] == n_layers
+                                              and launches["chunk_attention"] == 0),
+                    f"sharded decode {tag} launches {launches}")
+            counts[tag] = launches
+            del model
+    require(not dist.is_initialized(), "the sharded decode's process group is still up")
+    return counts
+
+
+TOOL_RUNS = (  # (tool, its smallest arguments at full width), each with --json
+    ("ablate_torch_step.py", ["--iters", "1"]),
+    ("ablate_torch_train_step.py", ["full", "--steps", "1"]),
+    ("bench_torch_endless_breakdown.py", ["--trials", "1", "--seconds", "300"]),
+    ("bench_torch_pipeline.py", ["--n", "16", "--seconds", "2"]),
+    ("bench_torch_scaling.py", ["--iters", "1", "--minutes", "1"]),
+)
+
+
+def phase_tools(tmp, card):
+    """The five measurement-tool twins as subprocesses of this interpreter at
+    their smallest arguments, ``bench_torch_scaling.py`` under torchrun with
+    one process: each exits 0 and writes parseable JSON naming the card.
+    Prints each one's wall and its JSON."""
+    import socket
+
+    for tool, argv in TOOL_RUNS:
+        out = os.path.join(tmp, tool.replace(".py", ".json"))
+        cmd = [os.path.join(REPO, "tools", tool), *argv, "--json", out]
+        if tool == "bench_torch_scaling.py":
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            cmd = ["-m", "torch.distributed.run", "--nproc_per_node", "1",
+                   "--master_addr", "localhost", "--master_port", str(port), *cmd]
+        t0 = time.time()
+        run = subprocess.run([sys.executable, *cmd], capture_output=True, text=True,
+                             timeout=600, cwd=REPO)
+        wall = time.time() - t0
+        require(run.returncode == 0, f"{tool} exited {run.returncode}: "
+                f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+        with open(out) as f:
+            result = json.load(f)
+        require(result.get("device") == card, f"{tool} ran on {result.get('device')}")
+        log(f"{tool} {' '.join(argv)}: exit 0 in {wall:.1f} s; {json.dumps(result)}")
+
+
 @contextlib.contextmanager
 def app_modules(name):
     """``apps/<name>`` first on sys.path, with none of the apps' module
@@ -3600,6 +3765,14 @@ def main() -> int:
         app_launches, transcribe_launches = phase_apps(tmp, card, torch.device("cuda"),
                                                        main_export, long_wav)
         log(f"[phase apps] {time.time() - t:.1f} s")
+
+        t = time.time()
+        sharded_launches = phase_sharded_decode(card, torch.device("cuda"))
+        log(f"[phase sharded decode at world size 1] {time.time() - t:.1f} s")
+
+        t = time.time()
+        phase_tools(tmp, card)
+        log(f"[phase measurement tools] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3770,6 +3943,17 @@ def main() -> int:
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
          "launches": app_launches["fbank_fft"] + transcribe_launches["fbank_fft"],
          **results["fbank_fft"], "library_ms": None}]
+    kernels += [
+        {"name": "chunk_attention_tc_sharded", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": sharded_launches["bf16"]["chunk_attention_tc"],
+         **results["attention bf16 tensor cores"], "library_ms": None},
+        {"name": "chunk_attention_tc_f32_sharded", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": sharded_launches["f32"]["chunk_attention_tc"],
+         **results["attention f32 tensor cores"], "library_ms": None}]
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -3804,7 +3988,9 @@ def main() -> int:
         f"process); the world-of-one data-parallel step (*_dp1): the same, launches from the "
         f"grouped step; the apps (*_apps): B1 f32 and the FFT fbank kernel timed at the main "
         f"path's shapes, launches from transcribe_audio of the 2040 s file (fbank also from "
-        f"RealtimeASR.run's 60 s); card {card}")
+        f"RealtimeASR.run's 60 s); the sharded decode (*_sharded): B1 timed at the main "
+        f"path's shapes (the same N = {capacity} segment), launches from one "
+        f"parallel_chunk(group=...) call at world size 1 in each dtype; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

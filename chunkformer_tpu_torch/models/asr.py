@@ -19,6 +19,7 @@ from ..nn.attention import RelPositionMultiHeadedAttention
 from ..nn.decoder import BiTransformerDecoder
 from ..nn.encoder import ChunkFormerEncoder
 from ..nn.layers import LSTMWeights
+from ..parallel.row_shard import gather_rows
 
 
 class CTC(nn.Module):
@@ -31,6 +32,14 @@ class CTC(nn.Module):
     def argmax(self, encoder_out: torch.Tensor) -> torch.Tensor:
         """Greedy frame tokens (reference: modules/ctc.py:83-91)."""
         return self.ctc_lo(encoder_out).argmax(dim=-1)
+
+    def gathered_argmax(self, encoder_out: torch.Tensor, group) -> torch.Tensor:
+        """Greedy frame tokens of this rank's chunk rows encoder_out
+        [n_local, c, D], then every rank's [N, c] in global row order, on
+        every rank of ``group`` (``parallel/row_shard.py``). The caller trims
+        each utterance's frames with ``out_lens``, as after ``argmax`` of
+        the whole batch."""
+        return gather_rows(self.argmax(encoder_out), group)
 
 
 class ASRModel(nn.Module):

@@ -39,6 +39,7 @@ from torch import nn
 from ..ops.chunk_attention import chunk_attention, masked_softmax
 from ..ops.chunk_attention_train import chunk_train_attention, window_keep_mask
 from ..ops.relshift import rel_shift
+from ..parallel import row_shard
 from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
 from .layers import dropout
 
@@ -67,21 +68,30 @@ class RelPositionMultiHeadedAttention(nn.Module):
     def parallel_chunk(
         self, x: torch.Tensor, pos_emb: torch.Tensor, chunk_idx: torch.Tensor,
         offsets: torch.Tensor, max_lens: torch.Tensor, cache: torch.Tensor,
-        left: int, right: int, truncated_context_size: int,
+        left: int, right: int, truncated_context_size: int, group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N, c, D] chunk rows; pos_emb [2c-1+L+R, D]; cache [L, H, 2dk].
 
         Returns (out [N, c, D], new_cache [L, H, 2dk]); the new cache is rows
         [trunc, trunc + L) of the cache-prefixed stream (reference
-        attention.py:467).
+        attention.py:467). With ``group`` (a process group) x holds this
+        rank's block of the batch's rows (``parallel/row_shard.py``): the
+        K/V stream's L rows before the block and R rows after it come from
+        the neighbouring ranks (the cache before the first row, zeros after
+        the last), and the new cache, from the global stream, is the same on
+        every rank.
         """
         n, c, d = x.shape
         h, dk = self.heads, self.d_k
         q = self.linear_q(x).view(n, c, h, dk)
         kv = torch.cat([self.linear_k(x).view(n * c, h, dk),
                         self.linear_v(x).view(n * c, h, dk)], dim=-1)
-        stream = torch.cat([cache.to(kv.dtype), kv, kv.new_zeros(right, h, 2 * dk)], dim=0)
-        new_cache = stream[truncated_context_size:truncated_context_size + left].clone()
+        if group is None:
+            stream = torch.cat([cache.to(kv.dtype), kv, kv.new_zeros(right, h, 2 * dk)], dim=0)
+            new_cache = stream[truncated_context_size:truncated_context_size + left].clone()
+        else:
+            stream, new_cache = row_shard.exchange(kv, cache.to(kv.dtype), right, group,
+                                                   (truncated_context_size, left))
         p = self.linear_pos(pos_emb.to(x.dtype)).view(-1, h, dk)
         ctx = chunk_attention(q, stream, p, self.pos_bias_u, self.pos_bias_v,
                               chunk_idx, offsets, max_lens, chunk=c, left=left, right=right)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import row_shard
 from .layers import batch_norm_train
 
 
@@ -43,21 +44,29 @@ class ConvolutionModule(nn.Module):
 
     def parallel_chunk(
         self, x: torch.Tensor, conv_mask: torch.Tensor, cache: torch.Tensor,
-        truncated_context_size: int,
+        truncated_context_size: int, group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [N, c, D]; conv_mask [N, 1, c + 2*lorder]; cache [D, lorder].
 
         Returns (y [N, c, D], new_cache [D, lorder]); the new cache is columns
         [trunc, trunc + lorder) of the cache-prefixed stream
-        (reference convolution.py:229-230).
+        (reference convolution.py:229-230). With ``group`` x holds this
+        rank's block of rows, and the lorder frames on each side of it come
+        from the neighbouring ranks as in the attention's
+        ``parallel_chunk``.
         """
         n, c, d = x.shape
         lo = self.lorder
         h = F.glu(F.linear(x, self.pointwise_conv1.weight[:, :, 0],
                            self.pointwise_conv1.bias), dim=-1)            # [N, c, D]
-        flat = torch.cat([cache.t().to(h.dtype), h.reshape(n * c, d)], dim=0)
-        new_cache = flat[truncated_context_size:truncated_context_size + lo].t().contiguous()
-        flat = F.pad(flat, (0, 0, 0, lo))
+        if group is None:
+            flat = torch.cat([cache.t().to(h.dtype), h.reshape(n * c, d)], dim=0)
+            new_cache = flat[truncated_context_size:truncated_context_size + lo].t().contiguous()
+            flat = F.pad(flat, (0, 0, 0, lo))
+        else:
+            flat, kept = row_shard.exchange(h.reshape(n * c, d), cache.t().to(h.dtype), lo,
+                                            group, (truncated_context_size, lo))
+            new_cache = kept.t().contiguous()
         win = flat.unfold(0, c + 2 * lo, c)                                # [N, D, c+2l]
         win = win.masked_fill(~conv_mask, 0.0)
         y = F.conv1d(win, self.depthwise_conv.weight, self.depthwise_conv.bias,

@@ -123,12 +123,19 @@ class ChunkFormerEncoder(nn.Module):
         self, xs: torch.Tensor, chunk_idx: torch.Tensor, offsets: torch.Tensor,
         max_lens: torch.Tensor, chunk_size: int, left_context_size: int,
         right_context_size: int, att_cache: torch.Tensor, cnn_cache: torch.Tensor,
-        truncated_context_size: int = 0,
+        truncated_context_size: int = 0, group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Masked-batch inference over packed chunk rows xs [N, size, feat].
 
         chunk_idx / offsets / max_lens are int32 [N] on the device of xs.
         Returns (out [N, c, D], new_att_cache, new_cnn_cache).
+
+        With ``group`` (a process group), each rank passes its block of the
+        batch's rows and their metadata (``parallel/row_shard.py``
+        ``split_rows``) and the same caches and ``truncated_context_size``;
+        every layer's attention and conv module exchange halo rows with the
+        neighbouring ranks. Each rank gets the outputs of its rows and the
+        new caches of the whole batch, the same on every rank.
         """
         cfg = self.cfg
         c, L, R = chunk_size, left_context_size, right_context_size
@@ -141,7 +148,7 @@ class ChunkFormerEncoder(nn.Module):
         for i, layer in enumerate(self.encoders):
             x, a, k = layer.parallel_chunk(x, pos_emb, chunk_idx, offsets, max_lens, conv_mask,
                                            att_cache[i], cnn_cache[i], L, R,
-                                           truncated_context_size)
+                                           truncated_context_size, group)
             new_att.append(a)
             new_cnn.append(k)
         if cfg.normalize_before and cfg.final_norm:

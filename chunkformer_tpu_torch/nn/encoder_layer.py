@@ -50,9 +50,11 @@ class ChunkFormerEncoderLayer(nn.Module):
         self, x: torch.Tensor, pos_emb: torch.Tensor, chunk_idx: torch.Tensor,
         offsets: torch.Tensor, max_lens: torch.Tensor, conv_mask: torch.Tensor,
         att_cache: torch.Tensor, cnn_cache: torch.Tensor, left: int, right: int,
-        truncated_context_size: int,
+        truncated_context_size: int, group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One block over chunk rows x [N, c, D]; returns (x, new_att_cache, new_cnn_cache)."""
+        """One block over chunk rows x [N, c, D]; returns (x, new_att_cache,
+        new_cnn_cache). With ``group`` x is this rank's block of the rows
+        (``parallel/row_shard.py``)."""
         ff_scale = 0.5 if self.feed_forward_macaron is not None else 1.0
         if self.feed_forward_macaron is not None:
             x, _ = self._residual(x, self.norm_ff_macaron,
@@ -61,13 +63,13 @@ class ChunkFormerEncoderLayer(nn.Module):
         x, new_att = self._residual(
             x, self.norm_mha, lambda h: self.self_attn.parallel_chunk(
                 h, pos_emb, chunk_idx, offsets, max_lens, att_cache, left, right,
-                truncated_context_size))
+                truncated_context_size, group))
 
         new_cnn = cnn_cache
         if self.conv_module is not None:
             x, new_cnn = self._residual(
                 x, self.norm_conv, lambda h: self.conv_module.parallel_chunk(
-                    h, conv_mask, cnn_cache, truncated_context_size))
+                    h, conv_mask, cnn_cache, truncated_context_size, group))
 
         x, _ = self._residual(x, self.norm_ff, lambda h: (self.feed_forward(h), None), ff_scale)
         if self.conv_module is not None:

@@ -172,7 +172,7 @@ def test_port_imports_nothing_of_jax():
         for root, _, names in os.walk(os.path.join(REPO, top_dir)):
             files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     tools = glob.glob(os.path.join(REPO, "tools", "*_torch_*.py"))
-    assert len(tools) >= 10 and len(files) > 10
+    assert len(tools) >= 15 and len(files) > 10
     for path in files + tools:
         for mod in _imports(path):
             top = mod.split(".")[0]
