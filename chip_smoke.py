@@ -144,7 +144,14 @@ non-zero exit code and no result line:
    ``bench_torch_pipeline.py``, ``bench_torch_scaling.py`` under torchrun
    with one process) as subprocesses at their smallest arguments: exit 0
    and JSON naming the card;
-18. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
+18. the port's benchmark, ``bench_torch.py``, at its defaults
+   (ChunkFormer-large in bf16, the flagship train step) as a subprocess:
+   exit 0, three milestone JSON lines each extending the one before, mfu
+   and train_mfu in (0, 1], a finite train_loss, and its launch counts:
+   the bf16 tensor-core B1 only, 34 a decode call, in the end-to-end and
+   device-walk stages, the bf16 tensor-core B4 and B5 only, 17 each a
+   step, in the train stage;
+19. a ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits non-zero.
 """
@@ -3581,6 +3588,59 @@ def phase_tools(tmp, card):
         log(f"{tool} {' '.join(argv)}: exit 0 in {wall:.1f} s; {json.dumps(result)}")
 
 
+def phase_bench(card):
+    """``bench_torch.py`` at its defaults as a subprocess of this
+    interpreter: exit 0; three stdout lines, each JSON extending the one
+    before; mfu and train_mfu in (0, 1]; a finite train_loss; the launch
+    counts it prints on stderr a stage: the bf16 tensor-core B1 only, 34 a
+    decode call (17 blocks, two macro-segments), in stages 1 and 2, the
+    bf16 tensor-core B4 and B5 only, 17 each a step, in stage 3. Prints the
+    three lines; returns the launches by counter name."""
+    from bench_torch import DECODE, DEVICE_SEGMENTS, LAUNCHES, TRAIN
+
+    t0 = time.time()
+    run = subprocess.run([sys.executable, os.path.join(REPO, "bench_torch.py")],
+                         capture_output=True, text=True, timeout=600, cwd=REPO)
+    wall = time.time() - t0
+    require(run.returncode == 0, f"bench_torch.py exited {run.returncode}: "
+            f"{run.stdout[-2000:]}{run.stderr[-3000:]}")
+    try:
+        lines = [json.loads(line) for line in run.stdout.splitlines()]
+        stages = {s["stage"]: s for s in (json.loads(line.split(LAUNCHES, 1)[1])
+                                          for line in run.stderr.splitlines()
+                                          if LAUNCHES in line)}
+    except (json.JSONDecodeError, KeyError) as e:
+        raise PhaseFailed(f"bench_torch.py printed malformed lines ({e}): {run.stdout[-2000:]}")
+    for line in lines:
+        log(f"bench_torch.py: {json.dumps(line)}")
+    require(len(lines) == 3, f"bench_torch.py printed {len(lines)} lines, not 3")
+    for before, after in zip(lines, lines[1:]):
+        require(len(after) > len(before) and all(after.get(k) == v for k, v in before.items()),
+                f"{after} does not extend {before}")
+    last = lines[-1]
+    require(0 < last["mfu"] <= 1 and 0 < last["train_mfu"] <= 1,
+            f"mfu {last['mfu']}, train_mfu {last['train_mfu']} not in (0, 1]")
+    require(bool(np.isfinite(last["train_loss"])), f"train_loss {last['train_loss']}")
+    require(last["device_kind"] == torch.cuda.get_device_name(0),
+            f"bench_torch.py ran on {last['device_kind']}")
+    decode_blocks = DECODE["encoder_conf"]["num_blocks"]
+    train_blocks = TRAIN["encoder_conf"]["num_blocks"]
+    want = {"e2e": {"chunk_attention_tc": 2 * decode_blocks},  # two macro-segments a call
+            "device": {"chunk_attention_tc": DEVICE_SEGMENTS * decode_blocks},
+            "train": {"train_fwd_tc": train_blocks, "train_bwd_tc": train_blocks}}
+    require(sorted(stages) == sorted(want), f"bench_torch.py stage launches {stages}")
+    for name, per_call in want.items():
+        calls = stages[name]["calls"]
+        require(stages[name]["counts"] == {k: v * calls for k, v in per_call.items()},
+                f"bench_torch.py {name} launches {stages[name]}, expected {per_call} a call")
+    log(f"bench_torch.py: exit 0 in {wall:.1f} s; launches "
+        f"{json.dumps({k: v for k, v in stages.items()})}; card {card}")
+    return {"chunk_attention_tc": sum(stages[k]["counts"]["chunk_attention_tc"]
+                                      for k in ("e2e", "device")),
+            "fwd_tc": stages["train"]["counts"]["train_fwd_tc"],
+            "bwd_tc": stages["train"]["counts"]["train_bwd_tc"]}
+
+
 @contextlib.contextmanager
 def app_modules(name):
     """``apps/<name>`` first on sys.path, with none of the apps' module
@@ -3773,6 +3833,11 @@ def main() -> int:
         t = time.time()
         phase_tools(tmp, card)
         log(f"[phase measurement tools] {time.time() - t:.1f} s")
+
+        t = time.time()
+        torch.cuda.empty_cache()
+        bench_launches = phase_bench(card)
+        log(f"[phase bench] {time.time() - t:.1f} s")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3953,7 +4018,19 @@ def main() -> int:
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
          "launches": sharded_launches["f32"]["chunk_attention_tc"],
-         **results["attention f32 tensor cores"], "library_ms": None}]
+         **results["attention f32 tensor cores"], "library_ms": None},
+        {"name": "chunk_attention_tc_bench", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": bench_launches["chunk_attention_tc"],
+         **results["attention bf16 tensor cores"], "library_ms": None}]
+    bf16_tc = train_results["train attention bf16 p=0.0"]["tensor_core"]
+    for part, line in (("fwd", 316), ("bwd", 390)):
+        kernels.append(
+            {"name": f"chunk_train_attention_tc_{part}_bench", "route": "cuda",
+             "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc.cu",
+             "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+             "launches": bench_launches[f"{part}_tc"], **bf16_tc[part], "library_ms": None})
     log(f"kernels at the main paths' shapes (fbank: the 2040 s launch, the FFT kernel with "
         f"launches from the bf16 decode, the DFT kernel timed on the same input with launches "
         f"from the bf16 decode (0: not the route of the main path's geometry); "
@@ -3990,7 +4067,11 @@ def main() -> int:
         f"path's shapes, launches from transcribe_audio of the 2040 s file (fbank also from "
         f"RealtimeASR.run's 60 s); the sharded decode (*_sharded): B1 timed at the main "
         f"path's shapes (the same N = {capacity} segment), launches from one "
-        f"parallel_chunk(group=...) call at world size 1 in each dtype; card {card}")
+        f"parallel_chunk(group=...) call at world size 1 in each dtype; the port's "
+        f"benchmark (*_bench): B1 bf16 timed at the main path's shapes (its macro-segments "
+        f"have the same N = {capacity}), launches from bench_torch.py's end-to-end and "
+        f"device-walk stages; B4 and B5 bf16 timed at the flagship train shape, launches "
+        f"from its train stage; card {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

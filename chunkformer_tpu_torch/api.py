@@ -376,10 +376,13 @@ class ChunkFormerModel:
                               total_batch_duration: int) -> np.ndarray:
         """Stream features [T, feat] (on the model's device, or on the host)
         through the encoder; return frame-level CTC tokens."""
-        parts = self._endless_segments(
-            feats, chunk_size, left, right, total_batch_duration,
-            lambda out, keep: self.model.ctc.argmax(out).reshape(-1)[:keep])
+        parts = self._endless_segments(feats, chunk_size, left, right, total_batch_duration,
+                                       self._ctc_tokens)
         return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int64)
+
+    def _ctc_tokens(self, out: torch.Tensor, keep: int) -> torch.Tensor:
+        """The CTC frame tokens of a macro-segment's ``keep`` frames, on the device."""
+        return self.model.ctc.argmax(out).reshape(-1)[:keep]
 
     @torch.inference_mode()
     def endless_encode(self, feats, chunk_size: int, left: int, right: int,
@@ -462,8 +465,8 @@ class ChunkFormerModel:
         transfer = _transfer or ("int8" if self.dtype == torch.bfloat16 else "f32")
         upload = FeatureUpload(feats, max(t_total, starts[-1] + span), transfer, self.device)
 
-        encoder = self.model.encoder
-        att, cnn = encoder.init_caches(left, self.dtype, self.device)
+        sizing = (trunc, rel_right, step_raw, seg_raw, capacity)
+        att, cnn = self.model.encoder.init_caches(left, self.dtype, self.device)
         chunk_idx = self._meta(np.arange(capacity))
         offset = 0
         parts = []
@@ -471,22 +474,39 @@ class ChunkFormerModel:
             buf = upload.wait(start + span)
             if i + 1 < len(starts):  # the next segment's new frames cross meanwhile
                 upload.prefetch(starts[i + 1] + span)
-            x_len = min(seg_raw, t_total - start)
-            max_len = 1 + (x_len - chunk_ops.SUBSAMPLING_CONTEXT) // sub
-            xs = chunk_ops.device_pack_segment(buf, start, c, sub, capacity)
-            xs = (dequantize(xs, upload.scale, self.dtype) if transfer == "int8"
-                  else xs.to(self.dtype))
-            out, att, cnn = encoder.parallel_chunk(
-                xs, chunk_idx, self._meta(np.full(capacity, offset)),
-                self._meta(np.full(capacity, max_len)), c, left, right, att, cnn, trunc)
-            enc_len = int(chunk_ops.calc_length(x_len))
-            is_last = start + rel_right >= t_total
-            keep = max(enc_len if is_last else min(trunc, enc_len), 0)
+            out, keep, att, cnn = self._endless_segment(
+                buf, upload.scale, transfer, start, t_total, c, left, right, sizing,
+                chunk_idx, offset, att, cnn)
             parts.append(segment(out, keep))
             offset += keep
         upload.close()
         self.bytes_uploaded = upload.bytes_uploaded
         return parts
+
+    def _endless_segment(self, buf: torch.Tensor, scale: float, transfer: str, start: int,
+                         t_total: int, c: int, left: int, right: int, sizing: Tuple,
+                         chunk_idx: torch.Tensor, offset: int, att: torch.Tensor,
+                         cnn: torch.Tensor):
+        """One macro-segment of the walk on a feature buffer already on the
+        device (int8 at ``scale`` or float): the chunk rows from raw frame
+        ``start`` through the encoder with the carried caches. ``sizing`` is
+        ``endless_sizing``'s tuple, ``t_total`` the audio's raw frames and
+        ``offset`` the frames kept before this segment. Returns (out
+        [capacity, c, D], keep, att, cnn); ``keep`` is ``trunc`` frames, or
+        all of them when the segment is the last."""
+        trunc, rel_right, _, seg_raw, capacity = sizing
+        sub = self.config.encoder_conf.subsampling_rate
+        x_len = min(seg_raw, t_total - start)
+        max_len = 1 + (x_len - chunk_ops.SUBSAMPLING_CONTEXT) // sub
+        xs = chunk_ops.device_pack_segment(buf, start, c, sub, capacity)
+        xs = dequantize(xs, scale, self.dtype) if transfer == "int8" else xs.to(self.dtype)
+        out, att, cnn = self.model.encoder.parallel_chunk(
+            xs, chunk_idx, self._meta(np.full(capacity, offset)),
+            self._meta(np.full(capacity, max_len)), c, left, right, att, cnn, trunc)
+        enc_len = int(chunk_ops.calc_length(x_len))
+        is_last = start + rel_right >= t_total
+        keep = max(enc_len if is_last else min(trunc, enc_len), 0)
+        return out, keep, att, cnn
 
     @torch.inference_mode()
     def batch_decode(

@@ -163,10 +163,10 @@ def _imports(path):
 
 
 def test_port_imports_nothing_of_jax():
-    """The package, chip_smoke.py, the tool twins and the app twins import
-    nothing of JAX or the JAX package; the recipe twins name no module of
-    the JAX package."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """The package, chip_smoke.py, bench_torch.py, the tool twins and the
+    app twins import nothing of JAX or the JAX package; the recipe twins
+    name no module of the JAX package."""
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     for top_dir in ("chunkformer_tpu_torch", os.path.join("apps", "realtime-asr-torch"),
                     os.path.join("apps", "streamlit_torch")):
         for root, _, names in os.walk(os.path.join(REPO, top_dir)):
