@@ -69,10 +69,14 @@ non-zero exit code and no result line:
    R = 0 encode against the parallel-chunk route, the token and beam
    checks, B4's eval forward timed against its bound; ``bin/decode.py`` on
    one file and ``bin/alignment.py`` on two;
-8. other geometries: the CUDA-core attention kernels (decode and training)
-   at chunks of 96, 48 and 72 against their plain versions, a 120 s f32
-   ``endless_decode`` at c = 96 against the plain attention, fbank at a
-   50 ms window (1024 points) on both routes;
+8. other geometries: the decode attention at chunks of 96, 48 and 72 on
+   the tensor cores (partial query tiles) in f32 and bf16, held and timed
+   beside the CUDA-core kernel and the plain version, the CUDA-core
+   training kernels there, a 120 s f32 ``endless_decode`` at c = 96
+   (tensor-core launches only) against the plain attention, the FFT fbank
+   at 50 ms with shifts of 160 and 161 samples, a 40 ms shift and 25 ms at
+   44.1 kHz (2048 points) beside the DFT kernel where it takes the window
+   and the plain version;
 9. the streaming path: an export of ChunkFormer-large (random weights from
    a seed); ``bin/stream.py`` on 60 s of audio at the realtime defaults
    (c, L, R) = (6, 50, 0) in f32 and bf16 after a warm-up, with the
@@ -1766,27 +1770,158 @@ def phase_search(tmp, card, device):
     return counts, b4, f32, (model_dir, test_list, wavs)
 
 
-# ---- other geometries: the shapes the CUDA-core kernels newly take (C7) and
-# the 1024-point fbank window (C5)
+# ---- other geometries: chunks that 64 does not divide (C7), on the tensor
+# cores, and the fbank geometries the FFT kernel took from the DFT kernel
 C7_DECODE = [(96, 64), (48, 128), (72, 64)]   # (c, dk); c = 72 over an odd 13 rows
 ENDLESS_C7 = (96, 120.0)                        # chunk, seconds of endless_decode
+FBANK_OTHER = [  # (name, fbank keywords, seconds of audio)
+    ("50 ms / 160", dict(frame_length=50.0, frame_shift=10.0), 120.0),
+    ("50 ms / 161", dict(frame_length=50.0, frame_shift=10.0625), 120.0),
+    ("25 ms / 40 ms shift", dict(frame_shift=40.0), 120.0),
+    ("25 ms at 44.1 kHz (2048 points)", dict(sample_rate=44100), LONG_SECONDS),
+]
+DFT_MAX_WIN = 907   # the DFT kernel's two [32][win] f32 tiles fit 227 KB of shared memory
+
+
+def other_attention(c, dk, n, trunc, gen, device, card):
+    """Decode attention at chunk c, head dim dk, over n rows: the routed
+    tensor-core kernel in f32 (3xTF32, atol 1e-5) and bf16 (atol 1e-2 plus
+    one bf16 ulp) against the plain version, the CUDA-core kernel beside it
+    at the same bars, timed in turns (tensor cores, CUDA cores, plain; 2
+    rounds); the tensor-core kernel must be the fastest. Returns
+    {dtype name: {"tc": result, "cc": result}}."""
+    from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention,
+                                                           chunk_attention_cuda_core,
+                                                           chunk_attention_plain, route)
+
+    kw = dict(chunk=c, left=LEFT, right=RIGHT)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        name, atol, rtol = ("f32", 1e-5, 0.0) if f32 else ("bf16", 1e-2, 2.0 ** -7)
+        args = attention_inputs(n, dtype, trunc, n * c - 37, gen, device, c=c, dk=dk)
+        require(route(*args[:3]) == "tensor_core", f"c={c} dk={dk} {name} not on the "
+                f"tensor-core route")
+        label = f"attention {name} tensor cores c={c} dk={dk} N={n}"
+        launches = (chunk_attention.launches, chunk_attention.tc_launches)
+        _, err = check_attention(label, chunk_attention, args, atol, rtol)
+        require((chunk_attention.launches, chunk_attention.tc_launches)
+                == (launches[0], launches[1] + 1), f"{label}: the tensor-core kernel did not run")
+        _, cc_err = check_attention(f"attention {name} CUDA cores c={c} dk={dk}",
+                                    chunk_attention_cuda_core, args, atol, rtol)
+        tc, cc, plain = [], [], []
+        for _ in range(2):
+            tc.append(cuda_ms(lambda: chunk_attention(*args, **kw), iters=20))
+            cc.append(cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=5))
+            plain.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3, warmup=1))
+        ms, cc_ms, plain_ms = (sum(x) / 2 for x in (tc, cc, plain))
+        bound_ms, bound_by = attention_bound(args, "tf32" if f32 else None)
+        cc_bound, cc_by = attention_bound(args)
+        out[name] = {"tc": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by),
+                     "cc": dict(max_abs_err=cc_err, ms=cc_ms, plain_ms=plain_ms,
+                                bound_ms=cc_bound, bound_by=cc_by)}
+        log(f"{label} (H=8, L=R={LEFT}, {-(-c // 64)} query tiles a chunk, the last "
+            f"{c - 64 * (-(-c // 64) - 1)} rows): max|kernel-plain| {err:.3g} (atol {atol}, rtol "
+            f"{rtol}), CUDA cores {cc_err:.3g}; in turns (2 rounds): tensor cores {ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in tc)}), CUDA cores {cc_ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in cc)}), plain {plain_ms:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in plain)}); bound {bound_ms:.4f} ms by {bound_by} "
+            f"(CUDA cores: {cc_bound:.4f} ms by {cc_by}), {ms / bound_ms:.1f}x; card {card}")
+        require(ms < plain_ms and ms < cc_ms, f"{label}: {ms:.4f} ms is not below the plain "
+                f"version ({plain_ms:.4f}) and the CUDA-core kernel ({cc_ms:.4f})")
+        del args
+    return out
+
+
+def other_fbank(device, card):
+    """fbank at ``FBANK_OTHER``'s geometries: the routed call launches the
+    FFT kernel once (counts reset around it) and is within atol 2e-3 + rtol
+    1e-3 of the plain version. The DFT kernel, called directly where it
+    takes the window (at most 907 samples, C23), is held to the same bar at
+    50 ms, where it always was; at the 40 ms shift its float32 DFT's
+    elements past the bar are counted and printed (C22), as is its largest
+    gap to the FFT kernel. The kernels and the plain version are timed in
+    turns (2 rounds); the FFT kernel must be the fastest. Returns {name:
+    {"fft": result, "dft": result or None, "launches": counts}}."""
+    from chunkformer_tpu_torch.ops.fbank import (_geometry, band_table, fbank, fbank_dft,
+                                                 fbank_fft, fbank_plain, num_frames)
+    from chunkformer_tpu_torch.ops.fbank import route as fbank_route
+
+    out = {}
+    for name, kw, seconds in FBANK_OTHER:
+        sr = kw.get("sample_rate", 16000)
+        win, shift, padded = _geometry(sr, kw.get("frame_length", 25.0),
+                                       kw.get("frame_shift", 10.0))
+        require(fbank_route(**kw) == "fft", f"fbank {name} routed to {fbank_route(**kw)}")
+        wave = torch.from_numpy(speechlike(np.random.default_rng(SEED + 10), seconds, sr)
+                                .astype(np.float32)).to(device)
+        n = num_frames(wave.numel(), sr, kw.get("frame_length", 25.0),
+                       kw.get("frame_shift", 10.0))
+        want = fbank_plain(wave, **kw)
+        reset_counts()
+        got = {"fft": fbank(wave, **kw)}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        require(counts == {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
+                           "fbank_fft": 1}, f"fbank {name} launches {counts}")
+        dft = win <= DFT_MAX_WIN
+        if dft:
+            got["dft"] = fbank_dft(wave, **kw)
+            torch.cuda.synchronize()
+        errs, over = {}, {}
+        for k, feats in got.items():
+            err = (feats - want).abs()
+            errs[k] = float(err.max())
+            over[k] = int((err > 2e-3 + 1e-3 * want.abs()).sum())
+            require(feats.shape == (n, 80) and bool(torch.isfinite(feats).all())
+                    and (over[k] == 0 or (k == "dft" and name == "25 ms / 40 ms shift")),
+                    f"fbank {k} at {name}: max err {errs[k]:.3g}, {over[k]} past the bar")
+        gap = f"{float((got['fft'] - got['dft']).abs().max()):.3g}" if dft else "-"
+        times = {k: [] for k in ("fft", "dft", "plain") if k != "dft" or dft}
+        for _ in range(2):
+            times["fft"].append(cuda_ms(lambda: fbank_fft(wave, **kw), iters=10))
+            if dft:
+                times["dft"].append(cuda_ms(lambda: fbank_dft(wave, **kw), iters=3, warmup=1))
+            times["plain"].append(cuda_ms(lambda: fbank_plain(wave, **kw), iters=3, warmup=1))
+        ms = {k: sum(v) / 2 for k, v in times.items()}
+        bound_ms, bound_by = fbank_bound(wave, n, win=win, padded=padded, sample_rate=sr)
+        out[name] = {k: (dict(max_abs_err=errs[k], ms=ms[k], plain_ms=ms["plain"],
+                              bound_ms=bound_ms, bound_by=bound_by) if k in errs else None)
+                     for k in ("fft", "dft")}
+        out[name]["launches"] = counts
+        nnz = int(band_table(80, padded, float(sr))[1].sum())
+        log(f"fbank {name}: {win} samples, shift {shift}, padded {padded}, {sr} Hz, "
+            f"{seconds:.0f} s ({n} frames, {nnz} mel weights); routed fbank launches {counts}; "
+            f"max|kernel-plain| FFT {errs['fft']:.3g}, DFT "
+            + (f"{errs['dft']:.3g} ({over['dft']} of {want.numel()} past the bar)" if dft
+               else f"not run (it refuses windows above {DFT_MAX_WIN} samples)")
+            + f", FFT-DFT {gap}; in turns (2 rounds): " + ", ".join(
+                f"{k} {ms[k]:.4f} ms ({', '.join(f'{x:.4f}' for x in v)})"
+                for k, v in times.items())
+            + f"; bound {bound_ms:.4f} ms by {bound_by}, FFT {ms['fft'] / bound_ms:.1f}x; "
+            f"card {card}")
+        require(ms["fft"] < min(ms.get("dft", ms["plain"]), ms["plain"]),
+                f"fbank {name}: the FFT kernel ({ms['fft']:.4f} ms) is not below the plain "
+                f"version and the DFT kernel ({ms})")
+        del wave, want, got
+    return out
 
 
 def phase_other_geometries(card, device, f32):
-    """The CUDA-core kernels at the C7 shapes against their plain versions
-    (timed in turns), a 120 s f32 ``endless_decode`` at c = 96 on
-    ChunkFormer-large against the same decode through the plain attention,
-    and fbank at a 50 ms window (1024 points) on both routes. Returns the
-    c = 96 decode attention's results and launches."""
+    """Decode attention at the C7 shapes on the tensor cores in f32 and bf16,
+    held and timed beside the plain version and the CUDA-core kernel
+    (``other_attention``); the training kernels' CUDA-core route at the
+    same shapes; a 120 s f32 ``endless_decode`` at c = 96 on
+    ChunkFormer-large, tensor-core attention launches only, against the same
+    decode through the plain attention; fbank at the geometries the FFT
+    kernel took from the DFT kernel (``other_fbank``). Returns the results
+    by shape and geometry and the c = 96 decode's launches."""
     from chunkformer_tpu_torch.api import endless_sizing
     from chunkformer_tpu_torch.nn import attention as attention_module
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
-    from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention_cuda_core,
-                                                           chunk_attention_plain,
-                                                           cuda_core_slices, route)
-    from chunkformer_tpu_torch.ops.fbank import (fbank, fbank_dft, fbank_fft, fbank_plain,
-                                                 num_frames)
-    from chunkformer_tpu_torch.ops.fbank import route as fbank_route
+    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention_plain
+    from chunkformer_tpu_torch.ops.fbank import fbank
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     enc = f32.config.encoder_conf
@@ -1794,23 +1929,7 @@ def phase_other_geometries(card, device, f32):
     for c, dk in C7_DECODE:
         n = 13 if c == 72 else endless_sizing(enc, c, RIGHT, BUDGET)[4]
         trunc = endless_sizing(enc, c, RIGHT, BUDGET)[0]
-        args = attention_inputs(n, torch.float32, trunc, n * c - 37, gen, device, c=c, dk=dk)
-        require(route(*args[:3]) == "cuda_core", f"c={c} dk={dk} not on the CUDA-core route")
-        label = f"attention f32 CUDA cores c={c} dk={dk} N={n}"
-        _, err = check_attention(label, chunk_attention_cuda_core, args, 1e-5, 0.0)
-        kw = dict(chunk=c, left=LEFT, right=RIGHT)
-        ks, ps = [], []
-        for _ in range(2):
-            ks.append(cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw), iters=10))
-            ps.append(cuda_ms(lambda: chunk_attention_plain(*args, **kw), iters=3, warmup=1))
-        ms, plain_ms = sum(ks) / 2, sum(ps) / 2
-        bound_ms, bound_by = attention_bound(args)
-        results[(c, dk)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by)
-        log(f"{label} (H=8, L=R={LEFT}, {cuda_core_slices(c, dk)} row slices a chunk): "
-            f"max|kernel-plain| {err:.3g} (atol 1e-5); in turns (2 rounds): kernel {ms:.4f} ms "
-            f"({', '.join(f'{x:.4f}' for x in ks)}), plain {plain_ms:.4f} ms; bound "
-            f"{bound_ms:.4f} ms by {bound_by}, {ms / bound_ms:.1f}x; card {card}")
+        results[(c, dk)] = other_attention(c, dk, n, trunc, gen, device, card)
         # the training kernels at the same (c, dk): 8 utterances, ragged lens
         b, nch = 8, 4
         lens = torch.tensor([nch * c - 7 * i - (i * i) % 5 for i in range(b)][:-1] + [1],
@@ -1845,9 +1964,9 @@ def phase_other_geometries(card, device, f32):
             f"ms, bound {fb:.4f} ms by {fby}; backward within atol 1e-4 + rtol 1e-5 of autograd "
             f"through the plain forward (largest excess over rtol {b_err:.3g}), {bwd_ms:.4f} "
             f"ms, bound {bb:.4f} ms by {bby}")
-        del args, targs, ctx, m, den, dctx, got, ref, leaves, want
+        del targs, ctx, m, den, dctx, got, ref, leaves, want
 
-    # endless_decode of 120 s at c = 96 through the CUDA-core kernel, against
+    # endless_decode of 120 s at c = 96 through the tensor-core kernel, against
     # the plain attention: no flip where the f32 top-1/top-2 gap is 1e-3 or more
     c, seconds = ENDLESS_C7
     wave = speechlike(np.random.default_rng(SEED + 9), seconds)
@@ -1859,7 +1978,7 @@ def phase_other_geometries(card, device, f32):
     torch.cuda.synchronize()
     t_endless = time.time() - t0
     c96_counts = read_counts()
-    n_seg = c96_counts["chunk_attention"] // enc.num_blocks
+    n_seg = c96_counts["chunk_attention_tc"] // enc.num_blocks
     tokens, gap = frame_tokens_and_gap(f32, out[None], torch.tensor([out.shape[0]]))
     routed = attention_module.chunk_attention
     attention_module.chunk_attention = chunk_attention_plain
@@ -1873,45 +1992,16 @@ def phase_other_geometries(card, device, f32):
         f"{d}): {t_endless:.3f} s, {seconds / t_endless:.1f} audio-s/s; launches {c96_counts}; "
         f"tokens vs the plain attention: {int(flips.sum())} differ, {clear} where the f32 "
         f"top-1/top-2 gap is 1e-3 or more (limit 0)")
-    require(n_seg >= 1 and c96_counts == {"chunk_attention": enc.num_blocks * n_seg,
-                                          "chunk_attention_tc": 0, "fbank": 0, "fbank_fft": 0},
+    require(n_seg >= 1 and c96_counts == {"chunk_attention": 0,
+                                          "chunk_attention_tc": enc.num_blocks * n_seg,
+                                          "fbank": 0, "fbank_fft": 0},
             f"c={c} endless launches {c96_counts}")
     require(tokens.shape == plain_tokens.shape and clear == 0,
             f"c={c} endless tokens: {clear} flips at gap >= 1e-3")
+    del out, feats
 
-    # fbank at a 50 ms window (800 samples, padded 1024): even shift on the
-    # FFT kernel, an odd shift of 161 samples on the DFT kernel
-    wave = torch.from_numpy(speechlike(np.random.default_rng(SEED + 10), 120.0)
-                            .astype(np.float32)).to(device)
-    for shift_ms, want_route in ((10.0, "fft"), (10.0625, "dft")):
-        kw = dict(frame_length=50.0, frame_shift=shift_ms)
-        require(fbank_route(**kw) == want_route, f"50 ms / {shift_ms} ms routed to "
-                f"{fbank_route(**kw)}")
-        n = num_frames(wave.numel(), 16000, 50.0, shift_ms)
-        want = fbank_plain(wave, **kw)
-        fns = {"fft": fbank_fft, "dft": fbank_dft}
-        errs, times = {}, {}
-        for name in ((want_route,) if want_route == "dft" else ("fft", "dft")):
-            got = fns[name](wave, **kw)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            errs[name] = float(err.max())
-            require(got.shape == (n, 80) and bool((err <= 2e-3 + 1e-3 * want.abs()).all()),
-                    f"fbank {name} at 50 ms / {shift_ms} ms: max err {errs[name]:.3g}")
-        for name in errs:
-            times[name] = [cuda_ms(lambda: fns[name](wave, **kw), iters=10) for _ in range(2)]
-        plain_ms = cuda_ms(lambda: fbank_plain(wave, **kw), iters=3, warmup=1)
-        bound_ms, bound_by = fbank_bound(wave, n, win=800, padded=1024)
-        log(f"fbank 50 ms window (800 samples, padded 1024), shift {shift_ms} ms, 120 s ({n} "
-            f"frames), routed to {want_route}: " + "; ".join(
-                f"{name} kernel max|kernel-plain| {errs[name]:.3g}, {sum(t) / 2:.4f} ms "
-                f"({', '.join(f'{x:.4f}' for x in t)})" for name, t in times.items())
-            + f"; plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}; card {card}")
-        before = (fbank.launches, fbank.fft_launches)
-        fbank(wave, **kw)
-        moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
-        require(moved == ((0, 1) if want_route == "fft" else (1, 0)), f"fbank launches {moved}")
-    return results[(96, 64)], c96_counts["chunk_attention"]
+    results["fbank"] = other_fbank(device, card)
+    return results, c96_counts
 
 
 # ---- slice 9: the streaming path and multi-task classification
@@ -3791,7 +3881,7 @@ def main() -> int:
         log(f"[phase search path] {time.time() - t:.1f} s")
 
         t = time.time()
-        c96, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32)
+        other, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32)
         del search_f32
         torch.cuda.empty_cache()
         log(f"[phase other geometries] {time.time() - t:.1f} s")
@@ -3909,9 +3999,19 @@ def main() -> int:
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
          "launches": search_launches["fp32"]["fwd_tc"], **b4_eval["fp32"], "library_ms": None},
         {"name": "chunk_attention_c96", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": c96_launches["chunk_attention_tc"], **other[(96, 64)]["f32"]["tc"],
+         "library_ms": None},
+        {"name": "chunk_attention_c96_bf16", "route": "cuda",
+         "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
+         "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
+         "launches": 0, **other[(96, 64)]["bf16"]["tc"], "library_ms": None},
+        {"name": "chunk_attention_c96_cuda_core", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
-         "launches": c96_launches, **c96, "library_ms": None},
+         "launches": c96_launches["chunk_attention"], **other[(96, 64)]["f32"]["cc"],
+         "library_ms": None},
         {"name": "fbank_fft_stream", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
          "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
@@ -3945,6 +4045,19 @@ def main() -> int:
                  "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
                  "launches": rnnt_launches[f"train {tag}"][f"{part}_tc"],
                  **rnnt[f"train {tag}"][part], "library_ms": None})
+    for tag, geometry in (("odd_shift", "50 ms / 161"), ("long_shift", "25 ms / 40 ms shift"),
+                          ("2048", "25 ms at 44.1 kHz (2048 points)")):
+        fb_other = other["fbank"][geometry]
+        kernels.append({"name": f"fbank_fft_{tag}", "route": "cuda",
+                        "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+                        "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+                        "launches": fb_other["launches"]["fbank_fft"], **fb_other["fft"],
+                        "library_ms": None})
+    kernels.append({"name": "fbank_dft_odd_shift", "route": "cuda",
+                    "source": "chunkformer_tpu_torch/csrc/fbank.cu",
+                    "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+                    "launches": other["fbank"]["50 ms / 161"]["launches"]["fbank"],
+                    **other["fbank"]["50 ms / 161"]["dft"], "library_ms": None})
     kernels.append({"name": "fbank_fft_rnnt", "route": "cuda",
                     "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
                     "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
@@ -4042,8 +4155,11 @@ def main() -> int:
         f"timed in f32 with launches from the f32 step (0: not the route of the main path's "
         f"shapes); the search path: B4's forward in eval at the recognize batch's shape "
         f"(8 files, c = 64), launches from the bf16 and the f32 recognize calls; other "
-        f"geometries: the CUDA-core decode kernel at c = 96, dk = 64, launches from the 120 s "
-        f"f32 endless_decode at c = 96; the streaming path: the FFT fbank kernel on one step's "
+        f"geometries: the decode kernels at c = 96, dk = 64 (the f32 and bf16 tensor-core "
+        f"kernels and the f32 CUDA-core kernel), launches from the 120 s f32 endless_decode "
+        f"at c = 96; fbank at 50 ms / 161, a 40 ms shift and 25 ms at 44.1 kHz (the FFT "
+        f"kernels; the DFT kernel at 50 ms / 161 only), launches from one routed fbank call "
+        f"at each; the streaming path: the FFT fbank kernel on one step's "
         f"window, launches from the f32 bin/stream run; classification: B4's forward in eval "
         f"at classify_audio's shape at (128, 128, 128) (the 40 s file), launches from "
         f"classify_audio over the 8 files in bf16 and in f32; the transducer (*_rnnt, H = 4): "

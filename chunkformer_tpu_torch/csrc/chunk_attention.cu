@@ -6,9 +6,10 @@
 // kernel takes any number of chunk rows N and any strides, so one kernel
 // serves the row-major and the head-major contracts. It is the CUDA-core
 // route: since the tensor-core kernels (chunk_attention_tc.cu for bf16,
-// chunk_attention_tc_f32.cu for f32) took the main path's shapes (head_dim
-// 64 or 128, c a multiple of 64, 16-byte rows), it computes every other
-// shape, and it is their yardstick in chip_smoke.py.
+// chunk_attention_tc_f32.cu for f32) took f32 and bf16 at head_dim 64 or
+// 128 with 16-byte rows at any chunk size, it computes the other head dims
+// and the rows off the 16-byte grid, and it is their yardstick in
+// chip_smoke.py at every chunk size.
 //
 // Function, for chunk row n, head h, query row r < c, window position j < W
 // (W = L + c + R), the window being KV stream rows [n*c, n*c + W):

@@ -4,11 +4,11 @@
 // Replaces the TPU kernel chunk_attention_pallas_union_hmajor
 // (chunkformer_tpu/ops/pallas/chunk_attention.py:335), with its row-major
 // wrapper (:306) and the per-chunk and G-batched variants (:32, :158), for
-// bf16 inputs with head_dim 64 or 128 and a chunk size that is a multiple of
-// 64. f32 at the same shapes takes the 3xTF32 kernel of
-// chunk_attention_tc_f32.cu (this file's C entry dispatches by dtype), and
-// other shapes the CUDA-core kernel of chunk_attention.cu;
-// ops/chunk_attention.py routes by dtype, shape and stride alone. The function is that of chunk_attention.cu:
+// bf16 inputs with head_dim 64 or 128 at any chunk size. f32 at the same
+// shapes takes the 3xTF32 kernel of chunk_attention_tc_f32.cu (this file's
+// C entry dispatches by dtype), and other head dims, dtypes and strides the
+// CUDA-core kernel of chunk_attention.cu; ops/chunk_attention.py routes by
+// dtype, shape and stride alone. The function is that of chunk_attention.cu:
 //   s[r, j] = ((q[r] + u) . k[j] + (q[r] + v) . p[c - 1 - r + j]) / sqrt(dk)
 //   valid(j)  iff  -offset[n] <= chunk_idx[n]*c - L + j < max_len[n]
 //   out[r]    = softmax_j(s[r, j] | valid) . v[j]      (all-masked row -> 0)
@@ -23,8 +23,21 @@
 // operands from shared memory and no copy overlapped compute.
 //
 // Design: one block of one warpgroup (128 threads) per (chunk row n, head h,
-// 64 query rows); c = 64 gives exactly one wgmma M of 64. The key window
-// [lo, hi) of the block is walked in tiles of 64 keys.
+// tile of 64 query rows), ceil(c / 64) tiles a chunk; c = 64 gives exactly
+// one wgmma M of 64. The key window [lo, hi) of the block is walked in
+// tiles of 64 keys.
+// - Partial tiles. The last tile of a chunk whose size is not a multiple of
+//   64 holds c - r0 query rows (r0 = 64 * tile; at c < 64 the only tile).
+//   Its rows past the chunk load as zeros, run through the products and the
+//   softmax like the others (their scores are the bias terms alone, finite),
+//   and are not stored. Nothing else depends on the row count: the rel-shift
+//   row of query r and key j is c - 1 - r + j whatever the tile, so the
+//   positional base pb0 = lo + c - 64 - r0 below and the skew hold for a
+//   partial tile too, and its rows past the chunk read positional rows below
+//   0, which the copies zero-fill. The key window and the valid(j) mask do
+//   not depend on the row at all. A partial tile computes 64 rows for
+//   c - r0 (at c = 96, 128 rows for 96; at c = 48, 64 for 48); two chunk
+//   rows cannot share a tile because their key windows differ.
 // - Tensor cores. wgmma products from shared memory with bf16 inputs and f32
 //   accumulators: per tile S = Q K^T (64 x 64), and the position scores
 //   BD' = Q P^T over 64-row positional blocks. Key tile t needs blocks t and
@@ -111,6 +124,7 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   float* vp = reinterpret_cast<float*>(smem + S::kVp);
 
   const int n = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * 64;
+  const int rows = min(64, c - r0);  // query rows of this tile in the chunk
   const int tid = threadIdx.x;
   const int W = L + c + R;
   const int p_rows = 2 * c - 1 + L + R;
@@ -125,7 +139,7 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   bf16* ob = out + n * son + h * soh + static_cast<int64_t>(r0) * sor;
 
   if (hi <= lo) {  // no valid key: the rows are 0
-    for (int i = tid; i < 64 * DK / 2; i += kThreads) {
+    for (int i = tid; i < rows * DK / 2; i += kThreads) {
       const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
       *reinterpret_cast<__nv_bfloat162*>(ob + r * sor + d) = __floats2bfloat162_rn(0.f, 0.f);
     }
@@ -134,6 +148,7 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int n_tiles = (hi - lo + 63) / 64;
   // positional block b holds rows [pb0 + 64b, pb0 + 64b + 64); key tile t
   // needs blocks t and t + 1, and S_bd[r, j] = BD'[r, 63 - r + j] over them
+  // (in a partial tile pb0 may be negative: those rows zero-fill)
   const int pb0 = lo + c - 64 - r0;
 
   const bf16* qb = q + n * sqn + h * sqh + static_cast<int64_t>(r0) * sqr;
@@ -144,8 +159,9 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     uf[d] = __bfloat162float(bias_u[h * DK + d]);
     vf[d] = __bfloat162float(bias_v[h * DK + d]);
   }
-  // prologue: Q, tile 0's K and V, positional blocks 0 and 1
-  load_tile<DK>(smem_u32(sQ), qb, sqr, 0, 64, tid);
+  // prologue: Q (rows past the chunk zero-filled), tile 0's K and V,
+  // positional blocks 0 and 1
+  load_tile<DK>(smem_u32(sQ), qb, sqr, 0, rows, tid);
   load_tile<DK>(smem_u32(sK), kb, skt, lo, W, tid);
   load_tile<DK>(smem_u32(sV), kb + DK, skt, lo, W, tid);
   load_tile<DK>(smem_u32(sP), pb, spp, pb0, p_rows, tid);
@@ -249,8 +265,9 @@ chunk_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
-          __floats2bfloat162_rn(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
+      if (ra + 8 * x < rows)  // rows past the chunk are not stored
+        *reinterpret_cast<__nv_bfloat162*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
+            __floats2bfloat162_rn(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
     }
   }
 }
@@ -265,7 +282,7 @@ int launch(const void* q, const void* kv, const void* pos, const void* u, const 
   cudaError_t err = cudaFuncSetAttribute(chunk_attention_tc_kernel<DK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(N, H, c / 64);
+  dim3 grid(N, H, (c + 63) / 64);  // the last tile of a chunk may be partial
   chunk_attention_tc_kernel<DK><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kv),
       static_cast<const bf16*>(pos), static_cast<const bf16*>(u),
@@ -286,7 +303,7 @@ extern "C" int cf_chunk_attention_tc_f32(const void* q, const void* kv, const vo
                                          int64_t son, int64_t sor, int64_t soh, void* stream);
 
 // dtype: 0 = float32 (the 3xTF32 kernel of chunk_attention_tc_f32.cu), 1 =
-// bfloat16 (this file's kernel); dk 64 or 128; c a multiple of 64; every row
+// bfloat16 (this file's kernel); dk 64 or 128; any c >= 1; every row
 // 16-byte aligned (checked by the Python wrapper). Returns a cudaError_t
 // (0 = launched).
 extern "C" int cf_chunk_attention_tc(int dtype, const void* q, const void* kv, const void* pos,
@@ -302,7 +319,7 @@ extern "C" int cf_chunk_attention_tc(int dtype, const void* q, const void* kv, c
                                      soh, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk == 64)
     return launch<64>(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H, c, L, R,

@@ -4,11 +4,12 @@
 // Replaces the TPU kernel chunk_attention_pallas_union_hmajor
 // (chunkformer_tpu/ops/pallas/chunk_attention.py:335), with its row-major
 // wrapper (:306) and the per-chunk and G-batched variants (:32, :158), for
-// f32 inputs with head_dim 64 or 128, a chunk size that is a multiple of 64
-// and 16-byte-aligned rows: the main path's shapes when a model decodes in
-// f32, the default precision of ChunkFormerModel. It computes the function
-// of chunk_attention.cu (the CUDA-core kernel, which keeps every other f32
-// shape) and of chunk_attention_tc.cu (its bf16 twin):
+// f32 inputs with head_dim 64 or 128 at any chunk size and 16-byte-aligned
+// rows: the main path's shapes when a model decodes in f32, the default
+// precision of ChunkFormerModel, and any --chunk_size a user picks. It
+// computes the function of chunk_attention.cu (the CUDA-core kernel, which
+// keeps other head dims and strides) and of chunk_attention_tc.cu (its bf16
+// twin):
 //   s[r, j] = ((q[r] + u) . k[j] + (q[r] + v) . p[c - 1 - r + j]) / sqrt(dk)
 //   valid(j)  iff  -offset[n] <= chunk_idx[n]*c - L + j < max_len[n]
 //   out[r]    = softmax_j(s[r, j] | valid) . v[j]      (all-masked row -> 0)
@@ -30,11 +31,15 @@
 // work on the tensor cores is bound by operations at about 0.079 ms (the
 // same work on the CUDA cores at 67 TFLOP/s: 0.195 ms).
 //
-// Design: the bf16 kernel's (a block per (chunk row n, head h, 64 query
-// rows); key tiles of 64 over the valid interval [lo, hi); the split bias
-// form q.k + u.k and q.p + v.p with u.k and v.p as f32 dot products; each
-// 64-row positional block's product BD' computed once and staged in f32 for
-// the skewed rel-shift read), with what f32 on TF32 forces:
+// Design: the bf16 kernel's (a block per (chunk row n, head h, tile of 64
+// query rows), the last tile of a chunk partial when 64 does not divide c:
+// its rows past the chunk load as zeros, into the producer's landing buffer
+// and so into Q's hi/lo pair, and are not stored; key tiles of 64 over the
+// valid interval [lo, hi); the split bias form q.k + u.k and q.p + v.p with
+// u.k and v.p as f32 dot products; each 64-row positional block's product
+// BD' computed once and staged in f32 for the skewed rel-shift read, the
+// positional rows below 0 that a partial tile's padding rows reach
+// zero-filled), with what f32 on TF32 forces:
 // - K-major only. TF32 wgmma takes both shared operands K-major. Q K^T and
 //   Q P^T are K-major as loaded (dk contiguous). O = P V needs V^T [dk][keys]
 //   with keys contiguous, so the V tile is transposed by the threads on its
@@ -134,6 +139,7 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
   float* pt = reinterpret_cast<float*>(smem + S::kPt);
 
   const int n = blockIdx.x, h = blockIdx.y, r0 = blockIdx.z * 64;
+  const int rows = min(64, c - r0);  // query rows of this tile in the chunk
   const int tid = threadIdx.x;
   const int W = L + c + R;
   const int p_rows = 2 * c - 1 + L + R;
@@ -143,7 +149,7 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
   float* ob = out + n * son + h * soh + static_cast<int64_t>(r0) * sor;
 
   if (hi <= lo) {  // no valid key: the rows are 0
-    for (int i = tid; i < 64 * DK / 2; i += kBlock) {
+    for (int i = tid; i < rows * DK / 2; i += kBlock) {
       const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
       *reinterpret_cast<float2*>(ob + r * sor + d) = make_float2(0.f, 0.f);
     }
@@ -152,6 +158,7 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
   const int n_tiles = (hi - lo + 63) / 64;
   // positional block b holds rows [pb0 + 64b, pb0 + 64b + 64); key tile t
   // needs blocks t and t + 1, and S_bd[r, j] = BD'[r, 63 - r + j] over them
+  // (in a partial tile pb0 may be negative: those rows zero-fill)
   const int pb0 = lo + c - 64 - r0;
   // The operands form one stream of 64-row elements: Q, positional block 0,
   // then for each key tile t: K_t, positional block t + 1, V_t. Element
@@ -179,7 +186,7 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
         const uint32_t dst = smem_u32(sLand + (e % kLanding) * kTile);
         const int t = tile(e), block = e == 1 ? 0 : t + 1;
         if (kind(e) == kQ)
-          load_tile<DK>(dst, qb, sqr, 0, 64, ptid);
+          load_tile<DK>(dst, qb, sqr, 0, rows, ptid);  // zeros past the chunk
         else if (kind(e) == kK)
           load_tile<DK>(dst, kb, skt, lo + 64 * t, W, ptid);
         else if (kind(e) == kP)
@@ -281,8 +288,9 @@ chunk_attention_tc_f32_kernel(const float* __restrict__ q, const float* __restri
   for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      *reinterpret_cast<float2*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
-          make_float2(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
+      if (ra + 8 * x < rows)  // rows past the chunk are not stored
+        *reinterpret_cast<float2*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
+            make_float2(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
     }
   }
 }
@@ -297,7 +305,7 @@ int launch(const void* q, const void* kv, const void* pos, const void* u, const 
   cudaError_t err = cudaFuncSetAttribute(chunk_attention_tc_f32_kernel<DK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(N, H, c / 64);
+  dim3 grid(N, H, (c + 63) / 64);  // the last tile of a chunk may be partial
   chunk_attention_tc_f32_kernel<DK><<<grid, kBlock, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kv),
       static_cast<const float*>(pos), static_cast<const float*>(u),
@@ -308,7 +316,7 @@ int launch(const void* q, const void* kv, const void* pos, const void* u, const 
 
 }  // namespace
 
-// f32; dk 64 or 128; c a multiple of 64; every row 16-byte aligned (checked
+// f32; dk 64 or 128; any c >= 1; every row 16-byte aligned (checked
 // by the Python wrapper). Called by cf_chunk_attention_tc for f32 inputs.
 // Returns a cudaError_t (0 = launched).
 extern "C" int cf_chunk_attention_tc_f32(const void* q, const void* kv, const void* pos,
@@ -319,7 +327,7 @@ extern "C" int cf_chunk_attention_tc_f32(const void* q, const void* kv, const vo
                                          int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                          int64_t son, int64_t sor, int64_t soh, void* stream) {
   if (N == 0) return 0;
-  if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dk == 64)
     return launch<64>(q, kv, pos, u, v, chunk_idx, offsets, max_lens, out, N, H, c, L, R,

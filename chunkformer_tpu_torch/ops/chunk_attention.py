@@ -19,19 +19,22 @@ contract (q [N, H, c, dk], kv [H, T, 2dk], p [H, P, dk]) are passed as
 Three hand-written kernels compute it on the card, and ``route`` picks a
 route from dtype, shapes and strides alone:
 
-- the tensor-core route, for head_dim 64 or 128, a chunk of a multiple of
-  64 rows and 16-byte-aligned rows, as the main path gives it
-  (ChunkFormer-large: dk = 64, c = 64): ``csrc/chunk_attention_tc.cu`` in
-  bf16 and ``csrc/chunk_attention_tc_f32.cu`` in f32 (one C entry picks by
-  dtype). wgmma products with the split bias form, an online softmax in
-  registers, cp.async tiles. The f32 kernel splits each operand into two
-  TF32 parts (hi + lo) and sums three TF32 products (hi.lo + lo.hi +
-  hi.hi): about 21 mantissa bits, which holds the f32 1e-5 bar that one
-  TF32 product (10 bits) cannot.
-- ``csrc/chunk_attention.cu`` (CUDA-core route): every other shape, f32 or
-  bf16. Products in f32 on CUDA cores from shared memory. Any chunk: a
-  block takes at most 4096 / dk query rows, and a third grid axis covers
-  the rest of the chunk (``cuda_core_slices``).
+- the tensor-core route, for f32 or bf16 with head_dim 64 or 128 and
+  16-byte-aligned rows at any chunk size, as the main path gives it
+  (ChunkFormer-large: dk = 64, c = 64) and as any ``--chunk_size`` does:
+  ``csrc/chunk_attention_tc.cu`` in bf16 and ``csrc/chunk_attention_tc_f32.cu``
+  in f32 (one C entry picks by dtype). A block takes a tile of 64 query
+  rows, ceil(c / 64) tiles a chunk; the last tile's rows past the chunk
+  load as zeros and are not stored. wgmma products with the split bias
+  form, an online softmax in registers, cp.async tiles. The f32 kernel
+  splits each operand into two TF32 parts (hi + lo) and sums three TF32
+  products (hi.lo + lo.hi + hi.hi): about 21 mantissa bits, which holds
+  the f32 1e-5 bar that one TF32 product (10 bits) cannot.
+- ``csrc/chunk_attention.cu`` (CUDA-core route): other head dims and rows
+  off the 16-byte grid, f32 or bf16. Products in f32 on CUDA cores from
+  shared memory. Any chunk: a block takes at most 4096 / dk query rows,
+  and a third grid axis covers the rest of the chunk
+  (``cuda_core_slices``).
 
 At the ChunkFormer-large segment (N = 209, H = 8) a bf16 call moves about
 55 MB, 16.6 us at 3.35 TB/s, and is bound by bytes; an f32 call's split
@@ -105,11 +108,10 @@ def _check(q, kv, p, u, v, meta, chunk, left, right):
 
 def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor) -> str:
     """Which kernel a CUDA call launches, from dtype, shapes and strides
-    alone: "tensor_core" for f32 or bf16 with head_dim 64 or 128, a chunk of
-    a multiple of 64 rows and every row of q, kv and p 16-byte aligned (the
-    kernels copy 16 bytes a thread); "cuda_core" otherwise."""
-    n, c, heads, d_k = q.shape
-    if q.dtype not in _DTYPES or d_k not in (64, 128) or c % 64 != 0:
+    alone: "tensor_core" for f32 or bf16 with head_dim 64 or 128 and every
+    row of q, kv and p 16-byte aligned (the kernels copy 16 bytes a thread),
+    at any chunk size; "cuda_core" otherwise."""
+    if q.dtype not in _DTYPES or q.shape[-1] not in (64, 128):
         return "cuda_core"
     per16 = 16 // q.element_size()
     for t in (q, kv, p):
@@ -164,8 +166,8 @@ def chunk_attention_tensor_core(q, kv, p, u, v, chunk_idx, offsets, max_lens, *,
     for bf16, ``csrc/chunk_attention_tc_f32.cu`` for f32) on CUDA tensors
     that ``route`` sends to it; raises on any other."""
     if route(q, kv, p) != "tensor_core":
-        raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128, a "
-                         "chunk of a multiple of 64 and 16-byte-aligned rows")
+        raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128 and "
+                         "16-byte-aligned rows")
     out = _launch("cf_chunk_attention_tc", (_DTYPES[q.dtype],), q, kv, p, u, v, chunk_idx,
                   offsets, max_lens, chunk=chunk, left=left, right=right)
     chunk_attention.tc_launches += 1

@@ -11,11 +11,10 @@ waveform is float32 at int16 scale.
 
 Two kernels compute it on the card, and ``route`` picks one from the
 geometry alone: ``csrc/fbank_fft.cu`` (a warp per frame, an FFT in float64
-written in the kernel and a sparse mel product; padded window 256, 512 or
-1024 points, an even shift of at most the padded window, at most 128 mel
-bins)
-and ``csrc/fbank.cu`` (the DFT as a product with cos/sin tables; every other
-geometry).
+written in the kernel and a sparse mel product; a padded window of 256,
+512, 1024 or 2048 points, any shift, at most 128 mel bins) and
+``csrc/fbank.cu`` (the DFT as a product with cos/sin tables; more mel bins,
+and padded windows below 256 or above 2048 points).
 """
 
 from __future__ import annotations
@@ -114,21 +113,74 @@ def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: fl
 
 # The FFT kernel's Stockham stages after its first radix-8 one, as (radix R,
 # points combined before it P), by padded window (csrc/fbank_fft.cu later_stages)
-FFT_STAGES = {1024: ((8, 8), (8, 64)), 512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
+FFT_STAGES = {2048: ((8, 8), (4, 64), (4, 256)), 1024: ((8, 8), (8, 64)),
+              512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
 MAX_FFT_MELS = 128
+# The FFT kernel's blocks (csrc/fbank_fft.cu): shared memory a block may opt
+# into on sm_90 (227 KB on an H100), and frames a tile at most
+FFT_SMEM_BYTES = 232448
+FFT_MAX_TILE_FRAMES = 16
 
 
 def route(num_mel_bins: int = 80, frame_length: float = 25.0, frame_shift: float = 10.0,
           sample_rate: int = 16000) -> str:
     """Which kernel a CUDA call launches, from the geometry alone: "fft"
     (``csrc/fbank_fft.cu``) for a padded window the FFT kernel is
-    instantiated for, an even shift of at most that window and at most
+    instantiated for (``FFT_STAGES``), any shift and at most
     ``MAX_FFT_MELS`` bins; "dft" (``csrc/fbank.cu``) otherwise."""
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
-    if (padded in FFT_STAGES and 0 < shift <= padded and shift % 2 == 0
-            and 0 < num_mel_bins <= MAX_FFT_MELS):
+    if padded in FFT_STAGES and shift > 0 and 0 < num_mel_bins <= MAX_FFT_MELS:
         return "fft"
     return "dft"
+
+
+def fft_warps(padded: int) -> int:
+    """Warps (one frame each) of an FFT kernel block (``warps`` in
+    ``csrc/fbank_fft.cu``): four at 2048 points, where each warp's float64
+    buffer takes 16 KB, eight otherwise."""
+    return 4 if padded == 2048 else 8
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def fft_tile_span(win: int, shift: int, tile_frames: int) -> int:
+    """Floats of one tile buffer (``tile_span`` in ``csrc/fbank_fft.cu``):
+    overlapping or touching frames (shift <= win) share one run of
+    (tile_frames - 1) * shift + win samples; frames with gaps between them
+    are copied one by one into slots of round4(win + 3) floats. Either copy
+    may start 3 samples early, at a 16-byte boundary."""
+    if shift > win:
+        return tile_frames * _round4(win + 3)
+    return _round4((tile_frames - 1) * shift + win + 3)
+
+
+def fft_smem_bytes(padded: int, win: int, shift: int, num_mel_bins: int, mel_steps: int,
+                   tile_frames: int) -> int:
+    """Shared memory of an FFT kernel block (``Layout`` in
+    ``csrc/fbank_fft.cu``): the stage twiddles and the split factors, the
+    warps' FFT buffers (float64 complex), two tile buffers, the tile's
+    staged output rows, the window as float64 and the mel lane table."""
+    n = padded // 2
+    floats = (8 * n + 4 * n * fft_warps(padded) + 2 * fft_tile_span(win, shift, tile_frames)
+              + _round4(tile_frames * num_mel_bins) + 2 * _round4(win) + 64 * mel_steps)
+    return 4 * floats
+
+
+def fft_tile_frames(padded: int, win: int, shift: int, num_mel_bins: int,
+                    mel_steps: int) -> int:
+    """Frames a tile of the FFT kernel: the most, up to
+    ``FFT_MAX_TILE_FRAMES``, whose block fits ``FFT_SMEM_BYTES``, cut to a
+    multiple of the block's warps when it has more frames than warps (a
+    last round with idle warps costs as much as a full one)."""
+    for frames in range(FFT_MAX_TILE_FRAMES, 0, -1):
+        if fft_smem_bytes(padded, win, shift, num_mel_bins, mel_steps,
+                          frames) <= FFT_SMEM_BYTES:
+            warps = fft_warps(padded)
+            return frames - frames % warps if frames > warps else frames
+    raise ValueError(f"no FFT tile fits {FFT_SMEM_BYTES} bytes at padded {padded}, win {win}, "
+                     f"shift {shift}")
 
 
 @functools.lru_cache(maxsize=8)
@@ -268,8 +320,7 @@ def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
     _check_waveform(waveform)
     if route(num_mel_bins, frame_length, frame_shift, sample_rate) != "fft":
         raise ValueError(f"the FFT kernel takes a padded window of {tuple(FFT_STAGES)} "
-                         f"points, an even shift of at most that and at most "
-                         f"{MAX_FFT_MELS} mel bins")
+                         f"points and at most {MAX_FFT_MELS} mel bins")
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
     n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
     out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
@@ -282,6 +333,7 @@ def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
         err = lib.cf_fbank_fft(waveform.data_ptr(), twiddle.data_ptr(), split.data_ptr(),
                                window.data_ptr(), mel.data_ptr(), out.data_ptr(), n, win,
                                shift, padded, num_mel_bins, mel.shape[0],
+                               fft_tile_frames(padded, win, shift, num_mel_bins, mel.shape[0]),
                                torch.cuda.current_stream(waveform.device).cuda_stream)
     kernels.check(err, "fbank_fft")
     fbank.fft_launches += 1

@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
     lib.cf_chunk_attention_tc.restype = _I
     lib.cf_fbank.argtypes = [_P] * 6 + [_I] * 5 + [_P]
     lib.cf_fbank.restype = _I
-    lib.cf_fbank_fft.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.cf_fbank_fft.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.cf_fbank_fft.restype = _I
     lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I, _I, _I]
                                             + [_L] * 8 + [_P])

@@ -205,21 +205,65 @@ C7_SHAPES = [(9, 96, 64), (7, 48, 128), (13, 72, 64)]
 @pytest.mark.parametrize("n,c,d_k", C7_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_core_kernel_takes_any_chunk(cuda_device, n, c, d_k, dtype):
-    """c = 96 at dk 64, c = 48 at dk 128 and c = 72 at dk 64 over 13 rows:
-    ``route`` sends them to the CUDA-core kernel, which runs them in slices
-    of query rows; f32 atol 1e-5, bf16 atol 1e-2 plus one bf16 ulp."""
+    """c = 96 at dk 64, c = 48 at dk 128 and c = 72 at dk 64 over 13 rows
+    on the CUDA-core kernel, launched directly (``route`` sends these shapes
+    to the tensor cores), which runs them in slices of query rows; f32 atol
+    1e-5, bf16 atol 1e-2 plus one bf16 ulp."""
     L, R = 128, 128
     args = _attention_args(n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k)
-    assert route(*args[:3]) == "cuda_core"
     kw = dict(chunk=c, left=L, right=R)
     launches = (chunk_attention.launches, chunk_attention.tc_launches)
-    got = chunk_attention(*args, **kw)
+    got = chunk_attention_cuda_core(*args, **kw)
     torch.cuda.synchronize()
     assert (chunk_attention.launches, chunk_attention.tc_launches) == (launches[0] + 1,
                                                                        launches[1])
     bf16 = dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
                                atol=1e-2 if bf16 else 1e-5, rtol=2.0 ** -7 if bf16 else 0.0)
+
+
+@pytest.mark.parametrize("segment", ["first", "last"])
+@pytest.mark.parametrize("n,c,d_k,L,R", [(9, 96, 64, 128, 128), (8, 48, 128, 128, 128),
+                                         (13, 72, 64, 128, 128), (16, 16, 64, 32, 16),
+                                         (8, 1, 64, 4, 2), (8, 130, 128, 64, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_kernel_takes_any_chunk(cuda_device, n, c, d_k, L, R, segment, dtype):
+    """Chunks that 64 does not divide on the tensor cores: ceil(c / 64)
+    query tiles a chunk, the last partial (c = 96: 64 + 32 rows; 48, 16 and
+    1: one tile at r0 = 0; 72: 64 + 8; 130: 64 + 64 + 2). f32 (3xTF32) atol
+    1e-5; bf16 atol 1e-2 plus one bf16 ulp; chunk rows with no valid key
+    (past max_len) are 0."""
+    args = _attention_args(n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k + L)
+    args[5:] = _segment_meta(n, c, segment, cuda_device)
+    assert route(*args[:3]) == "tensor_core"
+    kw = dict(chunk=c, left=L, right=R)
+    launches = (chunk_attention.launches, chunk_attention.tc_launches)
+    got = chunk_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (chunk_attention.launches, chunk_attention.tc_launches) == (launches[0],
+                                                                       launches[1] + 1)
+    assert bool(torch.isfinite(got).all())
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), chunk_attention_plain(*args, **kw).float(),
+                               atol=1e-2 if bf16 else 1e-5, rtol=2.0 ** -7 if bf16 else 0.0)
+    start = torch.arange(n, device=cuda_device) * c
+    lo = (L - start - args[6]).clamp(min=0)
+    hi = (args[7] - start + L).clamp(max=L + c + R)
+    assert not bool(got[hi <= lo].any())
+    assert segment == "first" or bool((hi <= lo).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tensor_core_kernel_takes_head_major_views_at_any_chunk(cuda_device, dtype):
+    """c = 96 as head-major transposed views: the row-major result exactly."""
+    args = _attention_args(8, 96, 128, 128, 8, 64, dtype, cuda_device, seed=5)
+    q = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    kv = args[1].transpose(0, 1).contiguous().transpose(0, 1)
+    p = args[2].transpose(0, 1).contiguous().transpose(0, 1)
+    assert route(q, kv, p) == "tensor_core"
+    kw = dict(chunk=96, left=128, right=128)
+    torch.testing.assert_close(chunk_attention(q, kv, p, *args[3:], **kw),
+                               chunk_attention(*args, **kw), atol=0.0, rtol=0.0)
 
 
 def _speech(seconds, device, seed=12, sr=16000):
@@ -237,13 +281,13 @@ def _speech(seconds, device, seed=12, sr=16000):
     return torch.from_numpy(x).to(device)
 
 
-@pytest.mark.parametrize("frame_shift,want", [(10.0, "fft"), (10.0625, "dft")])
+@pytest.mark.parametrize("frame_shift,want", [(10.0, "fft"), (10.0625, "fft")])
 def test_fbank_1024_point_window(cuda_device, frame_shift, want):
     """C5: a 50 ms window at 16 kHz (800 samples, padded 1024) on 120 s of
-    speech-like audio: the even 160-sample shift takes the FFT kernel (two
-    first-stage butterflies a lane), the odd 161-sample shift the DFT
-    kernel (513 bins in two passes of its 288 threads); both within atol
-    2e-3 + rtol 1e-3 of the plain version."""
+    speech-like audio: the even 160-sample shift and the odd 161-sample
+    shift (frames at odd samples) both take the FFT kernel (two
+    first-stage butterflies a lane); within atol 2e-3 + rtol 1e-3 of the
+    plain version."""
     wave = _speech(120.0, cuda_device)
     kw = dict(frame_length=50.0, frame_shift=frame_shift)
     assert fbank_route(**kw) == want
@@ -304,12 +348,13 @@ def test_fbank_fft_and_dft_kernels_agree(cuda_device):
 
 
 def test_fbank_route_counters(cuda_device):
-    """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows) and
-    the DFT kernel at a 40 ms shift (640 samples, more than the padded 512);
-    each counter moves once per launch of its kernel and never for the
-    other."""
+    """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows) and at
+    a 40 ms shift (640 samples, more than the padded 512), and the DFT
+    kernel at 160 mel bins; each counter moves once per launch of its
+    kernel and never for the other."""
     wave = _wave(16000 * 3, cuda_device)
-    cases = [({}, "fft"), ({"sample_rate": 8000}, "fft"), ({"frame_shift": 40.0}, "dft")]
+    cases = [({}, "fft"), ({"sample_rate": 8000}, "fft"), ({"frame_shift": 40.0}, "fft"),
+             ({"num_mel_bins": 160}, "dft")]
     for kwargs, want in cases:
         assert fbank_route(**kwargs) == want
         before = (fbank.launches, fbank.fft_launches)
@@ -319,7 +364,7 @@ def test_fbank_route_counters(cuda_device):
         assert moved == ((0, 1) if want == "fft" else (1, 0)), (kwargs, moved)
         torch.testing.assert_close(got, fbank_plain(wave, **kwargs), atol=2e-3, rtol=1e-3)
     with pytest.raises(ValueError):
-        fbank_fft(wave, frame_shift=40.0)
+        fbank_fft(wave, num_mel_bins=160)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -336,6 +381,50 @@ def test_fbank_fft_takes_unaligned_waveforms(cuda_device, offset):
     torch.cuda.synchronize()
     assert torch.equal(got, fbank_fft(aligned))
     torch.testing.assert_close(got, fbank_plain(view), atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(frame_shift=10.0625), dict(frame_length=50.0, frame_shift=10.0625),
+    dict(frame_shift=40.0), dict(frame_shift=25.0), dict(sample_rate=44100),
+    dict(sample_rate=48000, frame_length=42.6, num_mel_bins=128),
+    dict(sample_rate=96000, frame_length=20.0)])
+@pytest.mark.parametrize("frames", [1, 3, 17, 4000])
+def test_fbank_fft_kernel_takes_the_dft_geometries(cuda_device, kwargs, frames):
+    """The geometries the FFT kernel took from the DFT kernel: odd shifts, a
+    shift longer than the window (frames copied one by one), frames that
+    touch, and 2048-point windows (four warps a block; the DFT kernel
+    refuses windows above 907 samples); one frame, a partial tile, two
+    tiles and more, against the plain version (atol 2e-3 + rtol 1e-3)."""
+    sr = kwargs.get("sample_rate", 16000)
+    fl, fs = kwargs.get("frame_length", 25.0), kwargs.get("frame_shift", 10.0)
+    win, shift = int(sr * fl * 0.001), int(sr * fs * 0.001)
+    n_samples = (frames - 1) * shift + win + 5
+    wave = _speech(n_samples / sr + 0.01, cuda_device, seed=frames, sr=sr)[:n_samples]
+    wave = wave.contiguous()
+    assert fbank_route(**kwargs) == "fft"
+    before = (fbank.launches, fbank.fft_launches)
+    got = fbank(wave, **kwargs)
+    torch.cuda.synchronize()
+    assert (fbank.launches - before[0], fbank.fft_launches - before[1]) == (0, 1)
+    want = fbank_plain(wave, **kwargs)
+    assert got.shape == want.shape == (frames, kwargs.get("num_mel_bins", 80))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("kwargs", [dict(frame_shift=10.0625), dict(frame_shift=40.0),
+                                    dict(sample_rate=44100)])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_fbank_fft_takes_unaligned_waveforms_at_any_shift(cuda_device, kwargs, offset):
+    """Odd, long and 2048-point geometries from a waveform off a 16-byte
+    boundary (4-byte copies): the aligned copy's result bit for bit."""
+    base = _wave(int(kwargs.get("sample_rate", 16000) * 4.5) + 9, cuda_device, seed=11)
+    view = base[offset:]
+    assert view.data_ptr() % 16 != 0
+    got = fbank_fft(view, **kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fbank_fft(view.clone(), **kwargs))
+    torch.testing.assert_close(got, fbank_plain(view, **kwargs), atol=2e-3, rtol=1e-3)
 
 
 def _train_attention_args(b, n, c, L, R, heads, d_k, dtype, device, seed=0, lens=None):

@@ -125,15 +125,20 @@ def test_causal_dynamic_conv_matches_per_chunk_conv(k, c):
 @pytest.mark.parametrize("dtype,c,d_k,want", [
     (torch.bfloat16, 64, 64, "tensor_core"),
     (torch.float32, 64, 64, "tensor_core"),
-    (torch.bfloat16, 8, 64, "cuda_core"),
-    (torch.float32, 8, 64, "cuda_core"),
+    (torch.bfloat16, 8, 64, "tensor_core"),
+    (torch.float32, 8, 64, "tensor_core"),
     (torch.float32, 64, 128, "tensor_core"),
     (torch.float32, 64, 32, "cuda_core"),
+    *[(dtype, c, d_k, "tensor_core") for c in (96, 48, 72, 16) for d_k in (64, 128)
+      for dtype in (torch.float32, torch.bfloat16)],
+    (torch.bfloat16, 96, 32, "cuda_core"),
+    (torch.float32, 48, 256, "cuda_core"),
 ])
 def test_chunk_attention_route_choice(dtype, c, d_k, want):
-    """f32 or bf16 at head_dim 64 or 128 and a chunk of a multiple of 64 takes
-    the tensor cores (3xTF32 for f32); another chunk or head_dim the
-    CUDA-core kernel. Nothing is launched."""
+    """f32 or bf16 at head_dim 64 or 128 takes the tensor cores (3xTF32 for
+    f32) at any chunk size, a partial 64-row query tile covering what 64
+    does not divide; another head_dim the CUDA-core kernel. Nothing is
+    launched."""
     n, heads, left, right = 3, 8, 2 * c, 2 * c
     q = torch.zeros(n, c, heads, d_k, dtype=dtype)
     kv = torch.zeros(left + n * c + right, heads, 2 * d_k, dtype=dtype)
@@ -164,4 +169,25 @@ def test_chunk_attention_route_needs_16_byte_rows(dtype):
     # a storage offset of one element: misaligned data pointer
     flat = torch.zeros(n * c * heads * d_k + 1, dtype=dtype)
     shifted = flat[1:].view(n, c, heads, d_k)
+    assert shifted.data_ptr() % 16 != 0 and route(shifted, kv, p) == "cuda_core"
+
+
+@pytest.mark.parametrize("c", [96, 48, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_attention_route_needs_16_byte_rows_at_any_chunk(dtype, c):
+    """The same at chunks that 64 does not divide, which take the tensor
+    cores with aligned rows: a row stride off the 16-byte grid in q, kv or
+    p, or a misaligned data pointer, keeps them on the CUDA-core kernel."""
+    n, heads, d_k, left, right = 3, 8, 64, 2 * c, c
+    per16 = 16 // torch.empty((), dtype=dtype).element_size()
+    q = torch.zeros(n, c, heads, d_k, dtype=dtype)
+    kv = torch.zeros(left + n * c + right, heads, 2 * d_k, dtype=dtype)
+    p = torch.zeros(2 * c - 1 + left + right, heads, d_k, dtype=dtype)
+    assert route(q, kv, p) == "tensor_core"
+    wide_kv = torch.zeros(left + n * c + right, heads, 2 * d_k + 1, dtype=dtype)[..., :2 * d_k]
+    assert route(q, wide_kv, p) == "cuda_core"
+    wide_p = torch.zeros(2 * c - 1 + left + right, heads, d_k + 1, dtype=dtype)[..., :d_k]
+    assert route(q, kv, wide_p) == "cuda_core"
+    flat = torch.zeros(q.numel() + per16 // 2, dtype=dtype)
+    shifted = flat[per16 // 2:].view(q.shape)
     assert shifted.data_ptr() % 16 != 0 and route(shifted, kv, p) == "cuda_core"

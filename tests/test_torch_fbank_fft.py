@@ -1,6 +1,6 @@
 """The FFT fbank kernel's arithmetic (``csrc/fbank_fft.cu``), emulated step
 for step in float32 numpy, against the port's plain version and the JAX
-package's Pallas kernel; its tables and its route.
+package's Pallas kernel; its tables, its tile walk and its route.
 
 The emulation follows the kernel: frames of the waveform, the warp-sum mean,
 preemphasis and window, the even/odd packing z[n] = x[2n] + i x[2n+1] of the
@@ -148,9 +148,117 @@ def test_emulated_kernel_matches_plain_and_pallas_at_1024_points(n_samples, fram
         np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(frame_length=50.0, frame_shift=10.0625),        # padded 1024, shift 161
+    dict(frame_shift=10.0625),                           # padded 512, shift 161
+    dict(frame_shift=40.0),                              # shift 640 > padded 512
+    dict(sample_rate=44100),                             # 1102 samples, padded 2048
+    dict(sample_rate=48000, frame_length=42.6, num_mel_bins=128),  # 2044 of 2048
+    dict(sample_rate=44100, frame_shift=10.0),           # 2048 points, shift 441 (odd)
+])
+@pytest.mark.parametrize("seconds", [0.3, 1.1])
+def test_emulated_kernel_matches_plain_and_pallas_at_new_geometries(kwargs, seconds):
+    """The geometries the FFT kernel took from the DFT kernel: odd shifts
+    (frames at odd samples), a shift longer than the padded window, and
+    2048-point windows (four first-stage butterflies a lane, then the
+    stages (8, 8), (4, 64), (4, 256)); the same bar against the plain
+    version and the Pallas kernel."""
+    sample_rate = kwargs.get("sample_rate", 16000)
+    n_samples = int(seconds * sample_rate) + 37
+    wave = (np.random.default_rng(13).normal(size=n_samples) * 8000).astype(F32)
+    assert fb.route(**kwargs) == "fft"
+    got = fbank_emulated(wave, **kwargs)
+    wants = {"plain": fb.fbank_plain(torch.from_numpy(wave), **kwargs).numpy(),
+             "pallas": np.asarray(fbank_pallas(jnp.asarray(wave), interpret=True, **kwargs))}
+    n = fb.num_frames(n_samples, sample_rate, kwargs.get("frame_length", 25.0),
+                      kwargs.get("frame_shift", 10.0))
+    for name, want in wants.items():
+        assert got.shape == want.shape == (n, kwargs.get("num_mel_bins", 80)), name
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
+
+
+def tile_walk(wave_offset, n_frames, win, shift, tile_frames):
+    """The FFT kernel's copies of each tile into shared memory (``copy_tile``,
+    ``frame_in_tile``, ``tile_span`` in ``csrc/fbank_fft.cu``), emulated on
+    sample indices: a waveform starting ``wave_offset`` floats past a
+    16-byte boundary; yields (frame, the frame's samples as indices into the
+    waveform, or -1 for a zero-filled float, the frame's offset in the
+    buffer and the buffer span)."""
+    span = fb.fft_tile_span(win, shift, tile_frames)
+    aligned = wave_offset == 0
+    each = shift > win
+    stride = (win + 3 + 3) & ~3 if each else 0
+    for t0 in range(0, n_frames, tile_frames):
+        nf = min(tile_frames, n_frames - t0)
+        buf = np.full(span + 1, -2, np.int64)          # -2: never written
+        runs, length = (nf, win) if each else (1, (nf - 1) * shift + win)
+        for r in range(runs):
+            g = (t0 + r) * shift
+            if aligned:
+                ld = g & 3
+                for k in range((length + 6) // 4):
+                    need = ld + length - 4 * k
+                    if need > 0:                         # 16 bytes, zero past `need` floats
+                        assert r * stride + 4 * k + 4 <= span
+                        for e in range(4):
+                            buf[r * stride + 4 * k + e] = g - ld + 4 * k + e if e < need else -1
+            else:                                        # 4 bytes a thread
+                assert r * stride + length <= span
+                buf[r * stride:r * stride + length] = g + np.arange(length)
+        for f in range(nf):
+            g = (t0 + f) * shift
+            if each:
+                first = f * stride + (g & 3 if aligned else 0)
+            else:
+                first = (t0 * shift & 3 if aligned else 0) + f * shift
+            yield t0 + f, buf[first:first + win], first, span
+
+
+@pytest.mark.parametrize("sample_rate,frame_length,frame_shift", [
+    (16000, 25.0, 10.0), (16000, 25.0, 10.0625), (16000, 50.0, 10.0625),
+    (16000, 25.0, 40.0), (44100, 25.0, 10.0), (16000, 25.0, 25.0), (8000, 25.0, 10.0)])
+@pytest.mark.parametrize("wave_offset", [0, 1, 3])
+def test_tile_walk_stages_each_frame(sample_rate, frame_length, frame_shift, wave_offset):
+    """Every frame the kernel reads from its tile buffer is the frame's own
+    samples, wherever the tile starts (16-byte copies from the boundary
+    below the first sample, or 4-byte copies of an unaligned waveform), at
+    the tile size ``fft_tile_frames`` picks; no copy passes the buffer. At
+    an even shift every frame starts at an even float (8-byte aligned),
+    which the kernel's pair loads (its instance for even shifts) need."""
+    win, shift, padded = fb._geometry(sample_rate, frame_length, frame_shift)
+    steps = fb.mel_lanes(80, padded, float(sample_rate)).shape[0]
+    tile_frames = fb.fft_tile_frames(padded, win, shift, 80, steps)
+    n_frames = 2 * tile_frames + 3
+    seen = []
+    for f, samples, first, span in tile_walk(wave_offset, n_frames, win, shift, tile_frames):
+        assert np.array_equal(samples, f * shift + np.arange(win)), f
+        assert shift % 2 or first % 2 == 0, (f, first)
+        seen.append(f)
+    assert seen == list(range(n_frames))
+
+
+@pytest.mark.parametrize("padded,win,shift,n_mels,sample_rate", [
+    (512, 400, 160, 80, 16000), (1024, 1024, 1024, 128, 16000), (2048, 2048, 2047, 128, 96000),
+    (2048, 1102, 441, 80, 44100), (2048, 1920, 960, 80, 96000), (2048, 2048, 1, 128, 48000),
+    (256, 256, 100000, 128, 8000), (2048, 1025, 3000, 80, 22050)])
+def test_fft_tile_frames_fit_the_block(padded, win, shift, n_mels, sample_rate):
+    """Across the FFT route's domain (window up to the padded size, any
+    shift, up to 128 bins) a tile of at least as many frames as the block
+    has warps fits the shared memory a block may take, and the 25 ms main
+    path keeps its 16 frames at 75.8 KB (three blocks an SM)."""
+    steps = fb.mel_lanes(n_mels, padded, float(sample_rate)).shape[0]
+    frames = fb.fft_tile_frames(padded, win, shift, n_mels, steps)
+    assert fb.fft_warps(padded) <= frames <= fb.FFT_MAX_TILE_FRAMES
+    assert frames <= fb.fft_warps(padded) or frames % fb.fft_warps(padded) == 0
+    assert fb.fft_smem_bytes(padded, win, shift, n_mels, steps, frames) <= fb.FFT_SMEM_BYTES
+    if (padded, win, shift) == (512, 400, 160):
+        assert frames == 16 and fb.fft_smem_bytes(padded, win, shift, n_mels, steps,
+                                                  frames) == 75808
+
+
 @pytest.mark.parametrize("num_bins,padded,sample_rate", [
     (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000),
-    (80, 1024, 16000)])
+    (80, 1024, 16000), (80, 2048, 44100), (128, 2048, 48000)])
 def test_band_table_rebuilds_mel_banks(num_bins, padded, sample_rate):
     """Scattering the band table back gives ``mel_banks`` bit for bit, and no
     band reaches the Nyquist bin (which the kernel does not form)."""
@@ -167,7 +275,7 @@ def test_band_table_rebuilds_mel_banks(num_bins, padded, sample_rate):
 
 @pytest.mark.parametrize("num_bins,padded,sample_rate", [
     (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000),
-    (80, 1024, 16000), (80, 1024, 22050)])
+    (80, 1024, 16000), (80, 1024, 22050), (80, 2048, 44100), (128, 2048, 96000)])
 def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
     """Every band ends once, in one lane, its bins ascending and contiguous;
     scattering the steps back gives ``mel_banks`` bit for bit; a lane's
@@ -198,7 +306,7 @@ def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
     assert lanes.shape == (max(int(steps.max()), -(-int(steps.sum()) // 32)), 32, 2)
 
 
-@pytest.mark.parametrize("padded", [256, 512, 1024])
+@pytest.mark.parametrize("padded", [256, 512, 1024, 2048])
 def test_twiddle_tables(padded):
     """float64 stage tables, exp(-2 pi i k j / (P R)) at row (j - 1) P + k
     of each stage's block in ``FFT_STAGES`` order, and the split's
@@ -226,10 +334,15 @@ def test_twiddle_tables(padded):
     ({"frame_length": 50.0}, "fft"),                    # padded 1024
     ({"frame_length": 10.0}, "fft"),                    # 160 samples padded to 256
     ({"sample_rate": 22050}, "fft"),                    # padded 1024
-    ({"frame_length": 50.0, "frame_shift": 10.0625}, "dft"),  # padded 1024, odd shift
-    ({"frame_shift": 40.0}, "dft"),                     # shift 640 > padded 512
-    ({"frame_shift": 10.0625}, "dft"),                  # odd shift, 161 samples
-    ({"num_mel_bins": 160}, "dft"),
+    ({"frame_length": 50.0, "frame_shift": 10.0625}, "fft"),  # padded 1024, odd shift
+    ({"frame_shift": 40.0}, "fft"),                     # shift 640 > padded 512
+    ({"frame_shift": 10.0625}, "fft"),                  # odd shift, 161 samples
+    ({"num_mel_bins": 160}, "dft"),                     # more than 128 bins
+    ({"sample_rate": 44100}, "fft"),                    # 1102 samples, padded 2048
+    ({"sample_rate": 48000, "frame_length": 42.6}, "fft"),  # 2044 samples, padded 2048
+    ({"sample_rate": 48000, "frame_length": 50.0}, "dft"),  # 2400 samples, padded 4096
+    ({"sample_rate": 44100, "num_mel_bins": 160}, "dft"),   # padded 2048, 160 bins
+    ({"frame_length": 8.0}, "dft"),                     # 128 samples, padded 128
 ])
 def test_route_picks_the_fft_kernel_for_its_geometries(kwargs, want):
     assert fb.route(**kwargs) == want

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Time and fingerprint the CUDA-core attention kernels (decode; training
-forward and backward), the tensor-core training attention kernels (B4 and
-B5, f32 and bf16) and both fbank kernels at the main paths' shapes, so that
-two checkouts can be compared on one card in one call.
+"""Time and fingerprint the decode attention kernels (CUDA cores and tensor
+cores), the CUDA-core training attention kernels (forward and backward), the
+tensor-core training attention kernels (B4 and B5, f32 and bf16) and both
+fbank kernels at the main paths' shapes (the FFT kernel also at a 50 ms
+window, 1024 points), so that two checkouts can be compared on one card in
+one call.
 
     cd <checkout> && python3 <this repo>/tools/compare_torch_kernels.py <tag> <out_dir>
     python3 tools/compare_torch_kernels.py --compare <out_dir>/ab_<a>.pt <out_dir>/ab_<b>.pt
@@ -36,7 +38,8 @@ def fingerprint(tag, out_dir):
     import chip_smoke as cs
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
     from chunkformer_tpu_torch.ops import kernels
-    from chunkformer_tpu_torch.ops.chunk_attention import chunk_attention_cuda_core
+    from chunkformer_tpu_torch.ops.chunk_attention import (chunk_attention_cuda_core,
+                                                           chunk_attention_tensor_core)
     from chunkformer_tpu_torch.ops.fbank import fbank_dft, fbank_fft
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -52,6 +55,9 @@ def fingerprint(tag, out_dir):
         outs[f"decode {dtype}"] = chunk_attention_cuda_core(*args, **kw)
         times[f"decode {dtype}"] = [cs.cuda_ms(lambda: chunk_attention_cuda_core(*args, **kw),
                                                iters=20) for _ in range(3)]
+        outs[f"decode tc {dtype}"] = chunk_attention_tensor_core(*args, **kw)
+        times[f"decode tc {dtype}"] = [cs.cuda_ms(
+            lambda: chunk_attention_tensor_core(*args, **kw), iters=50) for _ in range(3)]
         targs = cs.train_attention_inputs(dtype, gen, dev)
         st = (3, 64, 128, 128, 0.1)
         ctx, m, den = cat.forward_kernel(*targs, *st, path="cuda_core")
@@ -82,6 +88,10 @@ def fingerprint(tag, out_dir):
             outs[f"{name} {sr} {sec}"] = fn(wave, sample_rate=sr)
             times[f"{name} {sr} {sec}"] = [cs.cuda_ms(lambda: fn(wave, sample_rate=sr),
                                                       iters=iters) for _ in range(3)]
+        if sec == 120.0 and sr == 16000:
+            outs["fft 50 ms"] = fbank_fft(wave, frame_length=50.0)
+            times["fft 50 ms"] = [cs.cuda_ms(lambda: fbank_fft(wave, frame_length=50.0),
+                                             iters=10) for _ in range(3)]
     torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: v.cpu() for k, v in outs.items()}, os.path.join(out_dir, f"ab_{tag}.pt"))

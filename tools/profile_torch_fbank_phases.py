@@ -37,33 +37,38 @@ import chip_smoke as smoke  # noqa: E402  (the smoke run's audio and timer)
 
 OUT = os.path.join(ROOT, "build", "fbank_phases")
 SOURCE = "fbank_fft.cu"
-# (source line the mark goes before, phase it opens)
+# (source lines the mark goes before, each found once, phase it opens); a
+# phase with two lines opens in either branch of an `if constexpr`
 MARKS = [
-    ("    const float* cur = tiles + (it & 1) * L.span;\n",
+    (["    const float* cur = tiles + (it & 1) * L.span;\n"],
      "tile: issue the next tile's cp.async, wait for this one, barrier"),
-    ("  constexpr int T1 = N / 8;  // first-stage butterflies, one a lane\n",
+    (["  static_assert(B1 == 1 || T1 % 32 == 0, \"whole rounds of first-stage butterflies\");\n"],
      "frame: sample loads, float64 conversions, sum"),
-    ("#pragma unroll\n  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, "
-     "sum, o);\n", "warp sum, mean"),
-    ("  if (lane < T1) {\n    double2 v[8];\n",
-     "preemphasis, window, radix-8 first stage, stores"),
-    ("  later_stages<N>(z, tw, lane, zq);\n", "radix-8 stage (P = 8)"),
-    ("    stage<N, 4, 64>(z, tw + 7 * 8, lane, out);\n", "radix-4 stage (P = 64), in registers"),
-    ("  // real split and power of bins k = lane + 32 q < N. Z[N - k] is\n",
-     "real split (partners by shuffle), power"),
-    ("  // sparse mel: each lane walks its steps, a band's bins in ascending order,\n",
+    (["#pragma unroll\n    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, "
+      "sum, o);\n    const double mean = sum * inv_win;\n#pragma unroll\n    for (int b = 0; b < "
+      "B1; ++b) {\n      const int i = lane + 32 * b;\n      if (i < T1)",
+      "#pragma unroll\n    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, "
+      "sum, o);\n    const double mean = sum * inv_win;\n#pragma unroll\n    for (int b = 0; b < "
+      "B1; ++b) {\n      const int i = lane + 32 * b;\n      double xe"],
+     "warp sum, mean; preemphasis, window, radix-8 first stage, stores"),
+    (["    later_stages<N>(z, tw, lane, zq);\n", "    later_stages<N>(z, tw, lane, nullptr);\n"],
+     "later stages (the last in registers up to 1024 points)"),
+    (["    // real split: Z[N - k] is Z[(32 - lane) + 32 (Q - 1 - q)], in lane\n",
+      "    // real split with Z[k] and Z[N - k] from the buffer\n"],
+     "real split (partners by shuffle, or from the buffer), power"),
+    (["  // sparse mel: each lane walks its steps, a band's bins in ascending order,\n"],
      "sparse mel"),
-    ("  for (int m = lane; m < n_mels; m += 32) row[m] = logf(fmaxf(row[m], kEps));\n",
+    (["  for (int m = lane; m < n_mels; m += 32) row[m] = logf(fmaxf(row[m], kEps));\n"],
      "log of the frame's row"),
-    ("    __syncthreads();  // the staged rows are complete; `cur` may be refilled\n",
+    (["    __syncthreads();  // the staged rows are complete; `cur` may be refilled\n"],
      "barrier after the tile's frames, coalesced write-out"),
 ]
 FRAME_MARK = 1
 CLOCK = r'''
 __device__ unsigned long long g_phase[16];
-__shared__ long long ph_t[kWarps];
-__shared__ unsigned long long ph_acc[kWarps][16];
-__shared__ int ph_last[kWarps];
+__shared__ long long ph_t[8];
+__shared__ unsigned long long ph_acc[8][16];
+__shared__ int ph_last[8];
 #define PHASE(n) do { if ((threadIdx.x & 31) == 0) { const int w_ = threadIdx.x >> 5; \
   const long long now_ = clock64(); ph_acc[w_][ph_last[w_]] += now_ - ph_t[w_]; \
   ph_t[w_] = now_; ph_last[w_] = (n); if ((n) == %d) ++ph_acc[w_][15]; } } while (0)
@@ -72,12 +77,15 @@ __shared__ int ph_last[kWarps];
 
 def instrument(text: str) -> str:
     n = len(MARKS)
-    for k, (line, _) in enumerate(MARKS):
-        if text.count(line) != 1:
-            raise SystemExit(f"phase boundary {k} not found once in {SOURCE}: {line!r}")
-        indent = "  " if line.startswith("#") else line[:len(line) - len(line.lstrip())]
-        text = text.replace(line, f"{indent}PHASE({k});\n{line}")
-    anchor = "constexpr int kThreads = 32 * kWarps;\n"
+    for k, (lines, _) in enumerate(MARKS):
+        for line in lines:
+            if text.count(line) != 1:
+                raise SystemExit(f"phase boundary {k} not found once in {SOURCE}: {line!r}")
+            indent = "  " if line.startswith("#") else line[:len(line) - len(line.lstrip())]
+            if line.startswith("#pragma unroll\n    "):
+                indent = "    "
+            text = text.replace(line, f"{indent}PHASE({k});\n{line}")
+    anchor = "__host__ __device__ constexpr int threads(int n) { return 32 * warps(n); }\n"
     text = text.replace(anchor, anchor + CLOCK, 1)
     start = "  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;\n"
     text = text.replace(start, start + (
