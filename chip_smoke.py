@@ -71,12 +71,20 @@ non-zero exit code and no result line:
    one file and ``bin/alignment.py`` on two;
 8. other geometries: the decode attention at chunks of 96, 48 and 72 on
    the tensor cores (partial query tiles) in f32 and bf16, held and timed
-   beside the CUDA-core kernel and the plain version, the CUDA-core
-   training kernels there, a 120 s f32 ``endless_decode`` at c = 96
-   (tensor-core launches only) against the plain attention, the FFT fbank
-   at 50 ms with shifts of 160 and 161 samples, a 40 ms shift and 25 ms at
-   44.1 kHz (2048 points) beside the DFT kernel where it takes the window
-   and the plain version;
+   beside the CUDA-core kernel and the plain version; the training kernels
+   there (B4 and B5, partial 64-row query blocks and 64-frame key blocks)
+   on the tensor cores in f32 and bf16, held beside the CUDA-core kernels
+   and timed in turns with them and the plain version, the tensor cores
+   required the fastest; a 120 s f32 ``endless_decode`` at c = 96
+   (tensor-core launches only) against the plain attention; the flagship
+   train step at (96, 128, 128) in f32 and bf16 against the plain
+   attention, tensor-core training launches only; an f32 encode of the
+   search files at (96, 128, 128) (B4's eval forward on the tensor cores,
+   timed); the FFT fbank at 50 ms with shifts of 160 and 161 samples, a 40
+   ms shift, 25 ms at 44.1 kHz (2048 points), 160 mel bins, 15 ms at 8 kHz
+   (128 points, the 256-point plan's strided bins) and 25 ms at 96 kHz
+   (4096 points, the in-place plan) beside the DFT kernel where it takes
+   the window and the plain version;
 9. the streaming path: an export of ChunkFormer-large (random weights from
    a seed); ``bin/stream.py`` on 60 s of audio at the realtime defaults
    (c, L, R) = (6, 50, 0) in f32 and bf16 after a warm-up, with the
@@ -1108,7 +1116,7 @@ def read_train_counts():
     return {k[len("train_"):]: counts[k] for k in TRAIN_COUNTS}
 
 
-def new_trainer(train_dict, device, autocast):
+def new_trainer(train_dict, device, autocast, chunk=None):
     from chunkformer_tpu_torch.config import ChunkFormerConfig
     from chunkformer_tpu_torch.models.asr import ASRModel, init_random_
     from chunkformer_tpu_torch.train.optim import build_optimizer
@@ -1118,7 +1126,7 @@ def new_trainer(train_dict, device, autocast):
     model = init_random_(ASRModel(cfg), torch.Generator().manual_seed(SEED)).to(device)
     opt, sched = build_optimizer(list(model.parameters()), "adamw", {"lr": 1e-3}, "warmuplr",
                                  {"warmup_steps": 25000})
-    step = make_train_step(model, cfg, opt, sched, (C, LEFT, RIGHT), autocast=autocast,
+    step = make_train_step(model, cfg, opt, sched, chunk or (C, LEFT, RIGHT), autocast=autocast,
                            grad_clip=GRAD_CLIP)
     return cfg, model, step
 
@@ -1138,18 +1146,21 @@ def rel_l2(a, b, names):
     return float(num / torch.sqrt(sum(b[n].square().sum() for n in names)))
 
 
-def bf16_step_routes(train_dict, device, batch, n_layers, recompute):
+def bf16_step_routes(train_dict, device, batch, n_layers, recompute,
+                     routes=("tensor_core", "cuda_core"), chunk=None):
     """One bf16 step (autocast, dropout 0, seeded weights and batch) through
-    the tensor-core route, through the CUDA-core route (its baseline) and
-    through the plain attention: the loss difference and the whole-gradient
-    relative L2 of each route against the plain attention, the tensor-core
-    route gated at 1e-2 (the single-op bf16 bar)."""
+    each of ``routes``, the tensor-core route and the CUDA-core route (its
+    baseline), and through the plain attention, at ``chunk`` ((c, L, R);
+    the flagship's by default): the loss difference and the whole-gradient
+    relative L2 of each route against the plain attention, each gated at
+    1e-2 (the single-op bf16 bar). Returns them and each route's launch
+    counts."""
     from chunkformer_tpu_torch.nn import attention as attention_module
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
     runs = {}
-    for route in ("tensor_core", "cuda_core", "plain"):
-        _, model, step = new_trainer(no_dropout(train_dict), device, torch.bfloat16)
+    for route in (*routes, "plain"):
+        _, model, step = new_trainer(no_dropout(train_dict), device, torch.bfloat16, chunk)
         if route == "plain":
             for layer in model.encoder.encoders:
                 layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
@@ -1169,8 +1180,9 @@ def bf16_step_routes(train_dict, device, batch, n_layers, recompute):
     loss_p, g_p, counts_p = runs["plain"]
     names = list(g_p)
     stats = {r: (abs(runs[r][0] - loss_p) / abs(loss_p), rel_l2(runs[r][1], g_p, names))
-             for r in ("tensor_core", "cuda_core")}
-    log("train bf16 step (dropout 0) against the same step through the plain attention: "
+             for r in routes}
+    log(f"train bf16 step (dropout 0, (c, L, R) = {chunk or (C, LEFT, RIGHT)}) against the "
+        "same step through the plain attention: "
         + "; ".join(f"{r.replace('_', '-')} route loss {runs[r][0]:.8g} vs {loss_p:.8g}, "
                     f"relative difference {stats[r][0]:.3g}, whole-gradient relative L2 "
                     f"{stats[r][1]:.3g}, launches {runs[r][2]}" for r in stats)
@@ -1182,16 +1194,18 @@ def bf16_step_routes(train_dict, device, batch, n_layers, recompute):
     none = {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0}
     want = {"tensor_core": {**none, "fwd_tc": n_layers * recompute, "bwd_tc": n_layers},
             "cuda_core": {**none, "fwd": n_layers * recompute, "bwd": n_layers}}
-    for r, w in want.items():
-        require(runs[r][2] == w, f"bf16 step on the {r} route launched {runs[r][2]}")
+    for r in routes:
+        require(runs[r][2] == want[r], f"bf16 step on the {r} route launched {runs[r][2]}")
     require(counts_p == none, f"plain bf16 step launched {counts_p}")
-    return stats
+    return stats, {r: runs[r][2] for r in routes}
 
 
-def f32_step_routes(train_dict, device, batch, n_layers, recompute):
-    """One f32 step (TF32 off, dropout 0) through each route of the training
-    attention, the tensor cores (the main path's, 3xTF32) and the CUDA cores,
-    against the same step through the plain attention. Each route's
+def f32_step_routes(train_dict, device, batch, n_layers, recompute,
+                    routes=("tensor_core", "cuda_core"), chunk=None):
+    """One f32 step (TF32 off, dropout 0) through each of ``routes`` of the
+    training attention, the tensor cores (the main path's, 3xTF32) and the
+    CUDA cores, against the same step through the plain attention, at
+    ``chunk`` ((c, L, R); the flagship's by default). Each route's
     sensitivity baseline is the plain route with its encoder output scaled by
     (1 + eps * z), z ~ N(0, 1) from a seed and eps that route's measured
     relative difference at the encoder output. Bars, each route: loss 1e-5;
@@ -1207,7 +1221,7 @@ def f32_step_routes(train_dict, device, batch, n_layers, recompute):
     runs, enc_out = {}, {}
 
     def run(route, eps=0.0):
-        _, model, step = new_trainer(f32_dict, device, None)
+        _, model, step = new_trainer(f32_dict, device, None, chunk)
         if route.startswith("plain"):
             for layer in model.encoder.encoders:
                 layer.self_attn.chunked_train = layer.self_attn.attention_chunked_train
@@ -1252,7 +1266,7 @@ def f32_step_routes(train_dict, device, batch, n_layers, recompute):
         return sorted(((float((a[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), floor), n)
                        for n in g_p), reverse=True)
 
-    for route in ("tensor_core", "cuda_core"):
+    for route in routes:
         name = route.replace("_", "-")
         run(route)
         eps = float((enc_out[route] - enc_out["plain"]).norm() / enc_out["plain"].norm())
@@ -1267,7 +1281,8 @@ def f32_step_routes(train_dict, device, batch, n_layers, recompute):
         base = {n: r for r, n in worst_n}
         over = [(r, n) for r, n in worst_k if r > 1e-4]
         unexplained = [(r, n, base[n]) for r, n in over if r > 3 * base[n] + 1e-5 or r > 1e-2]
-        log(f"train f32 step, {name} route vs plain attention: loss {loss_k:.8g} vs "
+        log(f"train f32 step at (c, L, R) = {chunk or (C, LEFT, RIGHT)}, {name} route vs plain "
+            f"attention: loss {loss_k:.8g} vs "
             f"{loss_p:.8g}, relative difference {loss_rel:.3g} (limit 1e-5); encoder output "
             f"relative L2 difference {eps:.3g}; gradient relative L2 difference: whole "
             f"{whole_rel:.3g}, " + ", ".join(f"{g} {v:.3g}" for g, v in group_rel.items())
@@ -1774,13 +1789,19 @@ def phase_search(tmp, card, device):
 # cores, and the fbank geometries the FFT kernel took from the DFT kernel
 C7_DECODE = [(96, 64), (48, 128), (72, 64)]   # (c, dk); c = 72 over an odd 13 rows
 ENDLESS_C7 = (96, 120.0)                        # chunk, seconds of endless_decode
-FBANK_OTHER = [  # (name, fbank keywords, seconds of audio)
-    ("50 ms / 160", dict(frame_length=50.0, frame_shift=10.0), 120.0),
-    ("50 ms / 161", dict(frame_length=50.0, frame_shift=10.0625), 120.0),
-    ("25 ms / 40 ms shift", dict(frame_shift=40.0), 120.0),
-    ("25 ms at 44.1 kHz (2048 points)", dict(sample_rate=44100), LONG_SECONDS),
+TRAIN_C7 = (96, LEFT, RIGHT)                    # the flagship train step and an encode here
+FBANK_OTHER = [  # (name, fbank keywords, seconds of audio, DFT kernel held to the
+    # bar): odd shifts, long shifts, 2048 points, then more mel bins, 128 and 4096
+    # points (the DFT kernel's float32 sums miss the bar on a rare element of
+    # tonal audio, C22: counted, printed)
+    ("50 ms / 160", dict(frame_length=50.0, frame_shift=10.0), 120.0, True),
+    ("50 ms / 161", dict(frame_length=50.0, frame_shift=10.0625), 120.0, True),
+    ("25 ms / 40 ms shift", dict(frame_shift=40.0), 120.0, False),
+    ("25 ms at 44.1 kHz (2048 points)", dict(sample_rate=44100), LONG_SECONDS, False),
+    ("160 bins at 25 ms / 16 kHz", dict(num_mel_bins=160), 120.0, False),
+    ("15 ms at 8 kHz (128 points)", dict(frame_length=15.0, sample_rate=8000), 120.0, False),
+    ("25 ms at 96 kHz (4096 points)", dict(sample_rate=96000), 120.0, False),
 ]
-DFT_MAX_WIN = 907   # the DFT kernel's two [32][win] f32 tiles fit 227 KB of shared memory
 
 
 def other_attention(c, dk, n, trunc, gen, device, card):
@@ -1837,19 +1858,20 @@ def other_attention(c, dk, n, trunc, gen, device, card):
 def other_fbank(device, card):
     """fbank at ``FBANK_OTHER``'s geometries: the routed call launches the
     FFT kernel once (counts reset around it) and is within atol 2e-3 + rtol
-    1e-3 of the plain version. The DFT kernel, called directly where it
-    takes the window (at most 907 samples, C23), is held to the same bar at
-    50 ms, where it always was; at the 40 ms shift its float32 DFT's
-    elements past the bar are counted and printed (C22), as is its largest
-    gap to the FFT kernel. The kernels and the plain version are timed in
-    turns (2 rounds); the FFT kernel must be the fastest. Returns {name:
-    {"fft": result, "dft": result or None, "launches": counts}}."""
-    from chunkformer_tpu_torch.ops.fbank import (_geometry, band_table, fbank, fbank_dft,
-                                                 fbank_fft, fbank_plain, num_frames)
+    1e-3 of the plain version, with no element past the bar. The DFT kernel
+    (no route's kernel), called directly where it takes the window (at most
+    ``DFT_MAX_WIN`` samples, C23), is held to the same bar at 50 ms, where
+    it always was; elsewhere its float32 DFT's elements past the bar are
+    counted and printed (C22), as is its largest gap to the FFT kernel. The
+    kernels and the plain version are timed in turns (2 rounds); the FFT
+    kernel must be the fastest. Returns
+    {name: {"fft": result, "dft": result or None, "launches": counts}}."""
+    from chunkformer_tpu_torch.ops.fbank import (DFT_MAX_WIN, _geometry, band_table, fbank,
+                                                 fbank_dft, fbank_fft, fbank_plain, num_frames)
     from chunkformer_tpu_torch.ops.fbank import route as fbank_route
 
     out = {}
-    for name, kw, seconds in FBANK_OTHER:
+    for name, kw, seconds, dft_bar in FBANK_OTHER:
         sr = kw.get("sample_rate", 16000)
         win, shift, padded = _geometry(sr, kw.get("frame_length", 25.0),
                                        kw.get("frame_shift", 10.0))
@@ -1870,12 +1892,13 @@ def other_fbank(device, card):
             got["dft"] = fbank_dft(wave, **kw)
             torch.cuda.synchronize()
         errs, over = {}, {}
+        n_mels = kw.get("num_mel_bins", 80)
         for k, feats in got.items():
             err = (feats - want).abs()
             errs[k] = float(err.max())
             over[k] = int((err > 2e-3 + 1e-3 * want.abs()).sum())
-            require(feats.shape == (n, 80) and bool(torch.isfinite(feats).all())
-                    and (over[k] == 0 or (k == "dft" and name == "25 ms / 40 ms shift")),
+            require(feats.shape == (n, n_mels) and bool(torch.isfinite(feats).all())
+                    and (over[k] == 0 or (k == "dft" and not dft_bar)),
                     f"fbank {k} at {name}: max err {errs[k]:.3g}, {over[k]} past the bar")
         gap = f"{float((got['fft'] - got['dft']).abs().max()):.3g}" if dft else "-"
         times = {k: [] for k in ("fft", "dft", "plain") if k != "dft" or dft}
@@ -1885,13 +1908,13 @@ def other_fbank(device, card):
                 times["dft"].append(cuda_ms(lambda: fbank_dft(wave, **kw), iters=3, warmup=1))
             times["plain"].append(cuda_ms(lambda: fbank_plain(wave, **kw), iters=3, warmup=1))
         ms = {k: sum(v) / 2 for k, v in times.items()}
-        bound_ms, bound_by = fbank_bound(wave, n, win=win, padded=padded, sample_rate=sr)
+        bound_ms, bound_by = fbank_bound(wave, n, n_mels, win=win, padded=padded, sample_rate=sr)
         out[name] = {k: (dict(max_abs_err=errs[k], ms=ms[k], plain_ms=ms["plain"],
                               bound_ms=bound_ms, bound_by=bound_by) if k in errs else None)
                      for k in ("fft", "dft")}
         out[name]["launches"] = counts
-        nnz = int(band_table(80, padded, float(sr))[1].sum())
-        log(f"fbank {name}: {win} samples, shift {shift}, padded {padded}, {sr} Hz, "
+        nnz = int(band_table(n_mels, padded, float(sr))[1].sum())
+        log(f"fbank {name}: {win} samples, shift {shift}, padded {padded}, {sr} Hz, {n_mels} bins, "
             f"{seconds:.0f} s ({n} frames, {nnz} mel weights); routed fbank launches {counts}; "
             f"max|kernel-plain| FFT {errs['fft']:.3g}, DFT "
             + (f"{errs['dft']:.3g} ({over['dft']} of {want.numel()} past the bar)" if dft
@@ -1908,15 +1931,206 @@ def other_fbank(device, card):
     return out
 
 
-def phase_other_geometries(card, device, f32):
+def other_train_inputs(c, dk, dtype, gen, device, b=8, nch=4):
+    """Training attention operands at chunk c, head dim dk: b utterances of
+    nch chunks with ragged lengths down to 1 (the last), H = 8, L = R = 128;
+    the stream's pad rows zero as in the encoder."""
+    lens = torch.tensor([nch * c - 7 * i - (i * i) % 5 for i in range(b)][:-1] + [1],
+                        dtype=torch.int32, device=device)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    args = [rnd(b, nch * c, 8, dk), rnd(b, LEFT + nch * c + RIGHT, 8, 2 * dk),
+            rnd(2 * c - 1 + LEFT + RIGHT, 8, dk), rnd(8, dk), rnd(8, dk), lens]
+    args[1][:, :LEFT] = 0
+    args[1][:, LEFT + nch * c:] = 0
+    return args
+
+
+def other_train_attention(c, dk, gen, device, card):
+    """B4 and B5 at chunk c, head dim dk: B = 8 utterances of 4 chunks with
+    ragged lengths down to 1, H = 8, L = R = 128, p = 0.1. In f32 and in
+    bf16 the routed tensor-core kernels (a partial 64-row query block where
+    64 does not divide c, a partial 64-frame key block where it does not
+    divide 4c) and the CUDA-core kernels against the plain version at the
+    dtype's bars (f32: ctx atol 1e-5, m and den rtol 1e-5, gradients atol
+    1e-4 + rtol 1e-5; bf16: ctx atol 1e-2 + one bf16 ulp, m and den rtol
+    1e-2, each gradient 1e-2 relative L2), each launch counted; timed in
+    turns (tensor cores, CUDA cores, plain; 2 rounds); the tensor-core
+    forward and backward must be faster than both. Returns {dtype name:
+    {"tc": {"fwd": result, "bwd": result}, "cc": {...}}}."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    b, nch, drop = 8, 4, 0.1
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        name = "bf16" if bf16 else "f32"
+        targs = other_train_inputs(c, dk, dtype, gen, device, b, nch)
+        lens = targs[5]
+        label = f"train attention {name} c={c} dk={dk}"
+        require(cat.route(*targs[:3], c) == "tensor_core",
+                f"{label}: routed to {cat.route(*targs[:3], c)}")
+        st = (5, c, LEFT, RIGHT, drop)
+        want = cat.forward_plain(*targs, *st)
+        dctx = torch.randn(want[0].shape, generator=gen, device=device).to(dtype)
+        leaves = [a.detach().clone().requires_grad_() for a in targs[:5]]
+        ref = torch.autograd.grad(cat.forward_plain(*leaves, lens, *st)[0], leaves, dctx)
+        errs, fwd_out = {}, {}
+        for route in ("tensor_core", "cuda_core"):
+            tag = f"{label} ({route.replace('_', '-')} route)"
+            counts = read_train_counts()
+            ctx, m, den = fwd_out[route] = cat.forward_kernel(*targs, *st, path=route)
+            got = cat.backward_kernel(*targs, ctx, m, den, dctx, *st, path=route)
+            torch.cuda.synchronize()
+            key = "_tc" if route == "tensor_core" else ""
+            moved = {k: v - counts[k] for k, v in read_train_counts().items()}
+            require(moved == {"fwd": 0, "bwd": 0, "fwd_tc": 0, "bwd_tc": 0, f"fwd{key}": 1,
+                              f"bwd{key}": 1}, f"{tag}: launches {moved}")
+            f_err = float((ctx.float() - want[0].float()).abs().max())
+            tol = (1e-2 + 2.0 ** -7 * want[0].float().abs()) if bf16 else 1e-5
+            require(bool(torch.isfinite(ctx).all())
+                    and bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
+                    f"{tag}: forward max |kernel - plain| {f_err:.3g}")
+            for sname, got_s, want_s in (("m", m, want[1]), ("den", den, want[2])):
+                rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
+                require(rel <= (1e-2 if bf16 else 1e-5), f"{tag}: {sname} relative error {rel:.3g}")
+            b_err, worst = 0.0, 0.0  # max |kernel - plain|; the bar's worst measure
+            for gname, a, e in zip(("q", "kv", "p", "u", "v"), got, ref):
+                require(bool(torch.isfinite(a).all()), f"{tag}: non-finite d{gname}")
+                b_err = max(b_err, float((a.float() - e.float()).abs().max()))
+                if bf16:
+                    rel = float((a.float() - e.float()).norm() / e.float().norm())
+                    worst = max(worst, rel)
+                    require(rel <= 1e-2, f"{tag}: d{gname} relative L2 error {rel:.3g}")
+                else:
+                    excess = float(((a - e).abs() - 1e-5 * e.abs()).max())
+                    worst = max(worst, excess)
+                    require(excess <= 1e-4, f"{tag}: d{gname} atol excess {excess:.3g}")
+            errs[route] = (f_err, b_err, worst)
+            del got
+        times = {k: [] for k in ("tc_f", "cc_f", "pl_f", "tc_b", "cc_b", "pl_b")}
+        tc_out, cc_out = fwd_out["tensor_core"], fwd_out["cuda_core"]
+        for _ in range(2):
+            times["tc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                *targs, *st, path="tensor_core"), iters=20))
+            times["cc_f"].append(cuda_ms(lambda: cat.forward_kernel(
+                *targs, *st, path="cuda_core"), iters=5))
+            times["pl_f"].append(cuda_ms(lambda: cat.forward_plain(*targs, *st), iters=3,
+                                         warmup=1))
+            times["tc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                *targs, *tc_out, dctx, *st, path="tensor_core"), iters=20))
+            times["cc_b"].append(cuda_ms(lambda: cat.backward_kernel(
+                *targs, *cc_out, dctx, *st, path="cuda_core"), iters=5))
+            times["pl_b"].append(cuda_ms(lambda: cat.backward_plain(
+                *targs, tc_out[1], tc_out[2], dctx, *st), iters=3, warmup=1))
+        mean = {k: sum(v) / 2 for k, v in times.items()}
+        res = {"tc": {}, "cc": {}}
+        msg = (f"{label} B={b} x {nch * c} frames (lens {lens.tolist()}), H=8, L=R={LEFT}, "
+               f"p={drop}, {-(-c // 64)} query blocks a chunk, {-(-nch * c // 64)} key blocks an "
+               f"utterance: tensor cores forward max|kernel-plain| {errs['tensor_core'][0]:.3g}, "
+               f"backward {errs['tensor_core'][1]:.3g} (worst "
+               f"{'relative L2' if bf16 else 'atol excess over rtol 1e-5'} "
+               f"{errs['tensor_core'][2]:.3g}); CUDA cores {errs['cuda_core'][0]:.3g}, "
+               f"{errs['cuda_core'][1]:.3g} ({errs['cuda_core'][2]:.3g})")
+        for i, part in enumerate(("fwd", "bwd")):
+            x = part[0]
+            for r, route in (("tc", "tensor_core"), ("cc", "cuda_core")):
+                bound, by = train_attention_bounds(
+                    targs, part == "bwd", "tf32" if r == "tc" and not bf16 else None, c=c)
+                res[r][part] = dict(max_abs_err=errs[route][i], ms=mean[f"{r}_{x}"],
+                                    plain_ms=mean[f"pl_{x}"], bound_ms=bound, bound_by=by)
+            tc_r = res["tc"][part]
+            msg += (f"; {'forward' if x == 'f' else 'backward'} in turns (2 rounds): tensor cores "
+                    f"{mean[f'tc_{x}']:.4f} ms ({', '.join(f'{t:.4f}' for t in times[f'tc_{x}'])})"
+                    f", CUDA cores {mean[f'cc_{x}']:.4f} ms "
+                    f"({', '.join(f'{t:.4f}' for t in times[f'cc_{x}'])}), plain "
+                    f"{mean[f'pl_{x}']:.4f} ms "
+                    f"({', '.join(f'{t:.4f}' for t in times[f'pl_{x}'])}); bound "
+                    f"{tc_r['bound_ms']:.4f} ms by {tc_r['bound_by']}, tensor cores "
+                    f"{tc_r['ms'] / tc_r['bound_ms']:.1f}x")
+        log(msg + f"; card {card}")
+        for x, part in (("f", "forward"), ("b", "backward")):
+            require(mean[f"tc_{x}"] < mean[f"cc_{x}"] and mean[f"tc_{x}"] < mean[f"pl_{x}"],
+                    f"{label}: the tensor-core {part} ({mean[f'tc_{x}']:.4f} ms) is not below "
+                    f"the CUDA-core one ({mean[f'cc_{x}']:.4f}) and the plain version "
+                    f"({mean[f'pl_{x}']:.4f})")
+        out[name] = res
+        del targs, want, dctx, leaves, ref, fwd_out, tc_out, cc_out
+    return out
+
+
+def train_step_at(chunk, card, device, train_dict=TRAIN):
+    """The flagship CTC/AED step of ``train_dict`` at (c, L, R) = ``chunk``,
+    dropout 0, on the seeded batch: one f32 step through the tensor-core
+    route against the same step through the plain attention, at
+    ``f32_step_routes``' bars (loss 1e-5, gradients 1e-4 relative L2, per
+    parameter against its sensitivity baseline), and one bf16 step at
+    ``bf16_step_routes``' bar (1e-2 whole-gradient relative L2); each
+    launches the tensor-core training kernels only. Returns the f32 and bf16
+    steps' launch counts."""
+    from chunkformer_tpu_torch.config import ChunkFormerConfig
+
+    cfg = ChunkFormerConfig.from_dict(train_dict)
+    n_layers = cfg.encoder_conf.num_blocks
+    recompute = 2 if cfg.encoder_conf.remat_policy == "nothing" else 1
+    batch = train_batch(cfg, device, SEED + 2)
+    t0 = time.time()
+    f32_counts = f32_step_routes(train_dict, device, batch, n_layers, recompute,
+                                 routes=("tensor_core",), chunk=chunk)
+    bf16_counts = bf16_step_routes(train_dict, device, batch, n_layers, recompute,
+                                   routes=("tensor_core",), chunk=chunk)[1]["tensor_core"]
+    log(f"train step at (c, L, R) = {chunk} ({TRAIN_BATCH} x {TRAIN_FRAMES} frames, f32 and "
+        f"bf16 against the plain attention): launches f32 {f32_counts}, bf16 {bf16_counts}; "
+        f"{time.time() - t0:.1f} s with the plain steps and the baseline; card {card}")
+    return f32_counts, bf16_counts
+
+
+def encode_at(model, wavs, chunk, card):
+    """A recognize-style f32 ``encode`` of the search files in one padded
+    batch at (c, L, R) = ``chunk``: B4's forward in eval on the tensor cores
+    only (one launch a layer), the encoder outputs within 2e-3 of the same
+    encode through the plain attention on the valid frames, and B4 timed on
+    the captured operands (``time_eval_forward``). Returns the launches and
+    B4's result."""
+    c, left, right = chunk
+    n_layers = model.config.encoder_conf.num_blocks
+    _, xs, lens = padded_batch(model, wavs)
+    reset_train_counts()
+    with CaptureTrainAttention() as cap:
+        out, out_lens = model.encode(xs, lens, c, left, right)
+    torch.cuda.synchronize()
+    counts = read_train_counts()
+    with CaptureTrainAttention(plain=True):
+        out_plain, _ = model.encode(xs, lens, c, left, right)
+    valid = torch.arange(out.shape[1], device=out.device)[None, :] < out_lens[:, None]
+    err = float((out - out_plain).abs()[valid].max())
+    log(f"f32 encode at (c, L, R) = {chunk} of the {len(wavs)} search files: launches {counts}; "
+        f"through the kernels vs through the plain attention, {int(valid.sum())} frames: max "
+        f"abs diff {err:.3g} (limit 2e-3)")
+    require(counts == {"fwd": 0, "bwd": 0, "fwd_tc": n_layers, "bwd_tc": 0},
+            f"encode at c={c} launches {counts}")
+    require(bool(torch.isfinite(out[valid]).all()) and err <= 2e-3,
+            f"encode at c={c}: the kernels' outputs differ from the plain attention's by {err}")
+    b4 = time_eval_forward(f"encode f32 c={c}", cap.args, torch.float32, card, ctx=chunk,
+                           what=f"the c = {c} encode batch's shape")
+    return counts, b4
+
+
+def phase_other_geometries(card, device, f32, wavs):
     """Decode attention at the C7 shapes on the tensor cores in f32 and bf16,
     held and timed beside the plain version and the CUDA-core kernel
-    (``other_attention``); the training kernels' CUDA-core route at the
-    same shapes; a 120 s f32 ``endless_decode`` at c = 96 on
+    (``other_attention``); the training kernels at the same shapes on both
+    routes in f32 and bf16 (``other_train_attention``: the tensor cores
+    required the fastest); a 120 s f32 ``endless_decode`` at c = 96 on
     ChunkFormer-large, tensor-core attention launches only, against the same
-    decode through the plain attention; fbank at the geometries the FFT
-    kernel took from the DFT kernel (``other_fbank``). Returns the results
-    by shape and geometry and the c = 96 decode's launches."""
+    decode through the plain attention; the flagship train step at (96,
+    128, 128) in f32 and bf16 (``train_step_at``) and an f32 encode of the
+    search files ``wavs`` there (``encode_at``), tensor-core training
+    kernels only; fbank at the geometries the FFT kernel took from the DFT
+    kernel (``other_fbank``). Returns the results by shape and geometry, and
+    the c = 96 decode's, train steps' and encode's launches."""
     from chunkformer_tpu_torch.api import endless_sizing
     from chunkformer_tpu_torch.nn import attention as attention_module
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
@@ -1930,41 +2144,8 @@ def phase_other_geometries(card, device, f32):
         n = 13 if c == 72 else endless_sizing(enc, c, RIGHT, BUDGET)[4]
         trunc = endless_sizing(enc, c, RIGHT, BUDGET)[0]
         results[(c, dk)] = other_attention(c, dk, n, trunc, gen, device, card)
-        # the training kernels at the same (c, dk): 8 utterances, ragged lens
-        b, nch = 8, 4
-        lens = torch.tensor([nch * c - 7 * i - (i * i) % 5 for i in range(b)][:-1] + [1],
-                            dtype=torch.int32, device=device)
-        targs = [torch.randn(b, nch * c, 8, dk, generator=gen, device=device),
-                 torch.randn(b, LEFT + nch * c + RIGHT, 8, 2 * dk, generator=gen,
-                             device=device),
-                 torch.randn(2 * c - 1 + LEFT + RIGHT, 8, dk, generator=gen, device=device),
-                 torch.randn(8, dk, generator=gen, device=device),
-                 torch.randn(8, dk, generator=gen, device=device), lens]
-        targs[1][:, :LEFT] = 0
-        targs[1][:, LEFT + nch * c:] = 0
-        st = (5, c, LEFT, RIGHT, 0.0)
-        ctx, m, den = cat.forward_kernel(*targs, *st, path="cuda_core")
-        want = cat.forward_plain(*targs, *st)
-        f_err = float((ctx - want[0]).abs().max())
-        require(f_err <= 1e-5, f"train forward c={c} dk={dk}: {f_err:.3g}")
-        dctx = torch.randn(ctx.shape, generator=gen, device=device)
-        got = cat.backward_kernel(*targs, ctx, m, den, dctx, *st, path="cuda_core")
-        leaves = [a.detach().clone().requires_grad_() for a in targs[:5]]
-        ref = torch.autograd.grad((cat.forward_plain(*leaves, targs[5], *st)[0] * dctx).sum(),
-                                  leaves)
-        b_err = max(float(((a - e).abs() - 1e-5 * e.abs()).max()) for a, e in zip(got, ref))
-        require(b_err <= 1e-4, f"train backward c={c} dk={dk}: atol excess {b_err:.3g}")
-        fwd_ms = cuda_ms(lambda: cat.forward_kernel(*targs, *st, path="cuda_core"), iters=5)
-        bwd_ms = cuda_ms(lambda: cat.backward_kernel(*targs, ctx, m, den, dctx, *st,
-                                                     path="cuda_core"), iters=5)
-        fb, fby = train_attention_bounds(targs, False, c=c)
-        bb, bby = train_attention_bounds(targs, True, c=c)
-        log(f"train attention f32 CUDA cores c={c} dk={dk} B={b} x {nch * c} frames (lens "
-            f"{lens.tolist()}): forward max|kernel-plain| {f_err:.3g} (atol 1e-5), {fwd_ms:.4f} "
-            f"ms, bound {fb:.4f} ms by {fby}; backward within atol 1e-4 + rtol 1e-5 of autograd "
-            f"through the plain forward (largest excess over rtol {b_err:.3g}), {bwd_ms:.4f} "
-            f"ms, bound {bb:.4f} ms by {bby}")
-        del targs, ctx, m, den, dctx, got, ref, leaves, want
+        # the training kernels at the same (c, dk), both routes, f32 and bf16
+        results[("train", c, dk)] = other_train_attention(c, dk, gen, device, card)
 
     # endless_decode of 120 s at c = 96 through the tensor-core kernel, against
     # the plain attention: no flip where the f32 top-1/top-2 gap is 1e-3 or more
@@ -2000,6 +2181,9 @@ def phase_other_geometries(card, device, f32):
             f"c={c} endless tokens: {clear} flips at gap >= 1e-3")
     del out, feats
 
+    c96_counts = {"decode": c96_counts}
+    c96_counts["train f32"], c96_counts["train bf16"] = train_step_at(TRAIN_C7, card, device)
+    c96_counts["encode"], results["encode c96"] = encode_at(f32, wavs, TRAIN_C7, card)
     results["fbank"] = other_fbank(device, card)
     return results, c96_counts
 
@@ -3881,7 +4065,8 @@ def main() -> int:
         log(f"[phase search path] {time.time() - t:.1f} s")
 
         t = time.time()
-        other, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32)
+        other, c96_launches = phase_other_geometries(card, torch.device("cuda"), search_f32,
+                                                     search[2])
         del search_f32
         torch.cuda.empty_cache()
         log(f"[phase other geometries] {time.time() - t:.1f} s")
@@ -4001,7 +4186,8 @@ def main() -> int:
         {"name": "chunk_attention_c96", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc_f32.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
-         "launches": c96_launches["chunk_attention_tc"], **other[(96, 64)]["f32"]["tc"],
+         "launches": c96_launches["decode"]["chunk_attention_tc"],
+         **other[(96, 64)]["f32"]["tc"],
          "library_ms": None},
         {"name": "chunk_attention_c96_bf16", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention_tc.cu",
@@ -4010,7 +4196,7 @@ def main() -> int:
         {"name": "chunk_attention_c96_cuda_core", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/chunk_attention.cu",
          "replaces": "chunkformer_tpu/ops/pallas/chunk_attention.py:335",
-         "launches": c96_launches["chunk_attention"], **other[(96, 64)]["f32"]["cc"],
+         "launches": c96_launches["decode"]["chunk_attention"], **other[(96, 64)]["f32"]["cc"],
          "library_ms": None},
         {"name": "fbank_fft_stream", "route": "cuda",
          "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
@@ -4053,6 +4239,36 @@ def main() -> int:
                         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
                         "launches": fb_other["launches"]["fbank_fft"], **fb_other["fft"],
                         "library_ms": None})
+    for tag, geometry in (("160_bins", "160 bins at 25 ms / 16 kHz"),
+                          ("128", "15 ms at 8 kHz (128 points)"),
+                          ("4096", "25 ms at 96 kHz (4096 points)")):
+        fb_other = other["fbank"][geometry]
+        kernels.append({"name": f"fbank_fft_{tag}", "route": "cuda",
+                        "source": "chunkformer_tpu_torch/csrc/fbank_fft.cu",
+                        "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+                        "launches": fb_other["launches"]["fbank_fft"], **fb_other["fft"],
+                        "library_ms": None})
+    train96 = other[("train",) + C7_DECODE[0]]
+    for tag, suffix, step in (("f32", "_f32", "train f32"), ("bf16", "", "train bf16")):
+        for part, line in (("fwd", 316), ("bwd", 390)):
+            kernels.append(
+                {"name": f"chunk_train_attention_tc{suffix}_{part}_c96", "route": "cuda",
+                 "source": f"chunkformer_tpu_torch/csrc/chunk_attention_train_tc{suffix}.cu",
+                 "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+                 "launches": c96_launches[step][f"{part}_tc"], **train96[tag]["tc"][part],
+                 "library_ms": None})
+            if tag == "f32":
+                kernels.append(
+                    {"name": f"chunk_train_attention_f32_{part}_c96", "route": "cuda",
+                     "source": "chunkformer_tpu_torch/csrc/chunk_attention_train.cu",
+                     "replaces": f"chunkformer_tpu/ops/pallas/chunk_attention_train.py:{line}",
+                     "launches": c96_launches[step][part], **train96[tag]["cc"][part],
+                     "library_ms": None})
+    kernels.append({"name": "chunk_train_attention_tc_f32_fwd_eval_c96", "route": "cuda",
+                    "source": "chunkformer_tpu_torch/csrc/chunk_attention_train_tc_f32.cu",
+                    "replaces": "chunkformer_tpu/ops/pallas/chunk_attention_train.py:316",
+                    "launches": c96_launches["encode"]["fwd_tc"], **other["encode c96"],
+                    "library_ms": None})
     kernels.append({"name": "fbank_dft_odd_shift", "route": "cuda",
                     "source": "chunkformer_tpu_torch/csrc/fbank.cu",
                     "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
@@ -4157,10 +4373,15 @@ def main() -> int:
         f"(8 files, c = 64), launches from the bf16 and the f32 recognize calls; other "
         f"geometries: the decode kernels at c = 96, dk = 64 (the f32 and bf16 tensor-core "
         f"kernels and the f32 CUDA-core kernel), launches from the 120 s f32 endless_decode "
-        f"at c = 96; fbank at 50 ms / 161, a 40 ms shift and 25 ms at 44.1 kHz (the FFT "
-        f"kernels; the DFT kernel at 50 ms / 161 only), launches from one routed fbank call "
-        f"at each; the streaming path: the FFT fbank kernel on one step's "
-        f"window, launches from the f32 bin/stream run; classification: B4's forward in eval "
+        f"at c = 96; fbank at 50 ms / 161, a 40 ms shift, 25 ms at 44.1 kHz, 160 bins, 128 "
+        f"points (15 ms at 8 kHz) and 4096 points (25 ms at 96 kHz) (the FFT kernel; the DFT "
+        f"kernel at 50 ms / 161 only), launches from one routed fbank call at each; the "
+        f"training kernels at c = 96 (*_c96: B = 8, 4 chunks, H = 8, dk = 64, p = 0.1; the "
+        f"tensor-core kernels in f32 and bf16 and the f32 CUDA-core kernels), launches from "
+        f"the flagship train step at (96, 128, 128) in that dtype, B4's eval forward at the "
+        f"c = 96 encode of the search files, launches from that encode; the streaming path: "
+        f"the FFT fbank kernel on one step's window, launches from the f32 bin/stream run; "
+        f"classification: B4's forward in eval "
         f"at classify_audio's shape at (128, 128, 128) (the 40 s file), launches from "
         f"classify_audio over the 8 files in bf16 and in f32; the transducer (*_rnnt, H = 4): "
         f"B1 at a middle segment of the {RNNT_SECONDS:.0f} s endless_decode, launches from "

@@ -1,8 +1,8 @@
 // Limited-context training attention on Hopper tensor cores (sm_90a), bf16:
 // forward and backward.
 //
-// Replaces, for bf16 with head_dim 64 or 128 and a chunk of a multiple of 64
-// rows, the TPU kernels of chunkformer_tpu/ops/pallas/chunk_attention_train.py:
+// Replaces, for bf16 with head_dim 64 or 128 at any chunk size, the TPU
+// kernels of chunkformer_tpu/ops/pallas/chunk_attention_train.py:
 // the forward _attn_fwd_call (:316; its pallas_call at :359, kernel
 // _fwd_kernel :78) and the backward _attn_core_bwd (:390; its pallas_call at
 // :448, kernel _bwd_kernel :161, overlap-add :469-482). f32 at these shapes
@@ -30,9 +30,24 @@
 //
 // Design (the decode kernel's, chunk_attention_tc.cu, with (b, ci) where
 // decode has the chunk row n; the PTX helpers are in hopper_tc.cuh):
-// - One warpgroup (128 threads) per 64 query rows; c = 64 is one wgmma M.
-//   Key intervals [lo, hi) come from lens[b]; a query row at or past
-//   lens[b] has none and gets ctx 0, m = -1e29, den = 1e-30.
+// - One warpgroup (128 threads) per 64 query rows, ceil(c / 64) blocks a
+//   chunk; c = 64 is one wgmma M. Key intervals [lo, hi) come from lens[b];
+//   a query row at or past lens[b] has none and gets ctx 0, m = -1e29,
+//   den = 1e-30.
+// - Partial blocks (as the decode kernel's partial tiles,
+//   chunk_attention_tc.cu). The last 64-row block of a chunk that 64 does
+//   not divide holds crows = c - r0 rows. Its rows past the chunk load as
+//   zeros (load_tile's row bound: they are the next chunk's rows, or past
+//   the tensor), take no valid key (masked like rows past lens[b]), so
+//   their weights and dS are 0, and are never stored: no ctx, m, den,
+//   delta or dq row, and, being zero, nothing into the dP slab, the band's
+//   column sums, dK or dV. The rel-shift row of query r and key j is c - 1
+//   - r + j whatever the block, so the positional base pb0 = lo + c - 64 -
+//   r0 and the skew hold; a partial block's rows past the chunk read
+//   positional rows below 0, which the copies zero-fill and the dP slab
+//   update skips. The dK/dV kernel takes ceil(T / 64) key blocks (T = n c);
+//   the last holds T - f0 frames, its rows past T load as zeros and are not
+//   stored. At c = 96 a chunk computes 128 query rows for 96.
 // - Scores: S = Q K^T and the positional blocks BD = Q P^T by wgmma (bf16
 //   in, f32 accumulators), with the split bias form (q + u).k = q.k + u.k,
 //   (q + v).p = q.p + v.p (u.k and v.p are f32 dot products). Each 64-row
@@ -71,6 +86,10 @@
 //     f32 column sums (its v term, and dv's) into a slab [P] beside it. G is
 //     chosen by the wrapper so the slabs stay small (12.5 MB at the flagship
 //     shape, against 100 MB of per-(b, ci) partials on the CUDA cores).
+//     Where G is 1 and the budget holds more slabs than utterances (a small
+//     batch), an utterance's chunks are cut into up to n ranges, a block and
+//     a slab each (ops/chunk_attention_train.py dp_splits), so that more of
+//     the card's SMs run this latency-bound kernel.
 // (b) train_bwd_dkv_tc_kernel, one block per (b, 64 key frames, h): for every
 //     query chunk and 64-row block whose window covers those keys, recompute
 //     S (two positional blocks) and dA, then dV += A_drop^T dctx and
@@ -148,7 +167,8 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int len = lens[b];
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
-  const int rows = min(64, len - ci * c - r0);  // valid query rows of the block
+  const int crows = min(64, c - r0);                // query rows of the block in the chunk
+  const int rows = min(crows, len - ci * c - r0);   // valid query rows of the block
   const int warp = tid >> 5, lane = tid & 31;
   const int ra = warp * 16 + (lane >> 2);
   const int cb = 2 * (lane & 3);
@@ -157,12 +177,12 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0;
 
   if (hi <= lo || rows <= 0) {  // no valid (query, key) pair: ctx 0, empty statistics
-    for (int i = tid; i < 64 * DK / 2; i += kThreads) {
+    for (int i = tid; i < crows * DK / 2; i += kThreads) {
       const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
       *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(r) * H * DK + d) =
           __floats2bfloat162_rn(0.f, 0.f);
     }
-    if (tid < 64) {
+    if (tid < crows) {
       m_out[so + tid] = -1e29f;
       den_out[so + tid] = 1e-30f;
     }
@@ -179,7 +199,7 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     uf[d] = __bfloat162float(bias_u[h * DK + d]);
     vf[d] = __bfloat162float(bias_v[h * DK + d]);
   }
-  load_tile<DK>(smem_u32(sQ), qb, sqt, 0, 64, tid);
+  load_tile<DK>(smem_u32(sQ), qb, sqt, 0, crows, tid);  // rows past the chunk: zeros
   load_tile<DK>(smem_u32(sK), kb, skt, lo, W, tid);
   load_tile<DK>(smem_u32(sV), kb + DK, skt, lo, W, tid);
   load_tile<DK>(smem_u32(sP), pb, spp, pb0, p_rows, tid);
@@ -333,7 +353,7 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[x] = l > 0.f ? 1.f / l : 0.f;
-    if ((lane & 3) == 0) {
+    if ((lane & 3) == 0 && ra + 8 * x < crows) {
       const int rr = ra + 8 * x;
       m_out[so + rr] = l > 0.f ? fmaxf(m_run[x] * kLn2, -1e29f) : -1e29f;
       den_out[so + rr] = fmaxf(l, 1e-30f);
@@ -343,9 +363,10 @@ train_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(ra + 8 * x) * H * DK + 8 * i +
-                                         cb) =
-          __floats2bfloat162_rn(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
+      if (ra + 8 * x < crows)  // rows past the chunk are not stored
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<int64_t>(ra + 8 * x) * H * DK +
+                                           8 * i + cb) =
+            __floats2bfloat162_rn(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
     }
   }
 }
@@ -382,7 +403,8 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
                        const float* __restrict__ m_in, const float* __restrict__ den_in,
                        const bf16* __restrict__ dctx, float* __restrict__ delta_out, bf16* __restrict__ dq,
                        float* __restrict__ dp_part, float* __restrict__ cs_part, int B,
-                       int group, Geom g, Drop drop, int64_t sqb, int64_t sqt, int64_t sqh,
+                       int group, int splits, Geom g, Drop drop, int64_t sqb, int64_t sqt,
+                       int64_t sqh,
                        int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph) {
   using S = DqSmem<DK>;
   constexpr int kTile = S::kTile;
@@ -403,7 +425,9 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   float* row_m = reinterpret_cast<float*>(smem + S::kRow);
   float* row_inv = row_m + 64;
 
-  const int grp = blockIdx.x, h = blockIdx.y;
+  // cell: utterances [grp * group, + group), chunks [ci0, ci1) of them
+  const int cell = blockIdx.x, grp = cell / splits, part = cell % splits, h = blockIdx.y;
+  const int ci0 = part * g.n / splits, ci1 = (part + 1) * g.n / splits;
   const int tid = threadIdx.x, c = g.c, H = g.H;
   const int W = g.W(), p_rows = g.P(), T = g.T();
   const int warp = tid >> 5, lane = tid & 31;
@@ -411,8 +435,8 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   const int cb = 2 * (lane & 3);
   const float scale = rsqrtf(static_cast<float>(DK));
   const float scale_log2 = kLog2e * scale;
-  float* slab = dp_part + (static_cast<int64_t>(grp) * H + h) * p_rows * DK;
-  float* cs_slab = cs_part + (static_cast<int64_t>(grp) * H + h) * p_rows;
+  float* slab = dp_part + (static_cast<int64_t>(cell) * H + h) * p_rows * DK;
+  float* cs_slab = cs_part + (static_cast<int64_t>(cell) * H + h) * p_rows;
   const bf16* pb = pos + h * sph;
   const uint32_t q_addr = smem_u32(smem + S::kQ), g_addr = smem_u32(smem + S::kG);
   const uint32_t k_addr = smem_u32(sK), v_addr = smem_u32(sV), band_addr = smem_u32(sBand);
@@ -429,34 +453,37 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   for (int b = grp * group; b < b_end; ++b) {
     const int len = lens[b];
     const bf16* kvb = kv + b * skb + h * skh;
-    for (int ci = 0; ci < g.n; ++ci) {
+    for (int ci = ci0; ci < ci1; ++ci) {
       const int lo = max(0, g.L - ci * c);
       const int hi = min(W, len - ci * c + g.L);
       const bf16* kb = kvb + static_cast<int64_t>(ci) * c * skt;
       for (int r0 = 0; r0 < c; r0 += 64) {
-        const int rows = min(64, len - ci * c - r0);
+        const int crows = min(64, c - r0);               // query rows of the block in the chunk
+        const int rows = min(crows, len - ci * c - r0);  // valid ones
         const int64_t t0 = static_cast<int64_t>(b) * T + ci * c + r0;
         const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0;
         bf16* dqb = dq + (t0 * H + h) * DK;
         __syncthreads();  // the previous block's shared tiles are free
         const bool empty = hi <= lo || rows <= 0;
         const int n_tiles = (hi - lo + 63) / 64;
-        const int pb0 = lo + c - 64 - r0;
-        if (tid < 64) {
-          row_m[tid] = m_in[so + tid] * kLog2e;
-          row_inv[tid] = 1.f / den_in[so + tid];
+        const int pb0 = lo + c - 64 - r0;  // negative in a partial block: zero-filled rows
+        if (tid < 64) {  // rows past the chunk: finite stand-ins, never used (no valid key)
+          row_m[tid] = tid < crows ? m_in[so + tid] * kLog2e : 0.f;
+          row_inv[tid] = tid < crows ? 1.f / den_in[so + tid] : 0.f;
         }
         if (empty) {  // no valid pair: delta and dq rows 0
-          if (tid < 64) delta_out[so + tid] = 0.f;
-          for (int i = tid; i < 64 * DK / 2; i += kThreads) {
+          if (tid < crows) delta_out[so + tid] = 0.f;
+          for (int i = tid; i < crows * DK / 2; i += kThreads) {
             const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
             *reinterpret_cast<__nv_bfloat162*>(dqb + static_cast<int64_t>(r) * H * DK + d) =
                 __floats2bfloat162_rn(0.f, 0.f);
           }
           continue;
         }
-        load_tile<DK>(q_addr, q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, 64, tid);
-        load_tile<DK>(g_addr, dctx + (t0 * H + h) * DK, static_cast<int64_t>(H) * DK, 0, 64, tid);
+        // Q and dctx rows past the chunk load as zeros
+        load_tile<DK>(q_addr, q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, crows, tid);
+        load_tile<DK>(g_addr, dctx + (t0 * H + h) * DK, static_cast<int64_t>(H) * DK, 0, crows,
+                      tid);
         // the first key tile and positional blocks 0, 1 into ring slots 0, 1
         auto load_first = [&]() {
           load_tile<DK>(k_addr, kb, skt, lo, W, tid);
@@ -591,7 +618,7 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
           dsum[x] += __shfl_xor_sync(0xffffffffu, dsum[x], 1);
           dsum[x] += __shfl_xor_sync(0xffffffffu, dsum[x], 2);
           rdelta[x] = dsum[x];
-          if ((lane & 3) == 0) delta_out[so + ra + 8 * x] = dsum[x];
+          if ((lane & 3) == 0 && ra + 8 * x < crows) delta_out[so + ra + 8 * x] = dsum[x];
         }
         stage_first();
 
@@ -680,9 +707,10 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
             wgmma_ss_dk<DK, 0, 1>(dacc, desc_kmajor(band_addr, kk),
                                   desc_mnmajor(smem_u32(kk < 4 ? tP0 : tP1), kk & 3), 1);
           wgmma_commit();
-          {  // this group's f32 band column sums, for the v terms of dP and dv
+          {  // this group's f32 band column sums, for the v terms of dP and dv (a
+             // positional row below 0 meets only zero rows past the chunk)
             const int prow = pb0 + 64 * t + tid;
-            if (prow < p_rows) cs_slab[prow] += csp[tid];
+            if (prow >= 0 && prow < p_rows) cs_slab[prow] += csp[tid];
           }
           wgmma_wait_all();
           fence_regs(dacc);
@@ -695,12 +723,12 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
             const int prow0 = pb0 + 64 * (t + mb) + ra;
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
+              const bool in = prow0 + 8 * x >= 0 && prow0 + 8 * x < p_rows;
               const float* src = slab + static_cast<int64_t>(prow0 + 8 * x) * DK + cb;
 #pragma unroll
               for (int i = 0; i < DK / 8; ++i) {
-                const float2 v2 = prow0 + 8 * x < p_rows
-                                      ? *reinterpret_cast<const float2*>(src + 8 * i)
-                                      : make_float2(0.f, 0.f);
+                const float2 v2 = in ? *reinterpret_cast<const float2*>(src + 8 * i)
+                                     : make_float2(0.f, 0.f);
                 cur[4 * i + 2 * x] = v2.x;
                 cur[4 * i + 2 * x + 1] = v2.y;
               }
@@ -716,7 +744,7 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
             fence_regs(pacc);
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
-              if (prow0 + 8 * x >= p_rows) continue;
+              if (prow0 + 8 * x < 0 || prow0 + 8 * x >= p_rows) continue;
               float* dst = slab + static_cast<int64_t>(prow0 + 8 * x) * DK + cb;
 #pragma unroll
               for (int i = 0; i < DK / 8; ++i)
@@ -726,15 +754,17 @@ train_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
             }
           }
         }
-        // dq = (dS K + unshift(dS) P) / sqrt(dk); rows past len are 0
+        // dq = (dS K + unshift(dS) P) / sqrt(dk); rows past len are 0, rows
+        // past the chunk not stored
 #pragma unroll
         for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
-            *reinterpret_cast<__nv_bfloat162*>(
-                dqb + static_cast<int64_t>(ra + 8 * x) * H * DK + 8 * i + cb) =
-                __floats2bfloat162_rn(dacc[4 * i + 2 * x] * scale,
-                                      dacc[4 * i + 2 * x + 1] * scale);
+            if (ra + 8 * x < crows)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  dqb + static_cast<int64_t>(ra + 8 * x) * H * DK + 8 * i + cb) =
+                  __floats2bfloat162_rn(dacc[4 * i + 2 * x] * scale,
+                                        dacc[4 * i + 2 * x + 1] * scale);
           }
         }
       }
@@ -790,10 +820,11 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   float* csw = reinterpret_cast<float*>(smem + S::kCsw);
   float* rowst = reinterpret_cast<float*>(smem + S::kRow);
 
-  const int kt = g.T() / 64;
+  const int kt = (g.T() + 63) / 64;  // key blocks an utterance, the last may be partial
   const int b = blockIdx.x / kt, f0 = (blockIdx.x % kt) * 64, h = blockIdx.y;
   const int tid = threadIdx.x, c = g.c, H = g.H, L = g.L;
   const int W = g.W(), p_rows = g.P(), T = g.T();
+  const int krows = min(64, T - f0);  // key frames of the block
   const int warp = tid >> 5, lane = tid & 31;
   const int ra = warp * 16 + (lane >> 2);
   const int cb = 2 * (lane & 3);
@@ -812,7 +843,7 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
   }
   float* dub = du_part + (static_cast<int64_t>(blockIdx.x) * H + h) * DK;
   if (n_steps == 0) {  // no valid key or no query: zero gradient rows
-    for (int i = tid; i < 64 * DK; i += kThreads) {
+    for (int i = tid; i < krows * DK; i += kThreads) {
       const int r = i / DK, d = i % DK;
       ob[r * sdt + d] = __float2bfloat16(0.f);
       ob[r * sdt + DK + d] = __float2bfloat16(0.f);
@@ -827,23 +858,27 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     uf[d] = __bfloat162float(bias_u[h * DK + d]);
     vf[d] = __bfloat162float(bias_v[h * DK + d]);
   }
-  // one step's operands: Q, dctx, positional blocks; row statistics into stage st
+  // one step's operands: Q, dctx, positional blocks; row statistics into
+  // stage st (a partial block's rows past the chunk: zero rows, finite
+  // stand-in statistics, never used)
   auto load_step = [&](int st, int ci, int r0) {
     uint8_t* base = smem + S::kStep;
     const int j0 = L + f0 - ci * c;
     const int pbase = c - 64 - r0 + j0;
+    const int crows = min(64, c - r0);
     const int64_t t0 = static_cast<int64_t>(b) * T + ci * c + r0;
-    load_tile<DK>(smem_u32(base), q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, 64, tid);
+    load_tile<DK>(smem_u32(base), q + b * sqb + (ci * c + r0) * sqt + h * sqh, sqt, 0, crows,
+                  tid);
     load_tile<DK>(smem_u32(base + kTile), dctx + (t0 * H + h) * DK,
-                  static_cast<int64_t>(H) * DK, 0, 64, tid);
+                  static_cast<int64_t>(H) * DK, 0, crows, tid);
     load_tile<DK>(smem_u32(base + 2 * kTile), pb, spp, pbase, p_rows, tid);
     load_tile<DK>(smem_u32(base + 3 * kTile), pb, spp, pbase + 64, p_rows, tid);
     if (tid < 64) {
       const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0 + tid;
       float* rs = rowst + st * 192;
-      rs[tid] = m_in[so] * kLog2e;
-      rs[64 + tid] = 1.f / den_in[so];
-      rs[128 + tid] = delta_in[so];
+      rs[tid] = tid < crows ? m_in[so] * kLog2e : 0.f;
+      rs[64 + tid] = tid < crows ? 1.f / den_in[so] : 0.f;
+      rs[128 + tid] = tid < crows ? delta_in[so] : 0.f;
     }
   };
 
@@ -879,6 +914,7 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     const uint8_t* tP1 = base + 3 * kTile;
     const float* rs = rowst + st * 192;
     const int j0 = L + f0 - ci * c;
+    const int crows = min(64, c - r0);  // query rows of the block in the chunk
 
     float bacc[32];
     fence_regs(bacc);
@@ -926,7 +962,7 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           const int rr = ra + 8 * x, k = 4 * i + 2 * x + e;
-          const bool ok = key_ok && ci * c + r0 + rr < len;
+          const bool ok = key_ok && rr < crows && ci * c + r0 + rr < len;
           const int idx = 63 - rr + jj;
           const float bd = stg[(idx < 64 ? 0 : kSlot) + rr * kStage + (idx & 63)];
           const float sc = (s[k] + (e ? ukj.y : ukj.x) + bd) * scale_log2;
@@ -1004,10 +1040,12 @@ train_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv,
     for (int j = 0; j < 64; ++j) a = fmaf(csw[j], tile_at(sK, j, d), a);
     dub[d] = a;
   }
-  // dK = (dS^T Q + cs u) / sqrt(dk), dV = A_drop^T dctx, rows L + f0 + j of the stream
+  // dK = (dS^T Q + cs u) / sqrt(dk), dV = A_drop^T dctx, rows L + f0 + j of the
+  // stream; a partial block's rows past T are not stored
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int jj = ra + 8 * x;
+    if (jj >= krows) continue;
     const float csj = csw[jj];
     bf16* row = ob + jj * sdt;
 #pragma unroll
@@ -1029,7 +1067,8 @@ int launch_fwd(const void* q, const void* kv, const void* pos, const void* u, co
   const int smem = FwdSmem<DK>::kBytes;
   int err = set_smem(train_fwd_tc_kernel<DK>, smem);
   if (err) return err;
-  train_fwd_tc_kernel<DK><<<dim3(B * g.n, g.H, g.c / 64), kThreads, smem, stream>>>(
+  // ceil(c / 64) query blocks a chunk, the last partial where 64 does not divide c
+  train_fwd_tc_kernel<DK><<<dim3(B * g.n, g.H, (g.c + 63) / 64), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kv), static_cast<const bf16*>(pos),
       static_cast<const bf16*>(u), static_cast<const bf16*>(v), lens, static_cast<bf16*>(ctx),
       m, den, g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
@@ -1041,26 +1080,27 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
                const int* lens, const void* ctx, const float* m, const float* den,
                const void* dctx, float* delta, void* dq, void* dkv, float* dp_part,
                float* cs_part, float* du_part, void* dp, void* du, void* dv, int B, int group,
-               Geom g, Drop drop, const int64_t* s, cudaStream_t stream) {
+               int splits, Geom g, Drop drop, const int64_t* s, cudaStream_t stream) {
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kvb = static_cast<const bf16*>(kv);
   const bf16* pb = static_cast<const bf16*>(pos);
   const bf16* ub = static_cast<const bf16*>(u);
   const bf16* vb = static_cast<const bf16*>(v);
-  const int groups = (B + group - 1) / group;
+  const int cells = (B + group - 1) / group * splits;  // dq blocks a head, one slab each
   int smem = DqSmem<DK>::kBytes;
   int err = set_smem(train_bwd_dq_tc_kernel<DK>, smem);
   if (err) return err;
-  train_bwd_dq_tc_kernel<DK><<<dim3(groups, g.H), kThreads, smem, stream>>>(
-      qb, kvb, pb, ub, vb, lens, m, den, static_cast<const bf16*>(dctx), delta, static_cast<bf16*>(dq), dp_part, cs_part, B,
-      group, g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
+  train_bwd_dq_tc_kernel<DK><<<dim3(cells, g.H), kThreads, smem, stream>>>(
+      qb, kvb, pb, ub, vb, lens, m, den, static_cast<const bf16*>(dctx), delta,
+      static_cast<bf16*>(dq), dp_part, cs_part, B, group, splits, g, drop, s[0], s[1], s[2],
+      s[3], s[4], s[5], s[6], s[7]);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   smem = DkvSmem<DK>::kBytes;
   err = set_smem(train_bwd_dkv_tc_kernel<DK>, smem);
   if (err) return err;
-  const int kv_blocks = B * (g.T() / 64);
+  const int kv_blocks = B * ((g.T() + 63) / 64);
   train_bwd_dkv_tc_kernel<DK><<<dim3(kv_blocks, g.H), kThreads, smem, stream>>>(
       qb, kvb, pb, ub, vb, lens, m, den, delta, static_cast<const bf16*>(dctx),
       static_cast<bf16*>(dkv), du_part, g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
@@ -1069,7 +1109,7 @@ int launch_bwd(const void* q, const void* kv, const void* pos, const void* u, co
   if (err) return err;
 
   return launch_partial_sums<bf16>(dp_part, cs_part, du_part, pb, vb, static_cast<bf16*>(dp),
-                                   static_cast<bf16*>(du), static_cast<bf16*>(dv), groups,
+                                   static_cast<bf16*>(du), static_cast<bf16*>(dv), cells,
                                    kv_blocks, g, DK, s[6], s[7], stream);
 }
 
@@ -1089,14 +1129,13 @@ extern "C" int cf_chunk_train_attn_tc_f32_bwd(
     const int* lens, const void* ctx, const float* m, const float* den, const void* dctx,
     float* delta, void* dq, void* dkv, float* dp_part, float* cs_part, float* du_part, void* dp,
     void* du, void* dv, int B, int n, int H, int c, int dk, int L, int R, int group,
-    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht, int64_t sqb,
-    int64_t sqt,
-    int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph, int64_t sdb,
-    int64_t sdt, int64_t sdh, void* stream);
+    int splits, uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht,
+    int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp,
+    int64_t sph, int64_t sdb, int64_t sdt, int64_t sdh, void* stream);
 
 // dtype: 0 = float32 (the 3xTF32 kernels of chunk_attention_train_tc_f32.cu),
-// 1 = bfloat16 (this file's kernels); dk 64 or 128; c a multiple of 64; every
-// row 16-byte aligned; ctx, dctx, dq contiguous [B, n*c, H, dk]; m, den,
+// 1 = bfloat16 (this file's kernels); dk 64 or 128; any c >= 1; every row
+// 16-byte aligned; ctx, dctx, dq contiguous [B, n*c, H, dk]; m, den,
 // delta contiguous [B, H, n*c] (checked by the Python wrapper). Strides: q
 // (b, t, h), kv (b, t, h), p (p, h), dkv (b, t, h). h0, Ht: the tensor's head h
 // is head h0 + h of Ht in the dropout hash (0 and H on one process). Return a
@@ -1117,7 +1156,7 @@ extern "C" int cf_chunk_train_attn_tc_fwd(int dtype, const void* q, const void* 
                                           sqh, skb, skt, skh, spp, sph, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
-  if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
   const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[8] = {sqb, sqt, sqh, skb, skt, skh, spp, sph};
@@ -1127,16 +1166,19 @@ extern "C" int cf_chunk_train_attn_tc_fwd(int dtype, const void* q, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// group: utterances per dq block. Partials, f32: dp_part [ceil(B / group),
-// H, P, dk] and cs_part [ceil(B / group), H, P], both zero; du_part
-// [B * n*c / 64, H, dk].
+// group: utterances per dq block; splits: chunk ranges an utterance's dq work
+// is cut into (only with group 1; ops/chunk_attention_train.py dp_splits).
+// Partials, f32: dp_part [ceil(B / group) * splits, H, P, dk] and cs_part
+// [ceil(B / group) * splits, H, P], both zero; du_part [B * ceil(n*c / 64),
+// H, dk] (one row a dK/dV block).
 extern "C" int cf_chunk_train_attn_tc_bwd(int dtype, const void* q, const void* kv, const void* pos,
                                           const void* u, const void* v, const int* lens,
                                           const void* ctx, const float* m, const float* den,
                                           const void* dctx, float* delta, void* dq, void* dkv,
                                           float* dp_part, float* cs_part, float* du_part,
                                           void* dp, void* du, void* dv, int B, int n, int H,
-                                          int c, int dk, int L, int R, int group, uint32_t seed,
+                                          int c, int dk, int L, int R, int group, int splits,
+                                          uint32_t seed,
                                           uint32_t thresh, float drop_scale, int use_drop, int h0,
                                           int Ht,
                                           int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb,
@@ -1145,22 +1187,23 @@ extern "C" int cf_chunk_train_attn_tc_bwd(int dtype, const void* q, const void* 
   if (dtype == 0)
     return cf_chunk_train_attn_tc_f32_bwd(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq,
                                           dkv, dp_part, cs_part, du_part, dp, du, dv, B, n, H,
-                                          c, dk, L, R, group, seed, thresh, drop_scale,
+                                          c, dk, L, R, group, splits, seed, thresh, drop_scale,
                                           use_drop, h0, Ht, sqb, sqt, sqh, skb, skt, skh, spp,
                                           sph, sdb,
                                           sdt, sdh, stream);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || n == 0) return 0;
-  if (c % 64 != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || group < 1 || splits < 1 || splits > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
   const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[11] = {sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb, sdt, sdh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dk == 64)
     return launch_bwd<64>(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq, dkv, dp_part,
-                          cs_part, du_part, dp, du, dv, B, group, g, drop, s, st);
+                          cs_part, du_part, dp, du, dv, B, group, splits, g, drop, s, st);
   if (dk == 128)
     return launch_bwd<128>(q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq, dkv, dp_part,
-                           cs_part, du_part, dp, du, dv, B, group, g, drop, s, st);
+                           cs_part, du_part, dp, du, dv, B, group, splits, g, drop, s, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,8 @@
 // Limited-context training attention on Hopper tensor cores (sm_90a), f32,
 // with 3xTF32 split products: forward and backward.
 //
-// Replaces, for f32 with head_dim 64 or 128 and a chunk of a multiple of 64
-// rows, the TPU kernels of chunkformer_tpu/ops/pallas/chunk_attention_train.py:
+// Replaces, for f32 with head_dim 64 or 128 at any chunk size, the TPU
+// kernels of chunkformer_tpu/ops/pallas/chunk_attention_train.py:
 // the forward _attn_fwd_call (:316; its pallas_call at :359, kernel
 // _fwd_kernel :78) and the backward _attn_core_bwd (:390; its pallas_call at
 // :448, kernel _bwd_kernel :161, overlap-add :469-482). The function is that
@@ -18,6 +18,13 @@
 // relative against the plain f32 version). Every product is split into
 // three TF32 passes with fresh accumulators added in f32 (tf32_split.cuh):
 // one TF32 pass keeps 10 bits, about 5e-4 relative.
+//
+// Partial blocks, as in chunk_attention_train_tc.cu: ceil(c / 64) query
+// blocks a chunk and ceil(n c / 64) key blocks an utterance; a block's rows
+// past its chunk (or past T) land as zeros (the producer's landing buffer
+// and the backward's pairs, by load_tile's row bound), take no valid key,
+// and are never stored; positional rows below 0 zero-fill and the dP slab
+// and column-sum updates skip them.
 //
 // What bounds them on an H100: at the flagship train shape (B = 32, n = 4,
 // c = 64, H = 8, dk = 64, L = R = 128, 199 frames) the forward's three
@@ -40,7 +47,8 @@
 // Backward, deterministic (no floating-point atomics; every sum has one
 // owner and a fixed order), the bf16 kernels' decomposition with the
 // partial buffers of ops/chunk_attention_train.py:partial_shapes:
-// (a) train_bwd_dq_tc_f32_kernel, a block per (group of utterances, h, 64
+// (a) train_bwd_dq_tc_f32_kernel, a block per (group of utterances, or one
+//     utterance's range of chunks where the bf16 kernel takes one; h; 64
 //     columns of dk): per 64-row query block and key tile, S, BD and dA =
 //     dctx V^T (split products, dk in 64-column steps), dS = A (keep dA /
 //     (1 - p) - delta) in f32 registers (delta = rowsum(dctx * ctx) in f32
@@ -221,18 +229,19 @@ train_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   const int len = lens[b];
   const int lo = max(0, g.L - ci * c);
   const int hi = min(W, len - ci * c + g.L);
-  const int rows = min(64, len - ci * c - r0);  // valid query rows of the block
+  const int crows = min(64, c - r0);               // query rows of the block in the chunk
+  const int rows = min(crows, len - ci * c - r0);  // valid query rows of the block
   const int64_t t0 = static_cast<int64_t>(b) * T + ci * c + r0;  // first frame of the block
   const int64_t sor = static_cast<int64_t>(H) * DK;              // row stride of ctx
   float* ob = ctx + (t0 * H + h) * DK;
   const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0;
 
   if (hi <= lo || rows <= 0) {  // no valid (query, key) pair: ctx 0, empty statistics
-    for (int i = tid; i < 64 * DK / 2; i += kBlock) {
+    for (int i = tid; i < crows * DK / 2; i += kBlock) {
       const int r = i / (DK / 2), d = 2 * (i % (DK / 2));
       *reinterpret_cast<float2*>(ob + r * sor + d) = make_float2(0.f, 0.f);
     }
-    if (tid < 64) {
+    if (tid < crows) {
       m_out[so + tid] = -1e29f;
       den_out[so + tid] = 1e-30f;
     }
@@ -267,8 +276,8 @@ train_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       if (e < n_elems) {
         const uint32_t dst = smem_u32(sLand + (e % kLanding) * kTile);
         const int t = tile(e), block = e == 1 ? 0 : t + 1;
-        if (kind(e) == kQ)
-          load_tile<DK>(dst, qb, sqt, 0, 64, ptid);
+        if (kind(e) == kQ)  // rows past the chunk land as zeros
+          load_tile<DK>(dst, qb, sqt, 0, crows, ptid);
         else if (kind(e) == kK)
           load_tile<DK>(dst, kb, skt, lo + 64 * t, W, ptid);
         else if (kind(e) == kP)
@@ -371,7 +380,7 @@ train_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[x] = l > 0.f ? 1.f / l : 0.f;
-    if ((lane & 3) == 0) {
+    if ((lane & 3) == 0 && ra + 8 * x < crows) {
       const int rr = ra + 8 * x;
       m_out[so + rr] = l > 0.f ? fmaxf(m_run[x] * kLn2, -1e29f) : -1e29f;
       den_out[so + rr] = fmaxf(l, 1e-30f);
@@ -381,8 +390,9 @@ train_fwd_tc_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < DK / 8; ++i) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
-      *reinterpret_cast<float2*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
-          make_float2(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
+      if (ra + 8 * x < crows)  // rows past the chunk are not stored
+        *reinterpret_cast<float2*>(ob + (ra + 8 * x) * sor + 8 * i + cb) =
+            make_float2(o[4 * i + 2 * x] * inv[x], o[4 * i + 2 * x + 1] * inv[x]);
     }
   }
 }
@@ -493,7 +503,8 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ den_in, const float* __restrict__ dctx,
                            float* __restrict__ delta_out, float* __restrict__ dq,
                            float* __restrict__ dp_part, float* __restrict__ cs_part, int B,
-                           int group, Geom g, Drop drop, int64_t sqb, int64_t sqt, int64_t sqh,
+                           int group, int splits, Geom g, Drop drop, int64_t sqb, int64_t sqt,
+                           int64_t sqh,
                            int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph) {
   using S = DqSmem<DK>;
   constexpr int kSlot = 64 * kStage;
@@ -515,7 +526,10 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
   uint32_t* row_hash = reinterpret_cast<uint32_t*>(row_delta + 64);
   float* fband = reinterpret_cast<float*>(u0);  // f32 [64][128]: dS of row r at column 63 - r + j
 
-  const int grp = blockIdx.x, h = blockIdx.y, z = blockIdx.z, d0 = 64 * z;
+  // cell: utterances [grp * group, + group), chunks [ci0, ci1) of them
+  const int cell = blockIdx.x, grp = cell / splits, part = cell % splits;
+  const int ci0 = part * g.n / splits, ci1 = (part + 1) * g.n / splits;
+  const int h = blockIdx.y, z = blockIdx.z, d0 = 64 * z;
   // two warpgroups share the loads, splits and transposes; warpgroup 0 runs
   // the score products, dS and dq, and each runs one of the two dP products
   const int tid = threadIdx.x, wg = tid >> 7, c = g.c, H = g.H;
@@ -526,8 +540,8 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const float scale = rsqrtf(static_cast<float>(DK));
   const float scale_log2 = kLog2e * scale;
   const int64_t srow = static_cast<int64_t>(H) * DK;  // row stride of ctx, dctx, dq
-  float* slab = dp_part + (static_cast<int64_t>(grp) * H + h) * p_rows * DK;
-  float* cs_slab = cs_part + (static_cast<int64_t>(grp) * H + h) * p_rows;
+  float* slab = dp_part + (static_cast<int64_t>(cell) * H + h) * p_rows * DK;
+  float* cs_slab = cs_part + (static_cast<int64_t>(cell) * H + h) * p_rows;
   const float* pb = pos + h * sph;
 
   for (int d = tid; d < DK; d += kBlock) {
@@ -539,12 +553,13 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
   for (int b = grp * group; b < b_end; ++b) {
     const int len = lens[b];
     const float* kvb = kv + b * skb + h * skh;
-    for (int ci = 0; ci < g.n; ++ci) {
+    for (int ci = ci0; ci < ci1; ++ci) {
       const int lo = max(0, g.L - ci * c);
       const int hi = min(W, len - ci * c + g.L);
       const float* kb = kvb + static_cast<int64_t>(ci) * c * skt;
       for (int r0 = 0; r0 < c; r0 += 64) {
-        const int rows = min(64, len - ci * c - r0);
+        const int crows = min(64, c - r0);               // query rows of the block in the chunk
+        const int rows = min(crows, len - ci * c - r0);  // valid ones
         const int64_t t0 = static_cast<int64_t>(b) * T + ci * c + r0;
         const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0;
         const float* qb = q + b * sqb + static_cast<int64_t>(ci * c + r0) * sqt + h * sqh;
@@ -552,28 +567,32 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
         float* dqb = dq + (t0 * H + h) * DK + d0;
         __syncthreads();  // the previous block's row statistics and pairs are free
         if (wg == 0) {  // delta = rowsum(dctx * ctx), two threads a row; row statistics
+          // (rows past the chunk: finite stand-ins, never used)
           const int row = tid >> 1, half = tid & 1;
+          const bool real = row < crows;
           const int64_t off = (t0 + row) * srow + h * DK + half * (DK / 2);
           float a = 0.f;
+          if (real) {
 #pragma unroll
-          for (int i = 0; i < DK / 8; ++i) {
-            const float4 x = ld4(ctx + off + 4 * i), y = ld4(dctx + off + 4 * i);
-            a = fmaf(x.x, y.x, a);
-            a = fmaf(x.y, y.y, a);
-            a = fmaf(x.z, y.z, a);
-            a = fmaf(x.w, y.w, a);
+            for (int i = 0; i < DK / 8; ++i) {
+              const float4 x = ld4(ctx + off + 4 * i), y = ld4(dctx + off + 4 * i);
+              a = fmaf(x.x, y.x, a);
+              a = fmaf(x.y, y.y, a);
+              a = fmaf(x.z, y.z, a);
+              a = fmaf(x.w, y.w, a);
+            }
           }
           a += __shfl_xor_sync(0xffffffffu, a, 1);
           if (half == 0) {
             row_delta[row] = a;
-            if (z == 0) delta_out[so + row] = a;
-            row_m[row] = m_in[so + row] * kLog2e;
-            row_inv[row] = 1.f / den_in[so + row];
+            if (z == 0 && real) delta_out[so + row] = a;
+            row_m[row] = real ? m_in[so + row] * kLog2e : 0.f;
+            row_inv[row] = real ? 1.f / den_in[so + row] : 0.f;
             row_hash[row] = drop_row(drop, b, h, ci * c + r0 + row);
           }
         }
         if (hi <= lo || rows <= 0) {  // no valid pair: dq rows 0
-          for (int i = tid; i < 64 * 16; i += kBlock)
+          for (int i = tid; i < crows * 16; i += kBlock)
             *reinterpret_cast<float4*>(dqb + (i >> 4) * srow + 4 * (i & 15)) =
                 make_float4(0.f, 0.f, 0.f, 0.f);
           continue;
@@ -587,7 +606,7 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
           for (int d1 = 0; d1 < DK; d1 += 64) {
             if (d1) __syncthreads();
-            stage_pair<kBlock>(u0, qb, sqt, 0, 64, d1, tid);
+            stage_pair<kBlock>(u0, qb, sqt, 0, crows, d1, tid);
             stage_pair<kBlock>(u1, pb, spp, pb0, p_rows, d1, tid);
             cp_async_commit();
             cp_async_wait_all();
@@ -625,10 +644,10 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
           for (int d1 = 0; d1 < DK; d1 += 64) {
             __syncthreads();  // the pairs are free (and, at d1 = 0, u.k and v.p)
-            stage_pair<kBlock>(u0, qb, sqt, 0, 64, d1, tid);
+            stage_pair<kBlock>(u0, qb, sqt, 0, crows, d1, tid);
             stage_pair<kBlock>(u1, kb, skt, j0, W, d1, tid);
             stage_pair<kBlock>(u2, pb, spp, pt0 + 64, p_rows, d1, tid);
-            stage_pair<kBlock>(u3, gb, srow, 0, 64, d1, tid);
+            stage_pair<kBlock>(u3, gb, srow, 0, crows, d1, tid);
             stage_pair<kBlock>(u4, kb + DK, skt, j0, W, d1, tid);
             cp_async_commit();
             if (d1 == 0) {  // while the copies fly
@@ -658,11 +677,14 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
           // of blocks t and t + 1 (u2), Q and K (u4), columns d0 .. d0 + 63
           stage_raw<kBlock>(u2, pb, spp, pt0, p_rows, d0, tid);
           stage_raw<kBlock>(u2 + kHalf, pb, spp, pt0 + 64, p_rows, d0, tid);
-          stage_raw<kBlock>(u4, qb, sqt, 0, 64, d0, tid);
+          stage_raw<kBlock>(u4, qb, sqt, 0, crows, d0, tid);
           stage_raw<kBlock>(u4 + kHalf, kb, skt, j0, W, d0, tid);
           cp_async_commit();
-          float cs_prev = 0.f;  // this group's column sum of positional row pt0 + tid so far
-          if (z == 0 && tid < 128 && pt0 + tid < p_rows) cs_prev = cs_slab[pt0 + tid];
+          // this group's column sum of positional row pt0 + tid so far (a row
+          // below 0 meets only zero rows past the chunk)
+          const bool cs_row = z == 0 && tid < 128 && pt0 + tid >= 0 && pt0 + tid < p_rows;
+          float cs_prev = 0.f;
+          if (cs_row) cs_prev = cs_slab[pt0 + tid];
 
           // dS = A (keep dA / (1 - p) - delta), f32, in s, and its skewed f32
           // band (u0): row r, column 63 - r + j
@@ -712,7 +734,7 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
             const int m = tid;
             float a = 0.f;
             for (int r = max(0, 63 - m); r < min(64, 127 - m); ++r) a += fband[r * 128 + m];
-            if (pt0 + m < p_rows) cs_slab[pt0 + m] = cs_prev + a;
+            if (cs_row) cs_slab[pt0 + m] = cs_prev + a;
           }
           fence_async_smem();
           __syncthreads();
@@ -727,11 +749,12 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
             const int prow = pt0 + 64 * wg + ra + 8 * x;
+            const bool in = prow >= 0 && prow < p_rows;
             const float* sp = slab + static_cast<int64_t>(prow) * DK + d0 + cb;
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
-              const float2 v2 = prow < p_rows ? *reinterpret_cast<const float2*>(sp + 8 * i)
-                                              : make_float2(0.f, 0.f);
+              const float2 v2 = in ? *reinterpret_cast<const float2*>(sp + 8 * i)
+                                   : make_float2(0.f, 0.f);
               cur[4 * i + 2 * x] = v2.x;
               cur[4 * i + 2 * x + 1] = v2.y;
             }
@@ -807,7 +830,7 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
               const int prow = pt0 + 64 * wg + ra + 8 * x;
-              if (prow >= p_rows) continue;
+              if (prow < 0 || prow >= p_rows) continue;
               float* dst = slab + static_cast<int64_t>(prow) * DK + d0 + cb;
 #pragma unroll
               for (int i = 0; i < 8; ++i)
@@ -825,15 +848,18 @@ train_bwd_dq_tc_f32_kernel(const float* __restrict__ q, const float* __restrict_
         for (int x = 0; x < 2; ++x) {
           adsum[x] += __shfl_xor_sync(0xffffffffu, adsum[x], 1);
           adsum[x] += __shfl_xor_sync(0xffffffffu, adsum[x], 2);
-          if (z == 0 && (lane & 3) == 0) delta_out[so + ra + 8 * x] = adsum[x];
+          if (z == 0 && (lane & 3) == 0 && ra + 8 * x < crows)
+            delta_out[so + ra + 8 * x] = adsum[x];
         }
-        // dq = (dS K + unshift(dS) P) / sqrt(dk); rows past len are 0
+        // dq = (dS K + unshift(dS) P) / sqrt(dk); rows past len are 0, rows
+        // past the chunk not stored
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
           for (int x = 0; x < 2; ++x) {
-            *reinterpret_cast<float2*>(dqb + (ra + 8 * x) * srow + 8 * i + cb) =
-                make_float2(dacc[4 * i + 2 * x] * scale, dacc[4 * i + 2 * x + 1] * scale);
+            if (ra + 8 * x < crows)
+              *reinterpret_cast<float2*>(dqb + (ra + 8 * x) * srow + 8 * i + cb) =
+                  make_float2(dacc[4 * i + 2 * x] * scale, dacc[4 * i + 2 * x + 1] * scale);
           }
         }
       }
@@ -888,13 +914,14 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
   float* rs_delta = rs_inv + 64;
   uint32_t* rs_hash = reinterpret_cast<uint32_t*>(rs_delta + 64);
 
-  const int kt = g.T() / 64;
+  const int kt = (g.T() + 63) / 64;  // key blocks an utterance, the last may be partial
   const int b = blockIdx.x / kt, f0 = (blockIdx.x % kt) * 64, h = blockIdx.y;
   const int d0 = 64 * blockIdx.z;
   // two warpgroups share the loads, splits and transposes; warpgroup 0 runs
   // the score products and dS and then dK, warpgroup 1 dV
   const int tid = threadIdx.x, wg = tid >> 7, c = g.c, H = g.H, L = g.L;
   const int W = g.W(), p_rows = g.P(), T = g.T();
+  const int krows = min(64, T - f0);  // key frames of the block
   const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int ra = warp * 16 + (lane >> 2);
   const int cb = 2 * (lane & 3);
@@ -913,7 +940,7 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
   }
   float* dub = du_part + (static_cast<int64_t>(blockIdx.x) * H + h) * DK + d0;
   if (n_steps == 0) {  // no valid key or no query: zero gradient rows
-    for (int i = tid; i < 64 * 64; i += kBlock) {
+    for (int i = tid; i < krows * 64; i += kBlock) {
       const int r = i >> 6, d = i & 63;
       ob[r * sdt + d] = 0.f;
       ob[r * sdt + DK + d] = 0.f;
@@ -940,15 +967,17 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
   for (int step = 0; step < n_steps; ++step, next_block(ci, r0, c, len)) {
     const int j0 = L + f0 - ci * c;       // window position of key frame f0
     const int pbase = c - 64 - r0 + j0;   // first positional row of block 0
+    const int crows = min(64, c - r0);    // query rows of the block in the chunk
     const int64_t t0 = static_cast<int64_t>(b) * T + ci * c + r0;
     const float* qb = q + b * sqb + static_cast<int64_t>(ci * c + r0) * sqt + h * sqh;
     const float* gb = dctx + (t0 * H + h) * DK;
     __syncthreads();  // the previous step's pairs, staging and row statistics are free
-    if (tid < 64) {
+    if (tid < 64) {  // rows past the chunk: finite stand-ins, never used
       const int64_t so = (static_cast<int64_t>(b) * H + h) * T + ci * c + r0 + tid;
-      rs_m[tid] = m_in[so] * kLog2e;
-      rs_inv[tid] = 1.f / den_in[so];
-      rs_delta[tid] = delta_in[so];
+      const bool real = tid < crows;
+      rs_m[tid] = real ? m_in[so] * kLog2e : 0.f;
+      rs_inv[tid] = real ? 1.f / den_in[so] : 0.f;
+      rs_delta[tid] = real ? delta_in[so] : 0.f;
       rs_hash[tid] = drop_row(drop, b, h, ci * c + r0 + tid);
     }
     if (tid < 128) vp[tid] = dot_global<DK>(pb, spp, pbase + tid, p_rows, vf);
@@ -958,12 +987,12 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
     for (int d1 = 0; d1 < DK; d1 += 64) {
       if (d1) __syncthreads();
-      stage_pair<kBlock>(u0, qb, sqt, 0, 64, d1, tid);
+      stage_pair<kBlock>(u0, qb, sqt, 0, crows, d1, tid);
       stage_pair<kBlock>(u1, pb, spp, pbase, p_rows, d1, tid);
       stage_pair<kBlock>(u2, pb, spp, pbase + 64, p_rows, d1, tid);
       if (d1 == 0) {  // the sources of Q^T and dctx^T, for the last products
-        stage_raw<kBlock>(u4, qb, sqt, 0, 64, d0, tid);
-        stage_raw<kBlock>(u4 + kHalf, gb, srow, 0, 64, d0, tid);
+        stage_raw<kBlock>(u4, qb, sqt, 0, crows, d0, tid);
+        stage_raw<kBlock>(u4 + kHalf, gb, srow, 0, crows, d0, tid);
       }
       cp_async_commit();
       cp_async_wait_all();
@@ -987,9 +1016,9 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
     for (int d1 = 0; d1 < DK; d1 += 64) {
       __syncthreads();  // (at d1 = 0, also the staging)
-      if (DK > 64) stage_pair<kBlock>(u0, qb, sqt, 0, 64, d1, tid);  // else Q is in u0
+      if (DK > 64) stage_pair<kBlock>(u0, qb, sqt, 0, crows, d1, tid);  // else Q is in u0
       stage_pair<kBlock>(u1, kvb, skt, L + f0, L + T, d1, tid);
-      stage_pair<kBlock>(u2, gb, srow, 0, 64, d1, tid);
+      stage_pair<kBlock>(u2, gb, srow, 0, crows, d1, tid);
       stage_pair<kBlock>(u3, kvb + DK, skt, L + f0, L + T, d1, tid);
       cp_async_commit();
       cp_async_wait_all();
@@ -1024,7 +1053,7 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
             const int idx = 63 - rr + jj;
             const float bdv = stg[(idx < 64 ? 0 : kSlot) + rr * kStage + (idx & 63)];
             const float sc = (s[k] + (e ? ukj.y : ukj.x) + bdv) * scale_log2;
-            const float att = key_ok && ci * c + r0 + rr < len
+            const float att = key_ok && rr < crows && ci * c + r0 + rr < len
                                   ? exp2f(sc - rs_m[rr]) * rs_inv[rr] : 0.f;
             float adrop = att, dav = da[k];
             if (drop.on) {
@@ -1097,7 +1126,7 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
   if (tid < 64) {
     const float* kcol = kvb + static_cast<int64_t>(L + f0) * skt + d0 + tid;
     float a = 0.f;
-    for (int j = 0; j < 64; ++j) a = fmaf(csk[j], kcol[j * skt], a);
+    for (int j = 0; j < krows; ++j) a = fmaf(csk[j], kcol[j * skt], a);
     dub[tid] = a;
   }
   // dK = (dS^T Q + cs u) / sqrt(dk) (warpgroup 0), dV = A_drop^T dctx
@@ -1105,6 +1134,7 @@ train_bwd_dkv_tc_f32_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int jj = ra + 8 * x;
+    if (jj >= krows) continue;  // a partial block's rows past T are not stored
     float* row = ob + jj * sdt;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1129,7 +1159,8 @@ int launch_fwd(const float* q, const float* kv, const float* pos, const float* u
   const int smem = FwdSmem<DK>::kBytes;
   int err = set_smem(train_fwd_tc_f32_kernel<DK>, smem);
   if (err) return err;
-  train_fwd_tc_f32_kernel<DK><<<dim3(B * g.n, g.H, g.c / 64), kBlock, smem, stream>>>(
+  // ceil(c / 64) query blocks a chunk, the last partial where 64 does not divide c
+  train_fwd_tc_f32_kernel<DK><<<dim3(B * g.n, g.H, (g.c + 63) / 64), kBlock, smem, stream>>>(
       q, kv, pos, u, v, lens, ctx, m, den, g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
       s[7]);
   return static_cast<int>(cudaGetLastError());
@@ -1140,33 +1171,34 @@ int launch_bwd(const float* q, const float* kv, const float* pos, const float* u
                const float* v, const int* lens, const float* ctx, const float* m,
                const float* den, const float* dctx, float* delta, float* dq, float* dkv,
                float* dp_part, float* cs_part, float* du_part, float* dp, float* du, float* dv,
-               int B, int group, Geom g, Drop drop, const int64_t* s, cudaStream_t stream) {
-  const int groups = (B + group - 1) / group;
+               int B, int group, int splits, Geom g, Drop drop, const int64_t* s,
+               cudaStream_t stream) {
+  const int cells = (B + group - 1) / group * splits;  // dq blocks a head, one slab each
   int smem = DqSmem<DK>::kBytes;
   int err = set_smem(train_bwd_dq_tc_f32_kernel<DK>, smem);
   if (err) return err;
-  train_bwd_dq_tc_f32_kernel<DK><<<dim3(groups, g.H, DK / 64), kBlock, smem, stream>>>(
-      q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq, dp_part, cs_part, B, group, g, drop,
-      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
+  train_bwd_dq_tc_f32_kernel<DK><<<dim3(cells, g.H, DK / 64), kBlock, smem, stream>>>(
+      q, kv, pos, u, v, lens, ctx, m, den, dctx, delta, dq, dp_part, cs_part, B, group, splits,
+      g, drop, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7]);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   smem = DkvSmem<DK>::kBytes;
   err = set_smem(train_bwd_dkv_tc_f32_kernel<DK>, smem);
   if (err) return err;
-  const int kv_blocks = B * (g.T() / 64);
+  const int kv_blocks = B * ((g.T() + 63) / 64);
   train_bwd_dkv_tc_f32_kernel<DK><<<dim3(kv_blocks, g.H, DK / 64), kBlock, smem, stream>>>(
       q, kv, pos, u, v, lens, m, den, delta, dctx, dkv, du_part, g, drop, s[0], s[1], s[2],
       s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10]);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  return launch_partial_sums<float>(dp_part, cs_part, du_part, pos, v, dp, du, dv, groups,
+  return launch_partial_sums<float>(dp_part, cs_part, du_part, pos, v, dp, du, dv, cells,
                                     kv_blocks, g, DK, s[6], s[7], stream);
 }
 
 }  // namespace
 
-// f32; dk 64 or 128; c a multiple of 64; every row 16-byte aligned; ctx,
+// f32; dk 64 or 128; any c >= 1; every row 16-byte aligned; ctx,
 // dctx, dq contiguous [B, n*c, H, dk]; m, den, delta contiguous [B, H, n*c]
 // (checked by the Python wrapper). Called by cf_chunk_train_attn_tc_fwd and
 // _bwd (chunk_attention_train_tc.cu) for f32 inputs, with their arguments.
@@ -1181,7 +1213,7 @@ extern "C" int cf_chunk_train_attn_tc_f32_fwd(const void* q, const void* kv, con
                                               int64_t skt, int64_t skh, int64_t spp, int64_t sph,
                                               void* stream) {
   if (B == 0 || n == 0) return 0;
-  if (c % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
   const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[8] = {sqb, sqt, sqh, skb, skt, skh, spp, sph};
@@ -1197,20 +1229,21 @@ extern "C" int cf_chunk_train_attn_tc_f32_fwd(const void* q, const void* kv, con
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// group: utterances per dq block. Partials, f32: dp_part [ceil(B / group),
-// H, P, dk] and cs_part [ceil(B / group), H, P], both zero; du_part
-// [B * n*c / 64, H, dk].
+// group: utterances per dq block; splits: chunk ranges of an utterance a dq
+// block takes (group 1 only). Partials, f32: dp_part [ceil(B / group) *
+// splits, H, P, dk] and cs_part [ceil(B / group) * splits, H, P], both zero;
+// du_part [B * ceil(n*c / 64), H, dk] (one row a dK/dV block).
 extern "C" int cf_chunk_train_attn_tc_f32_bwd(
     const void* q, const void* kv, const void* pos, const void* u, const void* v,
     const int* lens, const void* ctx, const float* m, const float* den, const void* dctx,
     float* delta, void* dq, void* dkv, float* dp_part, float* cs_part, float* du_part, void* dp,
     void* du, void* dv, int B, int n, int H, int c, int dk, int L, int R, int group,
-    uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht, int64_t sqb,
-    int64_t sqt,
-    int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp, int64_t sph, int64_t sdb,
-    int64_t sdt, int64_t sdh, void* stream) {
+    int splits, uint32_t seed, uint32_t thresh, float drop_scale, int use_drop, int h0, int Ht,
+    int64_t sqb, int64_t sqt, int64_t sqh, int64_t skb, int64_t skt, int64_t skh, int64_t spp,
+    int64_t sph, int64_t sdb, int64_t sdt, int64_t sdh, void* stream) {
   if (B == 0 || n == 0) return 0;
-  if (c % 64 != 0 || group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (c < 1 || group < 1 || splits < 1 || splits > n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{n, H, c, L, R};
   const Drop drop{seed, thresh, drop_scale, use_drop, h0, Ht};
   const int64_t s[11] = {sqb, sqt, sqh, skb, skt, skh, spp, sph, sdb, sdt, sdh};
@@ -1229,9 +1262,10 @@ extern "C" int cf_chunk_train_attn_tc_f32_bwd(
   float* dvf = static_cast<float*>(dv);
   if (dk == 64)
     return launch_bwd<64>(qf, kvf, pf, uf, vf, lens, cf, m, den, gf, delta, dqf, dkvf, dp_part,
-                          cs_part, du_part, dpf, duf, dvf, B, group, g, drop, s, st);
+                          cs_part, du_part, dpf, duf, dvf, B, group, splits, g, drop, s, st);
   if (dk == 128)
     return launch_bwd<128>(qf, kvf, pf, uf, vf, lens, cf, m, den, gf, delta, dqf, dkvf,
-                           dp_part, cs_part, du_part, dpf, duf, dvf, B, group, g, drop, s, st);
+                           dp_part, cs_part, du_part, dpf, duf, dvf, B, group, splits, g, drop, s,
+                           st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

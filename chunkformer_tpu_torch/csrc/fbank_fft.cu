@@ -7,9 +7,13 @@
 // sample against itself) -> povey window -> power spectrum of the frame
 // zero-padded to `padded` points -> Kaldi mel bank (the Nyquist column is
 // zero) -> log(max(., 1.1920929e-07)). Dither is 0 (decode-time features).
-// It takes a padded window of 256, 512, 1024 or 2048 points, any shift and
-// at most 128 mel bins; the DFT kernel of the same function (csrc/fbank.cu)
-// takes more bins and other padded windows.
+// It takes every padded window of 64 to 4096 points, any shift and any mel
+// count up to 65535: ops/fbank.py routes every geometry here. A window
+// padded to 64 or 128 points runs the 256-point plan and reads every
+// (256 / padded)-th bin (for a frame that is zero past its window, X_P[k] =
+// X_256[k 256 / P] exactly), so only its mel lane table differs. The DFT
+// kernel of the same function (csrc/fbank.cu) is no route's kernel: it
+// stays as this one's yardstick.
 //
 // What bounds it on an H100: a 512-point real FFT is about 12 kFLOP a frame,
 // and with the rest about 15 kFLOP against about 1.3 KB of input and output
@@ -71,12 +75,24 @@
 //    float64 tables computed on the host, one a stage laid out [j][k] so
 //    that neighbouring lanes read neighbouring entries, held in shared
 //    memory.
+//  - 4096 points (windows of 2049 to 4096 samples: 25 ms at 96 kHz, 50 ms
+//    at 48 kHz) take a plan of their own. N = 2048 complex points a warp
+//    are 32 KB of float64, so a block has two warps; and a Stockham stage,
+//    which reads every point of the warp before any lane writes, would
+//    hold 64 complex values a lane, more registers than a thread has. So
+//    the plan is an in-place decimation in frequency of radices 8, 8, 8, 4
+//    (dif_stage): a butterfly reads and writes the same R points, so a
+//    lane holds one butterfly at a time. It leaves Z[k], k = q1 + 8 q2 +
+//    64 q3 + 512 q4, at point 256 q1 + 32 q2 + 4 q3 + q4 (dif_pos), where
+//    the real split reads it. Its twiddles W_N^e are W_2N^2e, read from
+//    the split table (no stage table), which leaves room for the tiles.
 //  - Shared memory traffic and the float64 pipe hold it, not DRAM: registers
 //    are capped (blocks_per_sm) so that three blocks, 24 warps, share an SM
 //    at 256 and 512 points. At 1024 points a block takes about 127 KB of
 //    shared memory (64 KB of it the warps' FFT buffers), so one block, 8
 //    warps, fits an SM, and its registers are not capped; at 2048 points
-//    about 196 KB (25 ms at 44.1 kHz; 64 KB of buffers for 4 warps).
+//    about 196 KB (25 ms at 44.1 kHz; 64 KB of buffers for 4 warps); at
+//    4096 points up to about 225 KB (64 KB of buffers for 2 warps).
 //  - Sparse mel: each triangular band is a contiguous run of bins. The host
 //    deals whole bands to the 32 lanes so that each lane has about as many
 //    (bin, weight) steps as the others (about 16 for 80 bands at 512
@@ -84,7 +100,8 @@
 //    summing each of its bands over its bins in ascending order (no work on
 //    the zeros). The warp then takes the full-precision log of the row, and
 //    the tile's [frames, n_mels] rows, staged in shared memory, leave in
-//    16-byte coalesced stores.
+//    16-byte coalesced stores. Many mel bins shrink the tile
+//    (ops/fbank.py fft_tile_frames) rather than the table's reach.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,8 +111,9 @@ namespace {
 
 constexpr int kMaxTileFrames = 16;
 // warps a block: eight, each with its own FFT buffer of N complex float64
-// (16 KB at N = 1024, where four leave room for the tiles)
-__host__ __device__ constexpr int warps(int n) { return n == 1024 ? 4 : 8; }
+// (16 KB at N = 1024, where four leave room for the tiles; 32 KB at N =
+// 2048, where two do)
+__host__ __device__ constexpr int warps(int n) { return n == 2048 ? 2 : n == 1024 ? 4 : 8; }
 // registers capped so that 3 blocks (24 warps) fit an SM at N = 128 and
 // 256; at N = 512 and 1024 shared memory admits one block an SM, which may
 // then take all the registers
@@ -107,7 +125,8 @@ constexpr double kSqrtHalf = 0.70710678118654752440;
 
 struct Params {
   const float* wave;      // [S]
-  const double2* twiddle;  // per later stage (R, P): [R - 1][P] exp(-2 pi i k j / (P R))
+  const double2* twiddle;  // per later stage (R, P): [R - 1][P] exp(-2 pi i k j / (P R));
+                           // none at N = 2048
   const double2* split;    // [N] exp(-2 pi i k / padded)
   const float* window;    // [win]
   const int2* mel;        // [mel_steps][32] a lane's steps: (bin, weight bits), the
@@ -139,7 +158,8 @@ struct Layout {
   int split, zbuf, tiles, span, staged, window, mel, total;
   __host__ __device__ Layout(int n, int win, int shift, int n_mels, int mel_steps,
                              int tile_frames) {
-    split = 4 * n;                 // the stage twiddles take fewer than n double2
+    // the stage twiddles take fewer than n double2 (none at n = 2048)
+    split = n == 2048 ? 0 : 4 * n;
     zbuf = split + 4 * n;
     tiles = zbuf + 4 * n * warps(n);
     span = tile_span(win, shift, tile_frames);
@@ -278,8 +298,66 @@ __device__ __forceinline__ void later_stages(double2* z, const double2* tw, int 
 
 // entries of the stage twiddle tables of the N-point FFT
 __host__ __device__ constexpr int stage_twiddles(int n) {
-  return n == 1024 ? 7 * 8 + 3 * 64 + 3 * 256
-                   : n == 512 ? 7 * 8 + 7 * 64 : n == 256 ? 7 * 8 + 3 * 64 : 3 * 8 + 3 * 32;
+  return n == 2048   ? 0
+         : n == 1024 ? 7 * 8 + 3 * 64 + 3 * 256
+         : n == 512  ? 7 * 8 + 7 * 64
+         : n == 256  ? 7 * 8 + 3 * 64
+                     : 3 * 8 + 3 * 32;
+}
+
+// ---- the 4096-point plan (N = 2048): in-place decimation in frequency
+
+// W_N^e = exp(-2 pi i e / N), 0 <= e < N, from the split table split[k] =
+// W_2N^k, k < N: W_N^e = W_2N^2e, which past the table is -split[2e - N]
+template <int N>
+__device__ __forceinline__ double2 twiddle_of(const double2* split, int e) {
+  const int k = 2 * e;
+  if (k < N) return split[k];
+  const double2 w = split[k - N];
+  return cx(-w.x, -w.y);
+}
+
+// One radix-R stage of the in-place plan over blocks of Ls points:
+// butterfly u < N / R takes z[base + j h], h = Ls / R, base = (u / h) Ls +
+// u mod h, j < R, and writes its R-point DFT, output q times W_Ls^{(u mod
+// h) q}, back to z[base + q h]. Butterflies touch disjoint points, so a
+// lane holds one at a time.
+template <int N, int R, int Ls>
+__device__ __forceinline__ void dif_stage(double2* z, const double2* split, int lane) {
+  constexpr int h = Ls / R;
+#pragma unroll 1
+  for (int u = lane; u < N / R; u += 32) {
+    const int i = u % h, base = (u / h) * Ls + i;
+    double2 a[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) a[j] = z[slot(base + j * h)];
+    dft<R>(a);
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      z[slot(base + q * h)] =
+          h > 1 && q > 0 ? cmul(a[q], twiddle_of<N>(split, i * q * (N / Ls))) : a[q];
+  }
+  __syncwarp();
+}
+
+// The plan's stages after its first (radix 8 over all N points, taken from
+// the samples by first_butterfly): radix 8 over blocks of 256 and of 32,
+// radix 4 over blocks of 4
+__device__ __forceinline__ void dif_stages(double2* z, const double2* split, int lane) {
+  dif_stage<2048, 8, 256>(z, split, lane);
+  dif_stage<2048, 8, 32>(z, split, lane);
+  dif_stage<2048, 4, 4>(z, split, lane);
+}
+
+// where the N-point FFT leaves Z[k] in the warp's buffer: in natural order,
+// or at N = 2048 the in-place plan's digit-reversed point of k = q1 + 8 q2
+// + 64 q3 + 512 q4, 256 q1 + 32 q2 + 4 q3 + q4
+template <int N>
+__device__ __forceinline__ int z_pos(int k) {
+  if constexpr (N == 2048)
+    return ((k & 7) << 8) | (((k >> 3) & 7) << 5) | (((k >> 6) & 7) << 2) | (k >> 9);
+  else
+    return k;
 }
 
 // Samples s and s + 1 of a frame (0 unless `live`, s inside the window;
@@ -303,12 +381,13 @@ __device__ __forceinline__ void samples(const float* x, int s, bool live, int wi
 
 // The first stage's butterfly i: z[i + j N/8], j < 8, from the frame's
 // samples 2(i + j N/8) and the next (DC removal, preemphasis, window, zero
-// padding), its 8-point DFT stored at z[8i + j].
+// padding), its 8-point DFT stored at z[8i + j] (Stockham), or at N = 2048
+// output q times W_N^{iq} stored at z[i + q N/8] (the in-place plan).
 template <int N>
 __device__ __forceinline__ void first_butterfly(const double (&xe)[8], const double (&xo)[8],
                                                 const double (&xp)[8], double mean,
-                                                const double* window, double2* z, int i,
-                                                int win) {
+                                                const double* window, const double2* split,
+                                                double2* z, int i, int win) {
   constexpr int T1 = N / 8;
   double2 v[8];
 #pragma unroll
@@ -320,8 +399,14 @@ __device__ __forceinline__ void first_butterfly(const double (&xe)[8], const dou
     v[j].y = s + 1 < win ? (o - kPreemph * e) * w.y : 0.0;
   }
   dft8(v);
+  if constexpr (N == 2048) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) z[slot(8 * i + j)] = v[j];
+    for (int q = 0; q < 8; ++q)
+      z[slot(i + q * T1)] = q > 0 ? cmul(v[q], twiddle_of<N>(split, i * q)) : v[q];
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) z[slot(8 * i + j)] = v[j];
+  }
 }
 
 // One frame on one warp: x is the frame's first sample in the staged tile
@@ -356,12 +441,12 @@ __device__ __forceinline__ void frame(const float* x, const double* window, cons
 #pragma unroll
     for (int b = 0; b < B1; ++b) {
       const int i = lane + 32 * b;
-      if (i < T1) first_butterfly<N>(xe[b], xo[b], xp[b], mean, window, z, i, win);
+      if (i < T1) first_butterfly<N>(xe[b], xo[b], xp[b], mean, window, split, z, i, win);
     }
   } else {
-    // four butterflies a lane (N = 1024): the sum first, then each
-    // butterfly's samples again, which keeps 24 of them in registers at a
-    // time rather than 96
+    // four or eight butterflies a lane (N = 1024, 2048): the sum first, then
+    // each butterfly's samples again, which keeps 24 of them in registers at
+    // a time rather than 96 or 192
     double sum = 0.0;
     for (int s = lane; s < win; s += 32) sum += x[s];
 #pragma unroll
@@ -376,7 +461,7 @@ __device__ __forceinline__ void frame(const float* x, const double* window, cons
         const int s = 2 * (i + j * T1);
         samples<Pairs>(x, s, s < win, win, xe[j], xo[j], xp[j]);
       }
-      first_butterfly<N>(xe, xo, xp, mean, window, z, i, win);
+      first_butterfly<N>(xe, xo, xp, mean, window, split, z, i, win);
     }
   }
   __syncwarp();
@@ -401,12 +486,16 @@ __device__ __forceinline__ void frame(const float* x, const double* window, cons
       pw[q] = (float)(re * re + im * im);
     }
   } else {
-    later_stages<N>(z, tw, lane, nullptr);
+    if constexpr (N == 2048)
+      dif_stages(z, split, lane);
+    else
+      later_stages<N>(z, tw, lane, nullptr);
     // real split with Z[k] and Z[N - k] from the buffer
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
-      const double2 zk = z[slot(k)], zm = z[slot((N - k) & (N - 1))], w = split[k];
+      const double2 zk = z[slot(z_pos<N>(k))], zm = z[slot(z_pos<N>((N - k) & (N - 1)))];
+      const double2 w = split[k];
       const double sx = zk.x + zm.x, sy = zk.y - zm.y;
       const double2 u = cmul(cx(zk.x - zm.x, zk.y + zm.y), w);
       const double re = 0.5 * (sx + u.y), im = 0.5 * (sy - u.x);
@@ -426,8 +515,9 @@ __device__ __forceinline__ void frame(const float* x, const double* window, cons
   for (int j = 0; j < mel_steps; ++j) {
     const int2 e = mel[32 * j + lane];
     acc = fmaf(power[e.x & 0xffff], __int_as_float(e.y), acc);
-    if (e.x >> 16) {
-      row[(e.x >> 16) - 1] = acc;
+    const unsigned band = static_cast<unsigned>(e.x) >> 16;
+    if (band) {
+      row[band - 1] = acc;
       acc = 0.f;
     }
   }
@@ -594,16 +684,18 @@ int launch(const Params& p, cudaStream_t stream) {
 // All pointers are on the device: wave and window float32; twiddle float64
 // [stage_twiddles(padded / 2)][2] and split float64 [padded / 2][2] (see
 // Params); mel int32 [mel_steps][32][2] (see Params); out float32
-// [n_frames][n_mels]. padded is 256, 512, 1024 or 2048, win <= padded, any
-// shift >= 1, 0 < n_mels <= 128, 1 <= tile_frames <= 16 (ops/fbank.py
-// fft_plan picks it so that the block's shared memory fits). Returns a
-// cudaError_t.
+// [n_frames][n_mels]. padded is the plan's points, 256, 512, 1024, 2048 or
+// 4096 (a window padded to 64 or 128 points runs the 256-point plan with a
+// strided mel table: ops/fbank.py fft_points), win <= padded, any shift >=
+// 1, 0 < n_mels <= 65535, 1 <= tile_frames <= 16 (ops/fbank.py
+// fft_tile_frames picks it so that the block's shared memory fits).
+// Returns a cudaError_t.
 extern "C" int cf_fbank_fft(const float* wave, const double* twiddle,
                             const double* split, const float* window, const int* mel,
                             float* out, int n_frames, int win, int shift, int padded,
                             int n_mels, int mel_steps, int tile_frames, void* stream) {
   if (n_frames == 0) return 0;
-  if (win < 1 || win > padded || shift < 1 || n_mels < 1 || n_mels > 128 || mel_steps < 1 ||
+  if (win < 1 || win > padded || shift < 1 || n_mels < 1 || n_mels > 0xffff || mel_steps < 1 ||
       tile_frames < 1 || tile_frames > kMaxTileFrames)
     return (int)cudaErrorInvalidValue;
   const Params p{wave, reinterpret_cast<const double2*>(twiddle),
@@ -612,6 +704,7 @@ extern "C" int cf_fbank_fft(const float* wave, const double* twiddle,
                  mel_steps, tile_frames};
   cudaStream_t st = (cudaStream_t)stream;
   const bool even = shift % 2 == 0;
+  if (padded == 4096) return even ? launch<2048, true>(p, st) : launch<2048, false>(p, st);
   if (padded == 2048) return even ? launch<1024, true>(p, st) : launch<1024, false>(p, st);
   if (padded == 1024) return even ? launch<512, true>(p, st) : launch<512, false>(p, st);
   if (padded == 512) return even ? launch<256, true>(p, st) : launch<256, false>(p, st);

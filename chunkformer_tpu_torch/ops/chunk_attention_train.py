@@ -38,9 +38,11 @@ selective-checkpoint policy can name the forward's outputs (the encoder's
 CUDA tensor it launches the kernels of the route that ``route`` picks from
 dtype, shapes and strides alone, or raises:
 
-- the tensor-core route: f32 or bf16 with head_dim 64 or 128, a chunk of a
-  multiple of 64 rows and 16-byte-aligned rows, as the main path gives it
-  (the flagship step: dk = 64, c = 64). ``csrc/chunk_attention_train_tc.cu``
+- the tensor-core route: f32 or bf16 with head_dim 64 or 128, any chunk
+  size and 16-byte-aligned rows, as the main path gives it (the flagship
+  step: dk = 64, c = 64); a chunk that 64 does not divide ends in a partial
+  64-row query block, and n*c frames that 64 does not divide in a partial
+  64-frame key block. ``csrc/chunk_attention_train_tc.cu``
   in bf16 and ``csrc/chunk_attention_train_tc_f32.cu`` in f32 (one C entry
   a direction picks by dtype): wgmma products, the decode kernel's staged
   rel-shift, a deterministic FlashAttention-2 backward; in f32 every
@@ -48,9 +50,9 @@ dtype, shapes and strides alone, or raises:
   21 mantissa bits, which holds the f32 bars that one TF32 pass (10 bits)
   cannot. Counters ``chunk_train_attention.fwd_tc_launches`` and
   ``.bwd_tc_launches`` (both dtypes).
-- ``csrc/chunk_attention_train.cu`` (CUDA-core route): every other shape,
-  f32 or bf16, any chunk and head_dim (slices of at most 4096 / dk query
-  rows a block, ``cuda_core_slices``). Counters
+- ``csrc/chunk_attention_train.cu`` (CUDA-core route): the other head
+  dims and strides, f32 or bf16, any chunk (slices of at most 4096 / dk
+  query rows a block, ``cuda_core_slices``). Counters
   ``chunk_train_attention.fwd_launches`` and ``.bwd_launches``.
 
 ``chunk_train_attention_cuda_core`` and ``chunk_train_attention_tensor_core``
@@ -235,11 +237,11 @@ def route(q: torch.Tensor, kv: torch.Tensor, p: torch.Tensor, chunk: int) -> str
     """Which kernels a CUDA call launches, from dtype, shapes and strides
     alone: "tensor_core" (``csrc/chunk_attention_train_tc.cu``, f32 through
     ``csrc/chunk_attention_train_tc_f32.cu``) for f32 or bf16 with head_dim
-    64 or 128, a chunk of a multiple of 64 rows and every row of q, kv and p
-    16-byte aligned (the kernels copy 16 bytes a thread); "cuda_core"
+    64 or 128, any chunk > 0 and every row of q, kv and p 16-byte aligned
+    (the kernels copy 16 bytes a thread); "cuda_core"
     (``csrc/chunk_attention_train.cu``) otherwise."""
     d_k = q.shape[-1]
-    if q.dtype not in _DTYPES or d_k not in (64, 128) or chunk <= 0 or chunk % 64 != 0:
+    if q.dtype not in _DTYPES or d_k not in (64, 128) or chunk <= 0:
         return "cuda_core"
     per16 = 16 // q.element_size()
     for t in (q, kv, p):
@@ -259,7 +261,7 @@ def _check_path(path, q, kv, p, chunk, d_k):
         raise ValueError(f"path must be one of {_PATHS}, got {path!r}")
     if path == "tensor_core" and route(q, kv, p, chunk) != "tensor_core":
         raise ValueError("the tensor-core kernels take f32 or bf16, head_dim 64 or 128, a chunk "
-                         "of a multiple of 64 and 16-byte-aligned rows")
+                         "of at least 1 and 16-byte-aligned rows")
 
 
 def _strides(t):
@@ -272,27 +274,46 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _dp_slabs(heads: int, p_len: int, d_k: int) -> int:
+    """f32 dP slabs [H, P, dk] that fit DP_PART_BUDGET (at least one)."""
+    return max(1, DP_PART_BUDGET // (heads * p_len * d_k * 4))
+
+
 def dp_group(b: int, heads: int, p_len: int, d_k: int) -> int:
     """Utterances per block of the tensor-core dq kernel: the fewest that keep
     the f32 dP slabs ([ceil(B / group), H, P, dk]) within DP_PART_BUDGET."""
-    slabs = max(1, min(b, DP_PART_BUDGET // (heads * p_len * d_k * 4)))
-    return -(-b // slabs)
+    return -(-b // min(b, _dp_slabs(heads, p_len, d_k)))
+
+
+def dp_splits(b: int, n: int, heads: int, p_len: int, d_k: int) -> int:
+    """Chunk ranges an utterance's dq work is cut into when each utterance
+    has a block of its own (``dp_group`` 1) and the budget holds more slabs
+    than utterances: up to n ranges of consecutive chunks, each a block with
+    its own dP slab, so that a small batch fills more of the card (the dq
+    kernel runs one block an SM and is latency-bound). 1 otherwise."""
+    if dp_group(b, heads, p_len, d_k) > 1:
+        return 1
+    return max(1, min(n, _dp_slabs(heads, p_len, d_k) // b))
 
 
 def partial_shapes(path, b, n, heads, chunk, p_len, d_k, heads_total: int = 0):
     """(shape, zeroed) of each f32 partial buffer a backward launch of
     ``path`` allocates, in the order its entry takes them; ``zeroed`` marks
     the buffers the kernels add into. Tensor cores (f32 and bf16 alike): per
-    (group of ``dp_group`` utterances, h) a dP slab [P, dk] and the band's
-    column sums [P] (the v terms of dP and dv), both added into, and per (64
-    key frames, h) a du partial [dk]; the groups are sized by the global
+    dq cell (a group of ``dp_group`` utterances, or one utterance's range of
+    chunks, ``dp_splits`` a group; h) a dP slab [P, dk] and the band's
+    column sums [P] (the v terms of dP and dv), both added into, and per
+    dK/dV block (64 key frames of an utterance, ceil(n*c / 64) of them, the
+    last partial where 64 does not divide n*c; h) a du partial [dk]; the
+    groups are sized by the global
     head count ``heads_total`` (0 = heads), so a tensor-parallel rank sums
     dP over the full call's groups, in its order. CUDA cores: per (b, ci,
     slice of the chunk's rows, h) a dP slab [P, dk] and du | dv [2, dk]."""
     if path == "tensor_core":
-        cells = -(-b // dp_group(b, heads_total or heads, p_len, d_k))
+        ht = heads_total or heads
+        cells = -(-b // dp_group(b, ht, p_len, d_k)) * dp_splits(b, n, ht, p_len, d_k)
         return [((cells, heads, p_len, d_k), True), ((cells, heads, p_len), True),
-                ((b * n * chunk // 64, heads, d_k), False)]
+                ((b * -(-n * chunk // 64), heads, d_k), False)]
     cells = b * n * cuda_core_slices(chunk, d_k)
     return [((cells * heads, p_len, d_k), False), ((cells * heads, 2, d_k), False)]
 
@@ -349,12 +370,13 @@ def backward_kernel(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, chunk, left, 
              for shape, zeroed in partial_shapes(path, b, n, heads, chunk, p_len, d_k,
                                                  heads_total)]
     group = dp_group(b, heads_total or heads, p_len, d_k)
+    splits = dp_splits(b, n, heads_total or heads, p_len, d_k)
     dp = torch.empty((p_len, heads, d_k), dtype=p.dtype, device=dev)
     du = torch.empty((heads, d_k), dtype=u.dtype, device=dev)
     dv = torch.empty((heads, d_k), dtype=v.dtype, device=dev)
     lib = kernels.library()
     entry = lib.cf_chunk_train_attn_tc_bwd if tc else lib.cf_chunk_train_attn_bwd
-    shape = (b, n, heads, chunk, d_k, left, right) + ((group,) if tc else ())
+    shape = (b, n, heads, chunk, d_k, left, right) + ((group, splits) if tc else ())
     with torch.cuda.device(dev):
         err = entry(
             _DTYPES[q.dtype], q.data_ptr(), kv.data_ptr(), p.data_ptr(), u.data_ptr(),

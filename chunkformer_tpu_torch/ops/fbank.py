@@ -9,12 +9,14 @@ spectrum of the frame zero-padded to a power of two, Kaldi mel bank (the
 Nyquist column is zero) and log. Dither is 0, as at decode time. The
 waveform is float32 at int16 scale.
 
-Two kernels compute it on the card, and ``route`` picks one from the
-geometry alone: ``csrc/fbank_fft.cu`` (a warp per frame, an FFT in float64
-written in the kernel and a sparse mel product; a padded window of 256,
-512, 1024 or 2048 points, any shift, at most 128 mel bins) and
-``csrc/fbank.cu`` (the DFT as a product with cos/sin tables; more mel bins,
-and padded windows below 256 or above 2048 points).
+``route`` sends every geometry of at most 4096 padded points to one kernel,
+``csrc/fbank_fft.cu``: a warp per frame, an FFT in float64 written in the
+kernel and a sparse mel product, at any shift and any mel count. A padded
+window of 64 or 128 points runs the 256-point plan and reads every (256 /
+padded)-th bin; 4096 points run an in-place plan of their own. Past 4096
+points ``route`` raises a ``ValueError``. ``csrc/fbank.cu`` (the DFT as a
+float32 product with cos/sin tables) is no route's kernel: it stays as the
+yardstick that ``chip_smoke.py`` times the FFT kernel against.
 """
 
 from __future__ import annotations
@@ -112,33 +114,62 @@ def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: fl
 
 
 # The FFT kernel's Stockham stages after its first radix-8 one, as (radix R,
-# points combined before it P), by padded window (csrc/fbank_fft.cu later_stages)
+# points combined before it P), by the plan's points (csrc/fbank_fft.cu
+# later_stages). The 4096-point plan is no Stockham walk: an in-place
+# decimation in frequency of radices FFT_DIF_RADICES, whose twiddles are
+# the split table's (``fft_twiddles``).
 FFT_STAGES = {2048: ((8, 8), (4, 64), (4, 256)), 1024: ((8, 8), (8, 64)),
               512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
-MAX_FFT_MELS = 128
+FFT_DIF_RADICES = {4096: (8, 8, 8, 4)}
+# Padded windows the FFT kernel takes: 64 and 128 points run the 256-point
+# plan (``fft_points``); past MAX_FFT_POINTS ``route`` raises
+MIN_FFT_PLAN = 256
+MAX_FFT_POINTS = 4096
+# The mel lane table's steps keep a band's number + 1 in 16 bits
+MAX_FFT_MELS = 0xFFFF
 # The FFT kernel's blocks (csrc/fbank_fft.cu): shared memory a block may opt
 # into on sm_90 (227 KB on an H100), and frames a tile at most
 FFT_SMEM_BYTES = 232448
 FFT_MAX_TILE_FRAMES = 16
+# The DFT kernel (csrc/fbank.cu) keeps two [32][win] float32 tiles in shared
+# memory: windows above this many samples do not fit 227 KB (C23)
+DFT_MAX_WIN = 907
+
+
+def fft_points(padded: int) -> int:
+    """Points of the FFT plan that computes a padded window: the window's own
+    from 256 up, 256 below. A frame that is zero past its window has X_P[k]
+    = X_256[k 256 / P], so a P-point window reads every (256 / P)-th bin of
+    the 256-point plan."""
+    return max(padded, MIN_FFT_PLAN)
 
 
 def route(num_mel_bins: int = 80, frame_length: float = 25.0, frame_shift: float = 10.0,
           sample_rate: int = 16000) -> str:
     """Which kernel a CUDA call launches, from the geometry alone: "fft"
-    (``csrc/fbank_fft.cu``) for a padded window the FFT kernel is
-    instantiated for (``FFT_STAGES``), any shift and at most
-    ``MAX_FFT_MELS`` bins; "dft" (``csrc/fbank.cu``) otherwise."""
+    (``csrc/fbank_fft.cu``) for every padded window of at most
+    ``MAX_FFT_POINTS`` points, any shift > 0 and any mel count up to
+    ``MAX_FFT_MELS``. Raises a ``ValueError`` naming the limit otherwise:
+    no kernel of the port takes a padded window above 4096 points."""
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
-    if padded in FFT_STAGES and shift > 0 and 0 < num_mel_bins <= MAX_FFT_MELS:
-        return "fft"
-    return "dft"
+    if win < 2 or shift < 1:
+        raise ValueError(f"fbank needs a window of at least 2 samples and a shift of at least "
+                         f"1, got {win} and {shift}")
+    if padded > MAX_FFT_POINTS:
+        raise ValueError(f"the fbank kernels take a padded window of at most {MAX_FFT_POINTS} "
+                         f"points, not {padded} ({win} samples)")
+    if not 0 < num_mel_bins <= MAX_FFT_MELS:
+        raise ValueError(f"the FFT fbank kernel takes 1 to {MAX_FFT_MELS} mel bins, not "
+                         f"{num_mel_bins}")
+    return "fft"
 
 
 def fft_warps(padded: int) -> int:
     """Warps (one frame each) of an FFT kernel block (``warps`` in
-    ``csrc/fbank_fft.cu``): four at 2048 points, where each warp's float64
-    buffer takes 16 KB, eight otherwise."""
-    return 4 if padded == 2048 else 8
+    ``csrc/fbank_fft.cu``) for a padded window: two at 4096 points, where
+    each warp's float64 buffer takes 32 KB, four at 2048 (16 KB), eight
+    otherwise."""
+    return {4096: 2, 2048: 4}.get(fft_points(padded), 8)
 
 
 def _round4(x: int) -> int:
@@ -159,11 +190,14 @@ def fft_tile_span(win: int, shift: int, tile_frames: int) -> int:
 def fft_smem_bytes(padded: int, win: int, shift: int, num_mel_bins: int, mel_steps: int,
                    tile_frames: int) -> int:
     """Shared memory of an FFT kernel block (``Layout`` in
-    ``csrc/fbank_fft.cu``): the stage twiddles and the split factors, the
-    warps' FFT buffers (float64 complex), two tile buffers, the tile's
-    staged output rows, the window as float64 and the mel lane table."""
-    n = padded // 2
-    floats = (8 * n + 4 * n * fft_warps(padded) + 2 * fft_tile_span(win, shift, tile_frames)
+    ``csrc/fbank_fft.cu``) for a padded window: the stage twiddles (none in
+    the 4096-point plan) and the split factors, the warps' FFT buffers
+    (float64 complex), two tile buffers, the tile's staged output rows, the
+    window as float64 and the mel lane table."""
+    n = fft_points(padded) // 2
+    stages = 0 if n == 2048 else 4 * n
+    floats = (stages + 4 * n + 4 * n * fft_warps(padded)
+              + 2 * fft_tile_span(win, shift, tile_frames)
               + _round4(tile_frames * num_mel_bins) + 2 * _round4(win) + 64 * mel_steps)
     return 4 * floats
 
@@ -173,26 +207,30 @@ def fft_tile_frames(padded: int, win: int, shift: int, num_mel_bins: int,
     """Frames a tile of the FFT kernel: the most, up to
     ``FFT_MAX_TILE_FRAMES``, whose block fits ``FFT_SMEM_BYTES``, cut to a
     multiple of the block's warps when it has more frames than warps (a
-    last round with idle warps costs as much as a full one)."""
+    last round with idle warps costs as much as a full one). Raises a
+    ``ValueError`` where not even one frame fits (a mel count in the
+    thousands at a window of thousands of samples)."""
     for frames in range(FFT_MAX_TILE_FRAMES, 0, -1):
         if fft_smem_bytes(padded, win, shift, num_mel_bins, mel_steps,
                           frames) <= FFT_SMEM_BYTES:
             warps = fft_warps(padded)
             return frames - frames % warps if frames > warps else frames
     raise ValueError(f"no FFT tile fits {FFT_SMEM_BYTES} bytes at padded {padded}, win {win}, "
-                     f"shift {shift}")
+                     f"shift {shift}, {num_mel_bins} mel bins")
 
 
 @functools.lru_cache(maxsize=8)
 def fft_twiddles(padded: int) -> tuple[np.ndarray, np.ndarray]:
-    """The FFT kernel's twiddle tables in float64, [rows, 2] (re, im): for
-    each stage (R, P) of ``FFT_STAGES`` in turn, exp(-2 pi i k j / (P R)) at
-    row (j - 1) P + k, j = 1..R-1, k < P; and exp(-2 pi i k / padded),
-    k < padded / 2, for the real split."""
+    """The FFT kernel's twiddle tables for the plan of ``padded`` points, in
+    float64, [rows, 2] (re, im): for each stage (R, P) of ``FFT_STAGES`` in
+    turn, exp(-2 pi i k j / (P R)) at row (j - 1) P + k, j = 1..R-1, k < P
+    (no rows for the 4096-point plan, whose stages take their twiddles
+    W_N^e = W_padded^(2e) from the split table); and exp(-2 pi i k /
+    padded), k < padded / 2, for the real split."""
     k = np.arange(padded // 2, dtype=np.float64)
-    stages = np.concatenate([np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(p))
-                                    / (p * r)).reshape(-1)
-                             for r, p in FFT_STAGES[padded]])
+    stages = [np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(p)) / (p * r)).reshape(-1)
+              for r, p in FFT_STAGES.get(padded, ())]
+    stages = np.concatenate(stages) if stages else np.zeros(0, np.complex128)
     split = np.exp(-2j * np.pi * k / padded)
     return tuple(np.ascontiguousarray(np.stack([w.real, w.imag], axis=1))
                  for w in (stages, split))
@@ -227,15 +265,18 @@ def mel_lanes(num_bins: int, padded_window_size: int, sample_rate: float) -> np.
     budget of steps a lane; the budget starts at the larger of the widest
     band and the mean share and grows until every band fits. A lane walks
     its bands in ascending order, each band's bins in ascending order. A
-    step is (bin, the float32 weight's bits), with band + 1 in the bin's
-    high 16 bits at a band's last bin (where the kernel stores the sum); a
-    band without bins is one step of weight 0. Lanes with fewer steps end
-    in (0, 0.0)."""
+    step is (bin of the kernel's plan, the float32 weight's bits), with
+    band + 1 in the bin's high 16 bits at a band's last bin (where the
+    kernel stores the sum); a band without bins is one step of weight 0.
+    Lanes with fewer steps end in (0, 0.0). A padded window below the
+    256-point plan (``fft_points``) reads every (256 / padded)-th bin of it:
+    bin k of the window is the plan's bin k * 256 / padded."""
     lanes = 32
     first, count, offset, weights = band_table(num_bins, padded_window_size, sample_rate)
     if int((first + count).max()) > padded_window_size // 2:
         raise ValueError("a mel band reaches the Nyquist bin, which the FFT kernel does "
                          "not compute")
+    stride = fft_points(padded_window_size) // padded_window_size
     steps = np.maximum(count, 1)
     depth = max(int(steps.max()), -(-int(steps.sum()) // lanes))
     while True:
@@ -251,23 +292,24 @@ def mel_lanes(num_bins: int, padded_window_size: int, sample_rate: float) -> np.
             break
         depth += 1
     bits = weights.view(np.int32)
-    table = np.zeros((depth, lanes, 2), np.int32)
+    table = np.zeros((depth, lanes, 2), np.int64)
     for lane, ms in enumerate(bands):
         cells = []
         for m in sorted(ms):
-            band = [[first[m] + b, bits[offset[m] + b]] for b in range(count[m])] or [[0, 0]]
+            band = [[(first[m] + b) * stride, bits[offset[m] + b]]
+                    for b in range(count[m])] or [[0, 0]]
             band[-1][0] |= (m + 1) << 16
             cells += band
-        table[:len(cells), lane] = np.asarray(cells, np.int32).reshape(-1, 2)
-    return table
+        table[:len(cells), lane] = np.asarray(cells, np.int64).reshape(-1, 2)
+    return (table & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
 @functools.lru_cache(maxsize=4)
 def _fft_tables(win: int, padded: int, num_mel_bins: int, sample_rate: int,
                 device: torch.device):
-    """FFT kernel constants on the device: both twiddle tables, the window
-    and the mel lane table."""
-    host = (*fft_twiddles(padded), povey_window(win),
+    """FFT kernel constants on the device: both twiddle tables of the plan,
+    the window and the mel lane table."""
+    host = (*fft_twiddles(fft_points(padded)), povey_window(win),
             mel_lanes(num_mel_bins, padded, float(sample_rate)))
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host)
 
@@ -291,9 +333,18 @@ def _check_waveform(waveform: torch.Tensor) -> None:
 
 def fbank_dft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
               frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
-    """Launch the DFT kernel (``csrc/fbank.cu``) on a CUDA waveform."""
-    _check_waveform(waveform)
+    """Launch the DFT kernel (``csrc/fbank.cu``) on a CUDA waveform. No route
+    reaches it: it is the yardstick the FFT kernel is timed against. It
+    sums its cos/sin products in float32, so on tonal audio a rare element
+    misses the bar of 2e-3 + 1e-3 |plain| (C22: about 1 in 320,000 at 25
+    and 40 ms shifts on an H100); it refuses, with a ``ValueError``, windows
+    above ``DFT_MAX_WIN`` samples, whose tiles do not fit its shared memory
+    (C23)."""
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
+    if win > DFT_MAX_WIN or shift < 1:
+        raise ValueError(f"the DFT fbank kernel takes windows of at most {DFT_MAX_WIN} samples "
+                         f"and a shift of at least 1, not {win} and {shift}")
+    _check_waveform(waveform)
     n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
     out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
     if n == 0:
@@ -313,14 +364,12 @@ def fbank_dft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
 
 def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
               frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
-    """Launch the FFT kernel (``csrc/fbank_fft.cu``) on a CUDA waveform of a
-    geometry ``route`` sends to it; raises on any other. The waveform may
-    start at any 4-byte address: the kernel copies 16 bytes a thread from a
-    16-byte-aligned one and 4 bytes a thread otherwise."""
+    """Launch the FFT kernel (``csrc/fbank_fft.cu``) on a CUDA waveform;
+    raises a ``ValueError`` on a geometry ``route`` refuses. The waveform
+    may start at any 4-byte address: the kernel copies 16 bytes a thread
+    from a 16-byte-aligned one and 4 bytes a thread otherwise."""
+    route(num_mel_bins, frame_length, frame_shift, sample_rate)
     _check_waveform(waveform)
-    if route(num_mel_bins, frame_length, frame_shift, sample_rate) != "fft":
-        raise ValueError(f"the FFT kernel takes a padded window of {tuple(FFT_STAGES)} "
-                         f"points and at most {MAX_FFT_MELS} mel bins")
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
     n = num_frames(waveform.shape[0], sample_rate, frame_length, frame_shift)
     out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
@@ -332,7 +381,7 @@ def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
     with torch.cuda.device(waveform.device):
         err = lib.cf_fbank_fft(waveform.data_ptr(), twiddle.data_ptr(), split.data_ptr(),
                                window.data_ptr(), mel.data_ptr(), out.data_ptr(), n, win,
-                               shift, padded, num_mel_bins, mel.shape[0],
+                               shift, fft_points(padded), num_mel_bins, mel.shape[0],
                                fft_tile_frames(padded, win, shift, num_mel_bins, mel.shape[0]),
                                torch.cuda.current_stream(waveform.device).cuda_stream)
     kernels.check(err, "fbank_fft")
@@ -345,13 +394,11 @@ def fbank(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 
     """Log-mel features [T, num_mel_bins] float32 of a float32 waveform [S].
 
     On a CPU tensor this is the plain version; on a CUDA tensor it launches
-    the kernel that ``route`` names, or raises.
+    the FFT kernel, or raises where ``route`` refuses the geometry.
     """
     if waveform.device.type == "cpu":
         return fbank_plain(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
-    launch = fbank_fft if route(num_mel_bins, frame_length, frame_shift,
-                                sample_rate) == "fft" else fbank_dft
-    return launch(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
+    return fbank_fft(waveform, num_mel_bins, frame_length, frame_shift, sample_rate)
 
 
 def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor, num_mel_bins: int = 80,

@@ -348,13 +348,14 @@ def test_fbank_fft_and_dft_kernels_agree(cuda_device):
 
 
 def test_fbank_route_counters(cuda_device):
-    """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows) and at
-    a 40 ms shift (640 samples, more than the padded 512), and the DFT
-    kernel at 160 mel bins; each counter moves once per launch of its
-    kernel and never for the other."""
+    """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows), at a
+    40 ms shift (640 samples, more than the padded 512) and at 160 mel bins
+    (no route reaches the DFT kernel); the FFT counter moves once per launch
+    and the DFT counter never; past 4096 points the FFT entry raises a
+    ValueError before any launch."""
     wave = _wave(16000 * 3, cuda_device)
     cases = [({}, "fft"), ({"sample_rate": 8000}, "fft"), ({"frame_shift": 40.0}, "fft"),
-             ({"num_mel_bins": 160}, "dft")]
+             ({"num_mel_bins": 160}, "fft")]
     for kwargs, want in cases:
         assert fbank_route(**kwargs) == want
         before = (fbank.launches, fbank.fft_launches)
@@ -363,8 +364,8 @@ def test_fbank_route_counters(cuda_device):
         moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
         assert moved == ((0, 1) if want == "fft" else (1, 0)), (kwargs, moved)
         torch.testing.assert_close(got, fbank_plain(wave, **kwargs), atol=2e-3, rtol=1e-3)
-    with pytest.raises(ValueError):
-        fbank_fft(wave, num_mel_bins=160)
+    with pytest.raises(ValueError, match="4096"):
+        fbank_fft(wave, sample_rate=96000, frame_length=50.0)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -387,13 +388,19 @@ def test_fbank_fft_takes_unaligned_waveforms(cuda_device, offset):
     dict(frame_shift=10.0625), dict(frame_length=50.0, frame_shift=10.0625),
     dict(frame_shift=40.0), dict(frame_shift=25.0), dict(sample_rate=44100),
     dict(sample_rate=48000, frame_length=42.6, num_mel_bins=128),
-    dict(sample_rate=96000, frame_length=20.0)])
+    dict(sample_rate=96000, frame_length=20.0), dict(sample_rate=96000),
+    dict(sample_rate=48000, frame_length=50.0, frame_shift=25.0),
+    dict(sample_rate=96000, frame_length=42.6, frame_shift=50.0),
+    dict(frame_length=15.0, sample_rate=8000), dict(frame_length=8.0, sample_rate=8000),
+    dict(num_mel_bins=160), dict(sample_rate=44100, num_mel_bins=160)])
 @pytest.mark.parametrize("frames", [1, 3, 17, 4000])
 def test_fbank_fft_kernel_takes_the_dft_geometries(cuda_device, kwargs, frames):
     """The geometries the FFT kernel took from the DFT kernel: odd shifts, a
     shift longer than the window (frames copied one by one), frames that
-    touch, and 2048-point windows (four warps a block; the DFT kernel
-    refuses windows above 907 samples); one frame, a partial tile, two
+    touch, 2048-point windows (four warps a block; the DFT kernel refuses
+    windows above 907 samples), 4096-point windows (the in-place plan, two
+    warps a block), windows padded to 64 and 128 points (the 256-point
+    plan's strided bins) and 160 mel bins; one frame, a partial tile, two
     tiles and more, against the plain version (atol 2e-3 + rtol 1e-3)."""
     sr = kwargs.get("sample_rate", 16000)
     fl, fs = kwargs.get("frame_length", 25.0), kwargs.get("frame_shift", 10.0)
@@ -506,12 +513,14 @@ def test_train_attention_cuda_core_takes_any_chunk(cuda_device, b, n, c, L, R, d
                                                    lens, dtype):
     """C7 for the training kernels: c = 96 / dk 64, c = 48 / dk 128, c = 72
     / dk 64 (lens down to 1) and dk = 256 (the dK/dV kernel's column slices
-    and 16-row query tiles) on the CUDA-core route, forward and backward,
-    at the bars of ``test_train_attention_kernels_match_plain``."""
+    and 16-row query tiles) on the CUDA-core kernels, forward and backward,
+    at the bars of ``test_train_attention_kernels_match_plain``. Since the
+    tensor cores take any chunk, only dk = 256 is the CUDA cores' route;
+    the other shapes call the CUDA-core entry directly."""
     bf16 = dtype == torch.bfloat16
     args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device, seed=c + d_k,
                                  lens=lens)
-    assert cat.route(*args[:3], c) == "cuda_core"
+    assert cat.route(*args[:3], c) == ("cuda_core" if d_k == 256 else "tensor_core")
     kw = dict(chunk=c, left=L, right=R, drop_rate=drop)
     seed = 99
     ctx, m, den = cat.forward_kernel(*args, seed, c, L, R, drop, path="cuda_core")
@@ -525,7 +534,7 @@ def test_train_attention_cuda_core_takes_any_chunk(cuda_device, b, n, c, L, R, d
         device=cuda_device).manual_seed(7)).to(dtype)
     before = _tc_counts()
     leaves = [a.detach().clone().requires_grad_() for a in args[:5]]
-    out = cat.chunk_train_attention(*leaves, args[5], seed, **kw)
+    out = cat.chunk_train_attention_cuda_core(*leaves, args[5], seed, **kw)
     got = torch.autograd.grad((out.float() * w.float()).sum(), leaves)
     torch.cuda.synchronize()
     assert _tc_counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
@@ -549,8 +558,15 @@ def _tc_counts():
 # (B, n, c, L, R, dk, p, lens): the flagship train shape (32 utterances of
 # 199 subsampled frames) at p = 0 and 0.1; dk = 128; c = 128; (L, R) of
 # (64, 0) and (0, 64); ragged lens (full length, below L, below one chunk);
-# a length of 1
+# a length of 1; chunks that 64 does not divide (partial 64-row query
+# blocks and 64-frame key blocks): 96, 48 at dk 128, 72, 16, 8 and 130
 TC_CASES = [
+    (3, 3, 96, 128, 128, 64, 0.1, [288, 200, 61]),
+    (3, 4, 48, 128, 128, 128, 0.0, [192, 150, 40]),
+    (3, 3, 72, 64, 64, 64, 0.0, [216, 143, 1]),
+    (4, 3, 16, 64, 64, 64, 0.1, [48, 29, 17, 1]),
+    (2, 5, 8, 16, 8, 64, 0.0, [40, 17]),
+    (2, 2, 130, 64, 0, 128, 0.1, [260, 131]),
     (32, 4, 64, 128, 128, 64, 0.0, [199] * 32),
     (32, 4, 64, 128, 128, 64, 0.1, [199] * 32),
     (4, 4, 64, 128, 128, 128, 0.0, [256, 199, 100, 37]),

@@ -8,7 +8,10 @@ zero-padded frame, the radix-8 first stage and the radix-8/4 Stockham stages
 in the kernel's order with the twiddle table the wrapper uploads, the real
 split with the second table, all in float64; the power of bins k < padded / 2
 rounded to float32, the sparse band table summed in ascending bin order, and
-the log.
+the log. A window padded to 64 or 128 points runs the 256-point plan and its
+strided lane table; 4096 points run the in-place decimation-in-frequency
+plan (``_dif``) and the real split reads each Z[k] at its digit-reversed
+point.
 """
 
 import jax.numpy as jnp
@@ -70,6 +73,50 @@ def _stage(z, radix, p, twiddle):
     return out
 
 
+def _twiddle_of(split, e):
+    """W_N^e from the split table W_2N^k, k < N (``twiddle_of`` in the
+    kernel): split[2e], or -split[2e - N] past the table."""
+    n = split.shape[0]
+    k = 2 * e
+    return np.where((k < n)[:, None], split[np.minimum(k, n - 1)],
+                    -split[np.maximum(k - n, 0)])
+
+
+def _dif(z, radices, split):
+    """The 4096-point plan's stages (``first_butterfly`` at N = 2048, then
+    ``dif_stage``): radix R over blocks of Ls points, butterfly u taking
+    z[base + j h], h = Ls / R, base = (u / h) Ls + u mod h, and writing
+    output q times W_Ls^{(u mod h) q} back to z[base + q h]."""
+    n = z.shape[1]
+    ls = n
+    for radix in radices:
+        h = ls // radix
+        u = np.arange(n // radix)
+        i, base = u % h, (u // h) * ls + u % h
+        x = [z[:, base + j * h] for j in range(radix)]
+        x = _dft8(x) if radix == 8 else _dft4(x)
+        out = np.empty_like(z)
+        for q in range(radix):
+            w = x[q]
+            if h > 1 and q > 0:
+                w = _cmul(w, _twiddle_of(split, i * q * (n // ls))[None])
+            out[:, base + q * h] = w
+        z, ls = out, h
+    return z
+
+
+def dif_positions(radices):
+    """Where the in-place plan leaves Z[k]: the digits of k (radix r1 first)
+    weight N / r1, N / (r1 r2), ..."""
+    n = int(np.prod(radices))
+    k, pos, span = np.arange(n), np.zeros(n, np.int64), n
+    for radix in radices:
+        span //= radix
+        pos += (k % radix) * span
+        k = k // radix
+    return pos
+
+
 def fbank_emulated(wave, num_mel_bins=80, frame_length=25.0, frame_shift=10.0,
                    sample_rate=16000):
     """The FFT kernel's arithmetic in numpy: float64 from the float32
@@ -79,9 +126,10 @@ def fbank_emulated(wave, num_mel_bins=80, frame_length=25.0, frame_shift=10.0,
     n = fb.num_frames(wave.shape[0], sample_rate, frame_length, frame_shift)
     if n == 0:
         return np.zeros((0, num_mel_bins), F32)
+    lanes = fb.mel_lanes(num_mel_bins, padded, float(sample_rate))
+    padded = fb.fft_points(padded)                       # the plan the kernel runs
     half = padded // 2
     twiddle, split = fb.fft_twiddles(padded)
-    lanes = fb.mel_lanes(num_mel_bins, padded, float(sample_rate))
     x = wave.astype(F32)[np.arange(n)[:, None] * shift + np.arange(win)[None]].astype(F64)
     mean = x.sum(1) * (1.0 / win)
     xm = x - mean[:, None]
@@ -89,12 +137,18 @@ def fbank_emulated(wave, num_mel_bins=80, frame_length=25.0, frame_shift=10.0,
     frames = np.zeros((n, padded), F64)
     frames[:, :win] = (xm - F64(F32(0.97)) * prev) * fb.povey_window(win).astype(F64)
     z = frames.reshape(n, half, 2)                       # z[m] = x[2m] + i x[2m+1]
-    z = _stage(z, 8, 1, None)                            # the first stage, in registers
-    for radix, p in fb.FFT_STAGES[padded]:
-        z = _stage(z, radix, p, twiddle)
-        twiddle = twiddle[(radix - 1) * p:]
+    if padded in fb.FFT_DIF_RADICES:
+        radices = fb.FFT_DIF_RADICES[padded]
+        z = _dif(z, radices, split)
+        pos = dif_positions(radices)
+    else:
+        z = _stage(z, 8, 1, None)                        # the first stage, in registers
+        for radix, p in fb.FFT_STAGES[padded]:
+            z = _stage(z, radix, p, twiddle)
+            twiddle = twiddle[(radix - 1) * p:]
+        pos = np.arange(half)
     k = np.arange(half)
-    zk, zm = z[:, k], z[:, (half - k) % half]
+    zk, zm = z[:, pos[k]], z[:, pos[(half - k) % half]]
     u = _cmul(np.stack([zk[..., 0] - zm[..., 0], zk[..., 1] + zm[..., 1]], -1), split[None])
     re = 0.5 * (zk[..., 0] + zm[..., 0] + u[..., 1])
     im = 0.5 * (zk[..., 1] - zm[..., 1] - u[..., 0])
@@ -102,7 +156,7 @@ def fbank_emulated(wave, num_mel_bins=80, frame_length=25.0, frame_shift=10.0,
     mel = np.zeros((n, num_mel_bins), F32)
     acc = np.zeros((n, lanes.shape[1]), F32)
     for step in lanes:                                   # all lanes take a step together
-        bins, ends = step[:, 0] & 0xFFFF, step[:, 0] >> 16
+        bins, ends = step[:, 0] & 0xFFFF, step[:, 0].view(np.uint32) >> 16
         acc += power[:, bins] * step[:, 1].view(F32)
         for lane in np.flatnonzero(ends):
             mel[:, ends[lane] - 1] = acc[:, lane]
@@ -177,6 +231,36 @@ def test_emulated_kernel_matches_plain_and_pallas_at_new_geometries(kwargs, seco
         np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(frame_length=15.0, sample_rate=8000),           # 120 samples, padded 128
+    dict(frame_length=8.0, sample_rate=8000),            # 64 samples, padded 64
+    dict(frame_length=4.0, frame_shift=2.5625),          # 64 samples, padded 64, shift 41
+    dict(sample_rate=96000),                             # 2400 samples, padded 4096
+    dict(sample_rate=48000, frame_length=50.0, frame_shift=25.0),   # 2400 of 4096
+    dict(sample_rate=96000, frame_length=42.6, frame_shift=10.0625),  # 4089 of 4096, odd
+    dict(num_mel_bins=160),                              # 160 bins at 512 points
+    dict(sample_rate=44100, num_mel_bins=160),           # 160 bins at 2048 points
+])
+def test_emulated_kernel_matches_plain_and_pallas_at_every_geometry(kwargs):
+    """The geometries the FFT kernel took from the DFT kernel in the last
+    step (C22, C23): windows padded to 64 and 128 points through the
+    256-point plan and its strided lane table, 4096-point windows through
+    the in-place plan, and more than 128 mel bins; against the plain
+    version and the Pallas kernel at atol 2e-3 + rtol 1e-3."""
+    sample_rate = kwargs.get("sample_rate", 16000)
+    fl, fs = kwargs.get("frame_length", 25.0), kwargs.get("frame_shift", 10.0)
+    win, shift, padded = fb._geometry(sample_rate, fl, fs)
+    n_samples = 9 * shift + win + 5
+    wave = (np.random.default_rng(17).normal(size=n_samples) * 8000).astype(F32)
+    assert fb.route(**kwargs) == "fft"
+    got = fbank_emulated(wave, **kwargs)
+    wants = {"plain": fb.fbank_plain(torch.from_numpy(wave), **kwargs).numpy(),
+             "pallas": np.asarray(fbank_pallas(jnp.asarray(wave), interpret=True, **kwargs))}
+    for name, want in wants.items():
+        assert got.shape == want.shape == (10, kwargs.get("num_mel_bins", 80)), name
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
+
+
 def tile_walk(wave_offset, n_frames, win, shift, tile_frames):
     """The FFT kernel's copies of each tile into shared memory (``copy_tile``,
     ``frame_in_tile``, ``tile_span`` in ``csrc/fbank_fft.cu``), emulated on
@@ -216,7 +300,8 @@ def tile_walk(wave_offset, n_frames, win, shift, tile_frames):
 
 @pytest.mark.parametrize("sample_rate,frame_length,frame_shift", [
     (16000, 25.0, 10.0), (16000, 25.0, 10.0625), (16000, 50.0, 10.0625),
-    (16000, 25.0, 40.0), (44100, 25.0, 10.0), (16000, 25.0, 25.0), (8000, 25.0, 10.0)])
+    (16000, 25.0, 40.0), (44100, 25.0, 10.0), (16000, 25.0, 25.0), (8000, 25.0, 10.0),
+    (96000, 25.0, 10.0), (8000, 15.0, 10.0)])
 @pytest.mark.parametrize("wave_offset", [0, 1, 3])
 def test_tile_walk_stages_each_frame(sample_rate, frame_length, frame_shift, wave_offset):
     """Every frame the kernel reads from its tile buffer is the frame's own
@@ -240,18 +325,22 @@ def test_tile_walk_stages_each_frame(sample_rate, frame_length, frame_shift, wav
 @pytest.mark.parametrize("padded,win,shift,n_mels,sample_rate", [
     (512, 400, 160, 80, 16000), (1024, 1024, 1024, 128, 16000), (2048, 2048, 2047, 128, 96000),
     (2048, 1102, 441, 80, 44100), (2048, 1920, 960, 80, 96000), (2048, 2048, 1, 128, 48000),
-    (256, 256, 100000, 128, 8000), (2048, 1025, 3000, 80, 22050)])
+    (256, 256, 100000, 128, 8000), (2048, 1025, 3000, 80, 22050),
+    (4096, 2400, 960, 80, 96000), (4096, 2400, 1200, 160, 48000), (4096, 4096, 1, 128, 96000),
+    (128, 120, 80, 80, 8000), (64, 64, 41, 23, 16000), (512, 400, 160, 160, 16000),
+    (2048, 1102, 441, 160, 44100), (512, 400, 160, 1000, 16000)])
 def test_fft_tile_frames_fit_the_block(padded, win, shift, n_mels, sample_rate):
     """Across the FFT route's domain (window up to the padded size, any
-    shift, up to 128 bins) a tile of at least as many frames as the block
-    has warps fits the shared memory a block may take, and the 25 ms main
-    path keeps its 16 frames at 75.8 KB (three blocks an SM)."""
+    shift, any bin count; 64 and 128 points on the 256-point plan, 4096
+    points with two warps a block) a tile of at least as many frames as the
+    block has warps fits the shared memory a block may take, and the 25 ms
+    main path keeps its 16 frames at 75.8 KB (three blocks an SM)."""
     steps = fb.mel_lanes(n_mels, padded, float(sample_rate)).shape[0]
     frames = fb.fft_tile_frames(padded, win, shift, n_mels, steps)
     assert fb.fft_warps(padded) <= frames <= fb.FFT_MAX_TILE_FRAMES
     assert frames <= fb.fft_warps(padded) or frames % fb.fft_warps(padded) == 0
     assert fb.fft_smem_bytes(padded, win, shift, n_mels, steps, frames) <= fb.FFT_SMEM_BYTES
-    if (padded, win, shift) == (512, 400, 160):
+    if (padded, win, shift, n_mels) == (512, 400, 160, 80):
         assert frames == 16 and fb.fft_smem_bytes(padded, win, shift, n_mels, steps,
                                                   frames) == 75808
 
@@ -275,15 +364,20 @@ def test_band_table_rebuilds_mel_banks(num_bins, padded, sample_rate):
 
 @pytest.mark.parametrize("num_bins,padded,sample_rate", [
     (80, 512, 16000), (80, 256, 8000), (40, 512, 16000), (128, 512, 16000),
-    (80, 1024, 16000), (80, 1024, 22050), (80, 2048, 44100), (128, 2048, 96000)])
+    (80, 1024, 16000), (80, 1024, 22050), (80, 2048, 44100), (128, 2048, 96000),
+    (80, 128, 8000), (23, 64, 16000), (160, 512, 16000), (160, 2048, 44100),
+    (80, 4096, 96000)])
 def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
-    """Every band ends once, in one lane, its bins ascending and contiguous;
+    """Every band ends once, in one lane, its bins ascending and contiguous
+    (in steps of 256 / padded of the 256-point plan below 256 points);
     scattering the steps back gives ``mel_banks`` bit for bit; a lane's
     steps after its last band are (0, 0.0); the lanes take as few steps as
     the widest band and the mean share allow."""
     lanes = fb.mel_lanes(num_bins, padded, float(sample_rate))
     want = fb.mel_banks(num_bins, padded, float(sample_rate))
     count = fb.band_table(num_bins, padded, float(sample_rate))[1]
+    stride = fb.fft_points(padded) // padded
+    assert (lanes[..., 0] & 0xFFFF).max() < fb.fft_points(padded) // 2
     rebuilt = np.zeros_like(want)
     ended = []
     for lane in lanes.transpose(1, 0, 2):                # one lane's [steps, 2]
@@ -292,6 +386,8 @@ def test_mel_lanes_rebuild_mel_banks(num_bins, padded, sample_rate):
             if code >> 16:
                 m = (code >> 16) - 1
                 bins, ws = lane[start:i + 1, 0] & 0xFFFF, lane[start:i + 1, 1].view(F32)
+                assert not (bins % stride).any()
+                bins = bins // stride
                 if count[m]:
                     assert np.array_equal(bins, np.arange(bins[0], bins[0] + count[m]))
                     rebuilt[bins, m] = ws
@@ -326,6 +422,29 @@ def test_twiddle_tables(padded):
     assert np.array_equal(split[:, 0] + 1j * split[:, 1], np.exp(-2j * np.pi * k / padded))
 
 
+def test_twiddles_and_order_of_the_4096_point_plan():
+    """The in-place plan has no stage table: W_2048^e, e < 2048, read from
+    the split table as the kernel's ``twiddle_of`` reads it, is the direct
+    value to 1e-15; its radices combine 2048 points; it leaves Z[k] at the
+    kernel's ``z_pos``, 256 q1 + 32 q2 + 4 q3 + q4; and the emulated plan is
+    numpy's FFT of the same points."""
+    stages, split = fb.fft_twiddles(4096)
+    assert stages.shape == (0, 2) and split.shape == (2048, 2)
+    e = np.arange(2048)
+    w = _twiddle_of(split, e)
+    np.testing.assert_allclose(w[:, 0] + 1j * w[:, 1], np.exp(-2j * np.pi * e / 2048), rtol=0,
+                               atol=1e-15)
+    radices = fb.FFT_DIF_RADICES[4096]
+    assert np.prod(radices) == 2048
+    k = np.arange(2048)
+    assert np.array_equal(dif_positions(radices), 256 * (k & 7) + 32 * ((k >> 3) & 7)
+                          + 4 * ((k >> 6) & 7) + (k >> 9))
+    z = np.random.default_rng(3).normal(size=(2, 2048, 2))
+    got = _dif(z, radices, split)[:, dif_positions(radices)]
+    want = np.fft.fft(z[..., 0] + 1j * z[..., 1], axis=1)
+    np.testing.assert_allclose(got[..., 0] + 1j * got[..., 1], want, rtol=0, atol=1e-9)
+
+
 @pytest.mark.parametrize("kwargs,want", [
     ({}, "fft"),
     ({"sample_rate": 8000}, "fft"),
@@ -337,15 +456,48 @@ def test_twiddle_tables(padded):
     ({"frame_length": 50.0, "frame_shift": 10.0625}, "fft"),  # padded 1024, odd shift
     ({"frame_shift": 40.0}, "fft"),                     # shift 640 > padded 512
     ({"frame_shift": 10.0625}, "fft"),                  # odd shift, 161 samples
-    ({"num_mel_bins": 160}, "dft"),                     # more than 128 bins
+    ({"num_mel_bins": 160}, "fft"),                     # more than 128 bins, 512 points
     ({"sample_rate": 44100}, "fft"),                    # 1102 samples, padded 2048
     ({"sample_rate": 48000, "frame_length": 42.6}, "fft"),  # 2044 samples, padded 2048
-    ({"sample_rate": 48000, "frame_length": 50.0}, "dft"),  # 2400 samples, padded 4096
-    ({"sample_rate": 44100, "num_mel_bins": 160}, "dft"),   # padded 2048, 160 bins
-    ({"frame_length": 8.0}, "dft"),                     # 128 samples, padded 128
+    ({"sample_rate": 48000, "frame_length": 50.0}, "fft"),  # 2400 samples, padded 4096
+    ({"sample_rate": 44100, "num_mel_bins": 160}, "fft"),   # padded 2048, 160 bins
+    ({"frame_length": 8.0}, "fft"),                     # 128 samples, padded 128
+    ({"frame_length": 15.0, "sample_rate": 8000}, "fft"),   # 120 samples, padded 128
+    ({"frame_length": 8.0, "sample_rate": 8000}, "fft"),    # 64 samples, padded 64
+    ({"sample_rate": 96000}, "fft"),                    # 2400 samples, padded 4096
+    ({"sample_rate": 96000, "frame_length": 42.6}, "fft"),  # 4089 samples, padded 4096
+    ({"num_mel_bins": 1000}, "fft"),
 ])
 def test_route_picks_the_fft_kernel_for_its_geometries(kwargs, want):
+    """Every padded window of 64 to 4096 points, any shift and any bin count
+    goes to the FFT kernel: no route reaches the DFT kernel (C22, C23)."""
     assert fb.route(**kwargs) == want
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sample_rate=96000, frame_length=50.0),          # 4800 samples, padded 8192
+    dict(sample_rate=48000, frame_length=100.0),         # 4800 samples, padded 8192
+    dict(frame_shift=0.01),                              # a shift of 0 samples
+    dict(num_mel_bins=0)])
+def test_route_refuses_what_no_kernel_takes(kwargs):
+    """Past 4096 points (and at a shift of 0 or no mel bins) ``route`` and
+    the routed entry raise a ``ValueError`` that names the limit, in
+    Python, never a CUDA error; the plain version still computes them on
+    the CPU."""
+    with pytest.raises(ValueError, match="4096|shift|mel bins"):
+        fb.route(**kwargs)
+    if kwargs.get("frame_length", 25.0) > 40.0:
+        with pytest.raises(ValueError, match="4096"):
+            fb.fbank_fft(torch.zeros(10000, dtype=torch.float32), **kwargs)
+
+
+def test_dft_kernel_refuses_windows_past_its_shared_memory():
+    """C23: the DFT kernel's two [32][win] float32 tiles fit 227 KB up to a
+    window of 907 samples; ``fbank_dft`` refuses a longer one with a
+    ``ValueError`` before it reaches the card (57 ms at 16 kHz: 912)."""
+    assert fb.DFT_MAX_WIN == (232448 // 4 - 32) // 64
+    with pytest.raises(ValueError, match="907"):
+        fb.fbank_dft(torch.zeros(20000, dtype=torch.float32), frame_length=57.0)
 
 
 def test_kernel_entries_refuse_cpu_tensors():

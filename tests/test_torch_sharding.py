@@ -239,6 +239,20 @@ def _ckpt(path, tag):
     return load_checkpoint(str(path), tag)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Every run in this process on one thread, as the worker processes run
+    (``worker``, ``cli_worker``): a convolution's backward sums its bias
+    gradient in an order that depends on the thread count, and Adam turns
+    the rounding of a near-zero gradient (``encoder.embed.conv.3.bias``)
+    into a step of up to lr, past the 1e-6 bar on a machine with more
+    threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def init(tmp_path_factory):
     """The JAX initial parameters and their port state dicts on disk, with

@@ -1,9 +1,10 @@
 """Route choice of the training attention, on the CPU (no JAX, no card).
 
 ``ops/chunk_attention_train.py:route`` sends f32 or bf16 with head_dim 64 or
-128, a chunk of a multiple of 64 and 16-byte-aligned rows to the tensor-core
-kernels (bf16 kernels, or the 3xTF32 f32 kernels), everything else to the
-CUDA-core kernels; it decides from dtype, shapes and strides alone. A CPU
+128, any chunk > 0 (a chunk that 64 does not divide ends in a partial 64-row
+query block) and 16-byte-aligned rows to the tensor-core kernels (bf16
+kernels, or the 3xTF32 f32 kernels), everything else to the CUDA-core
+kernels; it decides from dtype, shapes and strides alone. A CPU
 tensor runs the plain versions and never builds or loads the kernel library.
 """
 
@@ -38,12 +39,17 @@ def _counts():
     (torch.float32, 64, 64, 128, 128, "tensor_core"),    # f32 at the flagship shape: 3xTF32
     (torch.float32, 128, 128, 64, 0, "tensor_core"),
     (torch.float32, 32, 64, 128, 128, "cuda_core"),      # f32, head_dim not 64 or 128
-    (torch.float32, 64, 32, 64, 64, "cuda_core"),        # f32, chunk not a multiple of 64
+    (torch.float32, 64, 32, 64, 64, "tensor_core"),      # f32, a partial block of 32 rows
     (torch.float32, 16, 8, 16, 16, "cuda_core"),
     (torch.bfloat16, 32, 64, 128, 128, "cuda_core"),     # head_dim not 64 or 128
     (torch.bfloat16, 16, 8, 16, 16, "cuda_core"),        # the CPU tests' small shapes
-    (torch.bfloat16, 64, 32, 64, 64, "cuda_core"),       # chunk not a multiple of 64
-    (torch.bfloat16, 64, 96, 64, 64, "cuda_core"),
+    (torch.bfloat16, 64, 32, 64, 64, "tensor_core"),     # a partial block of 32 rows
+    (torch.bfloat16, 64, 96, 64, 64, "tensor_core"),     # 64 + 32 rows
+    (torch.bfloat16, 128, 48, 128, 128, "tensor_core"),
+    (torch.float32, 64, 72, 64, 0, "tensor_core"),       # 64 + 8 rows
+    (torch.float32, 128, 16, 64, 64, "tensor_core"),
+    (torch.bfloat16, 64, 1, 2, 2, "tensor_core"),
+    (torch.bfloat16, 256, 96, 64, 64, "cuda_core"),      # head_dim 256
 ])
 def test_train_route_choice(dtype, d_k, c, left, right, want):
     q, kv, p = _operands(dtype, d_k, c, left=left, right=right)
@@ -146,9 +152,11 @@ def test_tensor_core_route_refuses_what_it_cannot_take():
     q, kv, p = _operands(torch.float32, 32, 64)
     with pytest.raises(ValueError, match="tensor-core"):
         cat._check_path("tensor_core", q, kv, p, 64, 32)
-    q, kv, p = _operands(torch.bfloat16, 64, 32)
+    q, kv, p = _operands(torch.bfloat16, 256, 32)
     with pytest.raises(ValueError, match="tensor-core"):
-        cat._check_path("tensor_core", q, kv, p, 32, 64)
+        cat._check_path("tensor_core", q, kv, p, 32, 256)
+    q, kv, p = _operands(torch.bfloat16, 64, 32)   # a partial 64-row block: taken
+    cat._check_path("tensor_core", q, kv, p, 32, 64)
     q, kv, p = _operands(torch.float32, 64, 64)
     cat._check_path("tensor_core", q, kv, p, 64, 64)
     q, kv, p = _operands(torch.bfloat16, 128, 128)

@@ -3,8 +3,9 @@
 cores), the CUDA-core training attention kernels (forward and backward), the
 tensor-core training attention kernels (B4 and B5, f32 and bf16) and both
 fbank kernels at the main paths' shapes (the FFT kernel also at a 50 ms
-window, 1024 points), so that two checkouts can be compared on one card in
-one call.
+window, 1024 points), and the routed training kernels at c = 96 (B = 8, 4
+chunks, H = 8, dk = 64, p = 0.1; the route each checkout picks is printed),
+so that two checkouts can be compared on one card in one call.
 
     cd <checkout> && python3 <this repo>/tools/compare_torch_kernels.py <tag> <out_dir>
     python3 tools/compare_torch_kernels.py --compare <out_dir>/ab_<a>.pt <out_dir>/ab_<b>.pt
@@ -81,6 +82,30 @@ def fingerprint(tag, out_dir):
             times[f"train tc bwd {dtype} p={drop}"] = [cs.cuda_ms(lambda: cat.backward_kernel(
                 *targs, ctx, m, den, dctx, *st, path="tensor_core"), iters=20)
                 for _ in range(3)]
+        c96 = 96
+        g96 = torch.Generator(device=dev).manual_seed(96)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g96, device=dev).to(dtype)
+
+        lens = torch.tensor([4 * c96 - 7 * i - (i * i) % 5 for i in range(8)][:-1] + [1],
+                            dtype=torch.int32, device=dev)
+        targs = [rnd(8, 4 * c96, 8, 64), rnd(8, 128 + 4 * c96 + 128, 8, 128),
+                 rnd(2 * c96 - 1 + 256, 8, 64), rnd(8, 64), rnd(8, 64), lens]
+        targs[1][:, :128] = 0
+        targs[1][:, 128 + 4 * c96:] = 0
+        path = cat.route(*targs[:3], c96)
+        st = (3, c96, 128, 128, 0.1)
+        ctx, m, den = cat.forward_kernel(*targs, *st, path=path)
+        dctx = rnd(*ctx.shape)
+        grads = cat.backward_kernel(*targs, ctx, m, den, dctx, *st, path=path)
+        print(tag, f"train c=96 {dtype} routed to {path}", flush=True)
+        outs[f"train c96 fwd {dtype}"] = ctx
+        outs[f"train c96 bwd {dtype}"] = torch.cat([x.float().reshape(-1) for x in grads])
+        times[f"train c96 fwd {dtype}"] = [cs.cuda_ms(lambda: cat.forward_kernel(
+            *targs, *st, path=path), iters=10) for _ in range(3)]
+        times[f"train c96 bwd {dtype}"] = [cs.cuda_ms(lambda: cat.backward_kernel(
+            *targs, ctx, m, den, dctx, *st, path=path), iters=10) for _ in range(3)]
     for sr, sec in ((16000, 2040.0), (8000, 120.0), (16000, 120.0)):
         wave = torch.from_numpy(cs.speechlike(np.random.default_rng(0), sec, sr)
                                 .astype(np.float32)).to(dev)
