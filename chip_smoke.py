@@ -75,16 +75,22 @@ non-zero exit code and no result line:
    there (B4 and B5, partial 64-row query blocks and 64-frame key blocks)
    on the tensor cores in f32 and bf16, held beside the CUDA-core kernels
    and timed in turns with them and the plain version, the tensor cores
-   required the fastest; a 120 s f32 ``endless_decode`` at c = 96
-   (tensor-core launches only) against the plain attention; the flagship
+   required the fastest; the same at c = 1 (64 one-frame chunks an
+   utterance, no route required the fastest), the f32 row maxima and
+   denominators printed beside a float64 run of the plain version; a 120 s
+   f32 ``endless_decode`` at c = 96 (tensor-core launches only) against the
+   plain attention; the flagship
    train step at (96, 128, 128) in f32 and bf16 against the plain
    attention, tensor-core training launches only; an f32 encode of the
    search files at (96, 128, 128) (B4's eval forward on the tensor cores,
    timed); the FFT fbank at 50 ms with shifts of 160 and 161 samples, a 40
    ms shift, 25 ms at 44.1 kHz (2048 points), 160 mel bins, 15 ms at 8 kHz
    (128 points, the 256-point plan's strided bins) and 25 ms at 96 kHz
-   (4096 points, the in-place plan) beside the DFT kernel where it takes
-   the window and the plain version;
+   (4096 points, the in-place plan), and the block plan at 50 ms at 96 kHz
+   (8192 points), 100 ms at 96 kHz (16384) and 100 ms at 192 kHz (32768,
+   its workspace), beside the DFT kernel where it takes the window, the
+   plain version and, above 4096 points, ``torch.fft.rfft`` of the
+   windowed frames;
 9. the streaming path: an export of ChunkFormer-large (random weights from
    a seed); ``bin/stream.py`` on 60 s of audio at the realtime defaults
    (c, L, R) = (6, 50, 0) in f32 and bf16 after a warm-up, with the
@@ -357,7 +363,8 @@ def fbank_bound(wave, n_frames, n_mels=80, win=400, padded=512, sample_rate=1600
     bytes (the waveform read once, the features written once, and the
     tables it needs counted in float32: twiddles and split factors, the
     window, the band table and its weights) over 3.35 TB/s, and its
-    operations at the 67 TFLOP/s f32 peak,
+    operations at 67 TFLOP/s (the f32 peak off the tensor cores, and the
+    float64 peak on them: the same bound for both FFT plans),
     counted a frame as the real FFT's (5/2) padded log2(padded), the
     pre-processing (mean, its subtraction, preemphasis, window: 5 a sample),
     the power of the padded / 2 bins the mel bank weighs (3 each), the
@@ -634,14 +641,21 @@ TRAIN_COUNTS = ("train_fwd", "train_bwd", "train_fwd_tc", "train_bwd_tc")
 def reset_counts():
     from chunkformer_tpu_torch.ops.kernels import reset_launch_counts
 
-    reset_launch_counts(*DECODE_COUNTS)
+    reset_launch_counts(*DECODE_COUNTS, "fbank_fft_block")
 
 
-def read_counts():
+def read_counts(block_plan=False):
+    """The decode kernels' counts by ``DECODE_COUNTS``. The fbank block
+    plan's (``fbank_fft_block``, windows above 4096 points) is added where
+    ``block_plan``; elsewhere it is required to be 0, as no path but
+    ``other_fbank``'s block geometries launches it."""
     from chunkformer_tpu_torch.ops.kernels import launch_counts
 
     counts = launch_counts()
-    return {k: counts[k] for k in DECODE_COUNTS}
+    if not block_plan:
+        require(counts["fbank_fft_block"] == 0,
+                f"the fbank block plan ran {counts['fbank_fft_block']} times")
+    return {k: counts[k] for k in DECODE_COUNTS + (("fbank_fft_block",) if block_plan else ())}
 
 
 def main_vocabulary(size):
@@ -1797,10 +1811,17 @@ FBANK_OTHER = [  # (name, fbank keywords, seconds of audio, DFT kernel held to t
     ("50 ms / 160", dict(frame_length=50.0, frame_shift=10.0), 120.0, True),
     ("50 ms / 161", dict(frame_length=50.0, frame_shift=10.0625), 120.0, True),
     ("25 ms / 40 ms shift", dict(frame_shift=40.0), 120.0, False),
-    ("25 ms at 44.1 kHz (2048 points)", dict(sample_rate=44100), LONG_SECONDS, False),
+    ("25 ms at 44.1 kHz (2048 points)", dict(sample_rate=44100), 120.0, False),
     ("160 bins at 25 ms / 16 kHz", dict(num_mel_bins=160), 120.0, False),
     ("15 ms at 8 kHz (128 points)", dict(frame_length=15.0, sample_rate=8000), 120.0, False),
     ("25 ms at 96 kHz (4096 points)", dict(sample_rate=96000), 120.0, False),
+    # above 4096 points, the block plan (csrc/fbank_fft_block.cu): the frame's
+    # buffer in shared memory up to 16384 points, in a workspace slot beyond
+    ("50 ms at 96 kHz (8192 points)", dict(sample_rate=96000, frame_length=50.0), 120.0, False),
+    ("100 ms at 96 kHz (16384 points)", dict(sample_rate=96000, frame_length=100.0), 120.0,
+     False),
+    ("100 ms at 192 kHz (32768 points)", dict(sample_rate=192000, frame_length=100.0), 30.0,
+     False),
 ]
 
 
@@ -1857,17 +1878,26 @@ def other_attention(c, dk, n, trunc, gen, device, card):
 
 def other_fbank(device, card):
     """fbank at ``FBANK_OTHER``'s geometries: the routed call launches the
-    FFT kernel once (counts reset around it) and is within atol 2e-3 + rtol
+    FFT kernel of its plan once (counts reset around it: the warp plan's up
+    to 4096 points, the block plan's above) and is within atol 2e-3 + rtol
     1e-3 of the plain version, with no element past the bar. The DFT kernel
     (no route's kernel), called directly where it takes the window (at most
     ``DFT_MAX_WIN`` samples, C23), is held to the same bar at 50 ms, where
     it always was; elsewhere its float32 DFT's elements past the bar are
-    counted and printed (C22), as is its largest gap to the FFT kernel. The
-    kernels and the plain version are timed in turns (2 rounds); the FFT
-    kernel must be the fastest. Returns
-    {name: {"fft": result, "dft": result or None, "launches": counts}}."""
-    from chunkformer_tpu_torch.ops.fbank import (DFT_MAX_WIN, _geometry, band_table, fbank,
-                                                 fbank_dft, fbank_fft, fbank_plain, num_frames)
+    counted and printed (C22), as is its largest gap to the FFT kernel.
+    Above 4096 points the FFT kernel is the block plan, whose grid and
+    buffer place (shared memory, or a workspace and its bytes) are printed,
+    with the time
+    of ``torch.fft.rfft`` of the windowed float64 frames alone (no library
+    call computes the whole function). The kernels and the plain version
+    are timed in turns (2 rounds); the FFT kernel must be the fastest.
+    Returns {name: {"fft": result, "dft": result or None, "launches":
+    counts}}."""
+    from chunkformer_tpu_torch.ops.fbank import (DFT_MAX_WIN, MAX_WARP_PLAN_POINTS, _geometry,
+                                                 band_table, fbank, fbank_dft, fbank_fft,
+                                                 fbank_plain, fft_block_grid, fft_block_in_shared,
+                                                 fft_block_workspace_bytes, num_frames,
+                                                 windowed_frames)
     from chunkformer_tpu_torch.ops.fbank import route as fbank_route
 
     out = {}
@@ -1880,13 +1910,15 @@ def other_fbank(device, card):
                                 .astype(np.float32)).to(device)
         n = num_frames(wave.numel(), sr, kw.get("frame_length", 25.0),
                        kw.get("frame_shift", 10.0))
+        block = padded > MAX_WARP_PLAN_POINTS
         want = fbank_plain(wave, **kw)
         reset_counts()
         got = {"fft": fbank(wave, **kw)}
         torch.cuda.synchronize()
-        counts = read_counts()
+        counts = read_counts(block_plan=True)
         require(counts == {"chunk_attention": 0, "chunk_attention_tc": 0, "fbank": 0,
-                           "fbank_fft": 1}, f"fbank {name} launches {counts}")
+                           "fbank_fft": int(not block), "fbank_fft_block": int(block)},
+                f"fbank {name} launches {counts}")
         dft = win <= DFT_MAX_WIN
         if dft:
             got["dft"] = fbank_dft(wave, **kw)
@@ -1901,21 +1933,36 @@ def other_fbank(device, card):
                     and (over[k] == 0 or (k == "dft" and not dft_bar)),
                     f"fbank {k} at {name}: max err {errs[k]:.3g}, {over[k]} past the bar")
         gap = f"{float((got['fft'] - got['dft']).abs().max()):.3g}" if dft else "-"
-        times = {k: [] for k in ("fft", "dft", "plain") if k != "dft" or dft}
+        times = {k: [] for k in ("fft", "dft", "plain", "rfft")
+                 if (k != "dft" or dft) and (k != "rfft" or block)}
+        frames = windowed_frames(wave, win, shift, n) if block else None
         for _ in range(2):
             times["fft"].append(cuda_ms(lambda: fbank_fft(wave, **kw), iters=10))
             if dft:
                 times["dft"].append(cuda_ms(lambda: fbank_dft(wave, **kw), iters=3, warmup=1))
             times["plain"].append(cuda_ms(lambda: fbank_plain(wave, **kw), iters=3, warmup=1))
+            if block:
+                times["rfft"].append(cuda_ms(lambda: torch.fft.rfft(frames, n=padded, dim=1),
+                                             iters=3, warmup=1))
+        del frames
         ms = {k: sum(v) / 2 for k, v in times.items()}
         bound_ms, bound_by = fbank_bound(wave, n, n_mels, win=win, padded=padded, sample_rate=sr)
+        plan = "warp plan"
+        if block:
+            blocks = fft_block_grid(padded, n, torch.cuda.get_device_properties(device)
+                                    .multi_processor_count)
+            plan = (f"block plan, {blocks} blocks, the frame's buffer in shared memory "
+                    f"({8 * padded} bytes a block)" if fft_block_in_shared(padded) else
+                    f"block plan, {blocks} blocks, a workspace of "
+                    f"{fft_block_workspace_bytes(padded, blocks)} bytes (a slot a block)")
         out[name] = {k: (dict(max_abs_err=errs[k], ms=ms[k], plain_ms=ms["plain"],
                               bound_ms=bound_ms, bound_by=bound_by) if k in errs else None)
                      for k in ("fft", "dft")}
         out[name]["launches"] = counts
         nnz = int(band_table(n_mels, padded, float(sr))[1].sum())
         log(f"fbank {name}: {win} samples, shift {shift}, padded {padded}, {sr} Hz, {n_mels} bins, "
-            f"{seconds:.0f} s ({n} frames, {nnz} mel weights); routed fbank launches {counts}; "
+            f"{seconds:.0f} s ({n} frames, {nnz} mel weights); {plan}; routed fbank launches "
+            f"{counts}; "
             f"max|kernel-plain| FFT {errs['fft']:.3g}, DFT "
             + (f"{errs['dft']:.3g} ({over['dft']} of {want.numel()} past the bar)" if dft
                else f"not run (it refuses windows above {DFT_MAX_WIN} samples)")
@@ -1929,6 +1976,25 @@ def other_fbank(device, card):
                 f"version and the DFT kernel ({ms})")
         del wave, want, got
     return out
+
+
+def statistics_against_float64(targs, c, outs):
+    """Each forward's row max m and denominator den (p = 0) against the
+    plain arithmetic in float64 on the same operands, over the rows with a
+    valid key: max |m - m64| and max |den - den64| / den64, by name."""
+    from chunkformer_tpu_torch.ops import chunk_attention_train as cat
+
+    _, m64, den64 = cat.forward_plain(*targs, 5, c, LEFT, RIGHT, 0.0, dtype=torch.float64)
+    live = m64 > -1e28
+    parts = []
+    for name, (_, m, den) in outs.items():
+        m_err = float((m.double() - m64)[live].abs().max())
+        den_err = float(((den.double() - den64).abs() / den64)[live].max())
+        parts.append(f"{name} max |m - m64| {m_err:.3g}, max |den - den64| / den64 "
+                     f"{den_err:.3g}")
+    near0 = int((m64[live].abs() < 0.05).sum())
+    return (f"against float64 ({int(live.sum())} live rows, {near0} row maxima within 0.05 "
+            f"of 0): " + "; ".join(parts))
 
 
 def other_train_inputs(c, dk, dtype, gen, device, b=8, nch=4):
@@ -1948,21 +2014,23 @@ def other_train_inputs(c, dk, dtype, gen, device, b=8, nch=4):
     return args
 
 
-def other_train_attention(c, dk, gen, device, card):
-    """B4 and B5 at chunk c, head dim dk: B = 8 utterances of 4 chunks with
-    ragged lengths down to 1, H = 8, L = R = 128, p = 0.1. In f32 and in
+def other_train_attention(c, dk, gen, device, card, nch=4, fastest=True):
+    """B4 and B5 at chunk c, head dim dk: B = 8 utterances of ``nch`` chunks
+    with ragged lengths down to 1, H = 8, L = R = 128, p = 0.1. In f32 and in
     bf16 the routed tensor-core kernels (a partial 64-row query block where
     64 does not divide c, a partial 64-frame key block where it does not
-    divide 4c) and the CUDA-core kernels against the plain version at the
-    dtype's bars (f32: ctx atol 1e-5, m and den rtol 1e-5, gradients atol
-    1e-4 + rtol 1e-5; bf16: ctx atol 1e-2 + one bf16 ulp, m and den rtol
-    1e-2, each gradient 1e-2 relative L2), each launch counted; timed in
-    turns (tensor cores, CUDA cores, plain; 2 rounds); the tensor-core
-    forward and backward must be faster than both. Returns {dtype name:
-    {"tc": {"fwd": result, "bwd": result}, "cc": {...}}}."""
+    divide nch c) and the CUDA-core kernels against the plain version at the
+    dtype's bars (f32: ctx atol 1e-5, m and den atol 1e-5 + rtol 1e-5 (C25),
+    gradients atol 1e-4 + rtol 1e-5; bf16: ctx atol 1e-2 + one bf16 ulp, m
+    and den rtol 1e-2, each gradient 1e-2 relative L2), each launch counted;
+    in f32 each route's m and den and the plain version's beside the plain
+    arithmetic in float64 at p = 0; timed in turns (tensor cores, CUDA
+    cores, plain; 2 rounds); with ``fastest`` the tensor-core forward and
+    backward must be faster than both. Returns {dtype name: {"tc": {"fwd":
+    result, "bwd": result}, "cc": {...}}}."""
     from chunkformer_tpu_torch.ops import chunk_attention_train as cat
 
-    b, nch, drop = 8, 4, 0.1
+    b, drop = 8, 0.1
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -1994,8 +2062,12 @@ def other_train_attention(c, dk, gen, device, card):
                     and bool(((ctx.float() - want[0].float()).abs() <= tol).all()),
                     f"{tag}: forward max |kernel - plain| {f_err:.3g}")
             for sname, got_s, want_s in (("m", m, want[1]), ("den", den, want[2])):
-                rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
-                require(rel <= (1e-2 if bf16 else 1e-5), f"{tag}: {sname} relative error {rel:.3g}")
+                if bf16:
+                    rel = float(((got_s - want_s).abs() / want_s.abs().clamp_min(1e-30)).max())
+                    require(rel <= 1e-2, f"{tag}: {sname} relative error {rel:.3g}")
+                else:
+                    excess = float(((got_s - want_s).abs() - 1e-5 * want_s.abs()).max())
+                    require(excess <= 1e-5, f"{tag}: {sname} atol excess {excess:.3g}")
             b_err, worst = 0.0, 0.0  # max |kernel - plain|; the bar's worst measure
             for gname, a, e in zip(("q", "kv", "p", "u", "v"), got, ref):
                 require(bool(torch.isfinite(a).all()), f"{tag}: non-finite d{gname}")
@@ -2010,6 +2082,11 @@ def other_train_attention(c, dk, gen, device, card):
                     require(excess <= 1e-4, f"{tag}: d{gname} atol excess {excess:.3g}")
             errs[route] = (f_err, b_err, worst)
             del got
+        if not bf16:
+            log(f"{label}: " + statistics_against_float64(targs, c, {
+                "tensor cores": cat.forward_kernel(*targs, *st[:4], 0.0, path="tensor_core"),
+                "CUDA cores": cat.forward_kernel(*targs, *st[:4], 0.0, path="cuda_core"),
+                "plain f32": cat.forward_plain(*targs, *st[:4], 0.0)}))
         times = {k: [] for k in ("tc_f", "cc_f", "pl_f", "tc_b", "cc_b", "pl_b")}
         tc_out, cc_out = fwd_out["tensor_core"], fwd_out["cuda_core"]
         for _ in range(2):
@@ -2052,7 +2129,7 @@ def other_train_attention(c, dk, gen, device, card):
                     f"{tc_r['ms'] / tc_r['bound_ms']:.1f}x")
         log(msg + f"; card {card}")
         for x, part in (("f", "forward"), ("b", "backward")):
-            require(mean[f"tc_{x}"] < mean[f"cc_{x}"] and mean[f"tc_{x}"] < mean[f"pl_{x}"],
+            require(not fastest or mean[f"tc_{x}"] < min(mean[f"cc_{x}"], mean[f"pl_{x}"]),
                     f"{label}: the tensor-core {part} ({mean[f'tc_{x}']:.4f} ms) is not below "
                     f"the CUDA-core one ({mean[f'cc_{x}']:.4f}) and the plain version "
                     f"({mean[f'pl_{x}']:.4f})")
@@ -2146,6 +2223,12 @@ def phase_other_geometries(card, device, f32, wavs):
         results[(c, dk)] = other_attention(c, dk, n, trunc, gen, device, card)
         # the training kernels at the same (c, dk), both routes, f32 and bf16
         results[("train", c, dk)] = other_train_attention(c, dk, gen, device, card)
+    # C25: the training kernels at c = 1 (a one-row query block a chunk), 64
+    # chunks an utterance, both routes and dtypes; no route is required the
+    # fastest there (the f32 tensor cores lose at small chunks, ROADMAP.md
+    # section B item 9)
+    results[("train", 1, 64)] = other_train_attention(1, 64, gen, device, card, nch=64,
+                                                      fastest=False)
 
     # endless_decode of 120 s at c = 96 through the tensor-core kernel, against
     # the plain attention: no flip where the f32 top-1/top-2 gap is 1e-3 or more
@@ -3633,7 +3716,8 @@ def phase_recipe(tmp, card, device="cuda"):
     n_layers, accum = conf["encoder_conf"]["num_blocks"], conf["accum_grad"]
     limited = accum * n_layers * sum(c > 0 for c in chunks)
     want = {"chunk_attention": 0, "chunk_attention_tc": 0, "train_fwd": 0, "train_bwd": 0,
-            "train_fwd_tc": limited, "train_bwd_tc": limited, "fbank": 0, "fbank_fft": 0}
+            "train_fwd_tc": limited, "train_bwd_tc": limited, "fbank": 0, "fbank_fft": 0,
+            "fbank_fft_block": 0}
     losses = ", ".join(f"{s['loss']:.4g}" for s in steps)
     log(f"recipe stage 3: {len(steps)} steps (accum_grad {accum}) at chunks {chunks}, "
         f"losses {losses}; launches {counts}")
@@ -4248,6 +4332,15 @@ def main() -> int:
                         "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
                         "launches": fb_other["launches"]["fbank_fft"], **fb_other["fft"],
                         "library_ms": None})
+    for tag, geometry in (("8192", "50 ms at 96 kHz (8192 points)"),
+                          ("16384", "100 ms at 96 kHz (16384 points)"),
+                          ("32768", "100 ms at 192 kHz (32768 points)")):
+        fb_other = other["fbank"][geometry]
+        kernels.append({"name": f"fbank_fft_block_{tag}", "route": "cuda",
+                        "source": "chunkformer_tpu_torch/csrc/fbank_fft_block.cu",
+                        "replaces": "chunkformer_tpu/ops/pallas/fbank.py:43",
+                        "launches": fb_other["launches"]["fbank_fft_block"], **fb_other["fft"],
+                        "library_ms": None})
     train96 = other[("train",) + C7_DECODE[0]]
     for tag, suffix, step in (("f32", "_f32", "train f32"), ("bf16", "", "train bf16")):
         for part, line in (("fwd", 316), ("bwd", 390)):
@@ -4375,7 +4468,9 @@ def main() -> int:
         f"kernels and the f32 CUDA-core kernel), launches from the 120 s f32 endless_decode "
         f"at c = 96; fbank at 50 ms / 161, a 40 ms shift, 25 ms at 44.1 kHz, 160 bins, 128 "
         f"points (15 ms at 8 kHz) and 4096 points (25 ms at 96 kHz) (the FFT kernel; the DFT "
-        f"kernel at 50 ms / 161 only), launches from one routed fbank call at each; the "
+        f"kernel at 50 ms / 161 only), launches from one routed fbank call at each; "
+        f"fbank_fft_block_*: the block plan at 8192, 16384 (120 s at 96 kHz) and 32768 "
+        f"points (30 s at 192 kHz), launches from one routed fbank call at each; the "
         f"training kernels at c = 96 (*_c96: B = 8, 4 chunks, H = 8, dk = 64, p = 0.1; the "
         f"tensor-core kernels in f32 and bf16 and the f32 CUDA-core kernels), launches from "
         f"the flagship train step at (96, 128, 128) in that dtype, B4's eval forward at the "

@@ -8,7 +8,8 @@
 // zero-padded to `padded` points -> Kaldi mel bank (the Nyquist column is
 // zero) -> log(max(., 1.1920929e-07)). Dither is 0 (decode-time features).
 // It takes every padded window of 64 to 4096 points, any shift and any mel
-// count up to 65535: ops/fbank.py routes every geometry here. A window
+// count up to 65535: ops/fbank.py routes every such geometry here, and
+// every longer window to fbank_fft_block.cu (a block a frame). A window
 // padded to 64 or 128 points runs the 256-point plan and reads every
 // (256 / padded)-th bin (for a frame that is zero past its window, X_P[k] =
 // X_256[k 256 / P] exactly), so only its mel lane table differs. The DFT
@@ -107,6 +108,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fbank_fft.cuh"
+
 namespace {
 
 constexpr int kMaxTileFrames = 16;
@@ -119,9 +122,6 @@ __host__ __device__ constexpr int warps(int n) { return n == 2048 ? 2 : n == 102
 // then take all the registers
 __host__ __device__ constexpr int blocks_per_sm(int n) { return n >= 512 ? 1 : 3; }
 __host__ __device__ constexpr int threads(int n) { return 32 * warps(n); }
-constexpr float kPreemph = 0.97f;
-constexpr float kEps = 1.1920928955078125e-07f;
-constexpr double kSqrtHalf = 0.70710678118654752440;
 
 struct Params {
   const float* wave;      // [S]
@@ -174,58 +174,6 @@ struct Layout {
 // quarter-warp touch 8 different 16-byte bank groups in every stage's loads
 // and stores
 __device__ __forceinline__ int slot(int c) { return c ^ ((c >> 3) & 7); }
-
-__device__ __forceinline__ double2 cx(double re, double im) { return make_double2(re, im); }
-__device__ __forceinline__ double2 cadd(double2 a, double2 b) { return cx(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ double2 csub(double2 a, double2 b) { return cx(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ double2 cmul(double2 a, double2 w) {
-  return cx(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-__device__ __forceinline__ double2 mul_neg_i(double2 a) { return cx(a.y, -a.x); }
-// a * exp(-2 pi i / 8) and a * exp(-2 pi i 3 / 8)
-__device__ __forceinline__ double2 mul_w8(double2 a) {
-  return cx((a.x + a.y) * kSqrtHalf, (a.y - a.x) * kSqrtHalf);
-}
-__device__ __forceinline__ double2 mul_w8_3(double2 a) {
-  return cx((a.y - a.x) * kSqrtHalf, -(a.x + a.y) * kSqrtHalf);
-}
-
-// in-place 4-point DFT, natural order in and out
-__device__ __forceinline__ void dft4(double2* a) {
-  const double2 b0 = cadd(a[0], a[2]), b2 = csub(a[0], a[2]);
-  const double2 b1 = cadd(a[1], a[3]), b3 = mul_neg_i(csub(a[1], a[3]));
-  a[0] = cadd(b0, b1);
-  a[1] = cadd(b2, b3);
-  a[2] = csub(b0, b1);
-  a[3] = csub(b2, b3);
-}
-
-// in-place 8-point DFT: one radix-2 step, then a 4-point DFT of the sums
-// (even outputs) and of the twiddled differences (odd outputs)
-__device__ __forceinline__ void dft8(double2* a) {
-  double2 e[4], o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    e[j] = cadd(a[j], a[j + 4]);
-    o[j] = csub(a[j], a[j + 4]);
-  }
-  o[1] = mul_w8(o[1]);
-  o[2] = mul_neg_i(o[2]);
-  o[3] = mul_w8_3(o[3]);
-  dft4(e);
-  dft4(o);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    a[2 * q] = e[q];
-    a[2 * q + 1] = o[q];
-  }
-}
-
-template <int Radix>
-__device__ __forceinline__ void dft(double2* a) {
-  if constexpr (Radix == 8) dft8(a);
-  else dft4(a);
-}
 
 // One radix-R Stockham stage of the N-point FFT in the warp's buffer z,
 // after P points have been combined: butterfly i < N / R takes z[i + j N/R],

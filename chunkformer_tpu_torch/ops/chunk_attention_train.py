@@ -131,27 +131,30 @@ def window_keep_mask(seed, lens, n, heads, c, w, drop_rate, head_offset: int = 0
     return _mix(s ^ (ci * c + j)) >= drop_threshold(drop_rate)
 
 
-def _scores(q, kv, p, u, v, chunk, left, right):
-    """f32 windows and scores: (qu, qv, k, vals, s [B, n, H, c, W])."""
+def _scores(q, kv, p, u, v, chunk, left, right, dtype=torch.float32):
+    """Windows and scores in ``dtype`` (f32): (qu, qv, k, vals, s [B, n, H, c, W])."""
     b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
     scale = 1.0 / math.sqrt(d_k)
-    win = kv.float().unfold(1, w, chunk)                  # [B, n, H, 2dk, W]
+    win = kv.to(dtype).unfold(1, w, chunk)                # [B, n, H, 2dk, W]
     k, vals = win[:, :, :, :d_k], win[:, :, :, d_k:]
-    qc = q.float().reshape(b, n, chunk, heads, d_k)
-    qu = (qc + u.float()) * scale
-    qv = (qc + v.float()) * scale
+    qc = q.to(dtype).reshape(b, n, chunk, heads, d_k)
+    qu = (qc + u.to(dtype)) * scale
+    qv = (qc + v.to(dtype)) * scale
     ac = torch.einsum("bnchd,bnhdw->bnhcw", qu, k)
-    bd = torch.einsum("bnchd,phd->bnhcp", qv, p.float())
+    bd = torch.einsum("bnchd,phd->bnhcp", qv, p.to(dtype))
     return qu, qv, k, vals, ac + rel_shift(bd, left, right)
 
 
 def forward_plain(q, kv, p, u, v, lens, seed: int, chunk: int, left: int, right: int,
-                  drop_rate: float, head_offset: int = 0, heads_total: int = 0
+                  drop_rate: float, head_offset: int = 0, heads_total: int = 0,
+                  dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel, differentiable by autograd:
-    (ctx [B, n*c, H, dk] in q's dtype, m and den [B, H, n*c] f32)."""
+    (ctx [B, n*c, H, dk] in q's dtype, m and den [B, H, n*c] in ``dtype``,
+    the dtype it computes in: f32, as the kernels; float64 gives the
+    yardstick that f32 statistics are held to)."""
     b, n, heads, d_k, w = _layout(q, kv, p, chunk, left, right)
-    _, _, _, vals, s = _scores(q, kv, p, u, v, chunk, left, right)
+    _, _, _, vals, s = _scores(q, kv, p, u, v, chunk, left, right, dtype)
     valid = _valid(lens, n, chunk, left, w)
     s = s.masked_fill(~valid, -1e30)
     m = s.amax(-1, keepdim=True).clamp_min(-1e29)

@@ -9,14 +9,16 @@ spectrum of the frame zero-padded to a power of two, Kaldi mel bank (the
 Nyquist column is zero) and log. Dither is 0, as at decode time. The
 waveform is float32 at int16 scale.
 
-``route`` sends every geometry of at most 4096 padded points to one kernel,
-``csrc/fbank_fft.cu``: a warp per frame, an FFT in float64 written in the
-kernel and a sparse mel product, at any shift and any mel count. A padded
-window of 64 or 128 points runs the 256-point plan and reads every (256 /
-padded)-th bin; 4096 points run an in-place plan of their own. Past 4096
-points ``route`` raises a ``ValueError``. ``csrc/fbank.cu`` (the DFT as a
-float32 product with cos/sin tables) is no route's kernel: it stays as the
-yardstick that ``chip_smoke.py`` times the FFT kernel against.
+``route`` sends every geometry to the FFT kernels, ``csrc/fbank_fft.cu``
+up to 4096 padded points and ``csrc/fbank_fft_block.cu`` above: a float64
+FFT written in the kernel and a sparse mel product, at any shift and any
+mel count. Up to 4096 points a warp takes a frame (a window padded to 64 or
+128 points runs the 256-point plan and reads every (256 / padded)-th bin;
+4096 points run an in-place plan of their own); above, a block of 256
+threads takes a frame, its buffer in shared memory up to 16384 points and
+in a global workspace beyond (``fft_block_in_shared``). ``csrc/fbank.cu``
+(the DFT as a float32 product with cos/sin tables) is no route's kernel: it
+stays as the yardstick that ``chip_smoke.py`` times the FFT kernel against.
 """
 
 from __future__ import annotations
@@ -90,6 +92,16 @@ def _geometry(sample_rate: int, frame_length: float, frame_shift: float):
     return win, shift, 1 << (win - 1).bit_length()
 
 
+def windowed_frames(waveform: torch.Tensor, win: int, shift: int, n: int) -> torch.Tensor:
+    """The n frames of ``fbank_plain``, float64 [n, win] from the float32
+    samples: DC removed, preemphasised, windowed."""
+    frames = waveform.float()[: (n - 1) * shift + win].unfold(0, win, shift).double()
+    frames = frames - frames.mean(dim=1, keepdim=True)
+    prev = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
+    window = torch.from_numpy(povey_window(win)).to(waveform.device).double()
+    return (frames - _PREEMPHASIS * prev) * window
+
+
 def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
                 frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
     """Plain PyTorch version: [S] float32 -> [T, num_mel_bins] float32.
@@ -103,11 +115,7 @@ def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: fl
     dev = waveform.device
     if n == 0:
         return torch.zeros((0, num_mel_bins), dtype=torch.float32, device=dev)
-    frames = waveform.float()[: (n - 1) * shift + win].unfold(0, win, shift).double()
-    frames = frames - frames.mean(dim=1, keepdim=True)
-    prev = torch.cat([frames[:, :1], frames[:, :-1]], dim=1)
-    window = torch.from_numpy(povey_window(win)).to(dev).double()
-    frames = (frames - _PREEMPHASIS * prev) * window
+    frames = windowed_frames(waveform, win, shift, n)
     spectrum = torch.fft.rfft(frames, n=padded, dim=1).abs().square()
     banks = torch.from_numpy(mel_banks(num_mel_bins, padded, float(sample_rate))).to(dev)
     return torch.log(torch.clamp_min(spectrum @ banks.double(), _EPSILON)).float()
@@ -121,15 +129,21 @@ def fbank_plain(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: fl
 FFT_STAGES = {2048: ((8, 8), (4, 64), (4, 256)), 1024: ((8, 8), (8, 64)),
               512: ((8, 8), (4, 64)), 256: ((4, 8), (4, 32))}
 FFT_DIF_RADICES = {4096: (8, 8, 8, 4)}
-# Padded windows the FFT kernel takes: 64 and 128 points run the 256-point
-# plan (``fft_points``); past MAX_FFT_POINTS ``route`` raises
+# Padded windows the warp plans take (csrc/fbank_fft.cu): 64 and 128 points
+# run the 256-point plan (``fft_points``); longer windows run the block plan
+# (csrc/fbank_fft_block.cu), a block of FFT_BLOCK_THREADS threads a frame
 MIN_FFT_PLAN = 256
-MAX_FFT_POINTS = 4096
+MAX_WARP_PLAN_POINTS = 4096
+FFT_BLOCK_THREADS = 256
 # The mel lane table's steps keep a band's number + 1 in 16 bits
 MAX_FFT_MELS = 0xFFFF
 # The FFT kernel's blocks (csrc/fbank_fft.cu): shared memory a block may opt
 # into on sm_90 (227 KB on an H100), and frames a tile at most
 FFT_SMEM_BYTES = 232448
+# Shared memory an H100 SM holds for its resident blocks (228 KB), and what
+# the runtime reserves of it for each block
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
 FFT_MAX_TILE_FRAMES = 16
 # The DFT kernel (csrc/fbank.cu) keeps two [32][win] float32 tiles in shared
 # memory: windows above this many samples do not fit 227 KB (C23)
@@ -147,21 +161,59 @@ def fft_points(padded: int) -> int:
 def route(num_mel_bins: int = 80, frame_length: float = 25.0, frame_shift: float = 10.0,
           sample_rate: int = 16000) -> str:
     """Which kernel a CUDA call launches, from the geometry alone: "fft"
-    (``csrc/fbank_fft.cu``) for every padded window of at most
-    ``MAX_FFT_POINTS`` points, any shift > 0 and any mel count up to
-    ``MAX_FFT_MELS``. Raises a ``ValueError`` naming the limit otherwise:
-    no kernel of the port takes a padded window above 4096 points."""
-    win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
+    (``csrc/fbank_fft.cu`` up to ``MAX_WARP_PLAN_POINTS`` padded points,
+    ``csrc/fbank_fft_block.cu`` above) for every window of at least 2
+    samples, any shift > 0 and any mel count up to ``MAX_FFT_MELS``. Raises
+    a ``ValueError`` naming the limit otherwise."""
+    win, shift, _ = _geometry(sample_rate, frame_length, frame_shift)
     if win < 2 or shift < 1:
         raise ValueError(f"fbank needs a window of at least 2 samples and a shift of at least "
                          f"1, got {win} and {shift}")
-    if padded > MAX_FFT_POINTS:
-        raise ValueError(f"the fbank kernels take a padded window of at most {MAX_FFT_POINTS} "
-                         f"points, not {padded} ({win} samples)")
     if not 0 < num_mel_bins <= MAX_FFT_MELS:
         raise ValueError(f"the FFT fbank kernel takes 1 to {MAX_FFT_MELS} mel bins, not "
                          f"{num_mel_bins}")
     return "fft"
+
+
+def fft_block_radices(padded: int) -> tuple:
+    """The block plan's stages (``csrc/fbank_fft_block.cu``), an in-place
+    decimation in frequency of the padded / 2 complex points: radix 8 while
+    three or more bits are left, then one stage of radix 4 or 2. The
+    4096-point warp plan's ``FFT_DIF_RADICES`` follow the same rule."""
+    bits = (padded // 2).bit_length() - 1
+    return (8,) * (bits // 3) + ((1 << bits % 3,) if bits % 3 else ())
+
+
+def fft_block_in_shared(padded: int) -> bool:
+    """Whether the block plan keeps a frame's buffer (padded / 2 complex
+    float64, 16 bytes each) in shared memory, beside the 64 bytes of its
+    warps' partial sums: up to 16384 points (128 KB) within
+    ``FFT_SMEM_BYTES``; from 32768 points (256 KB) it takes a slot of a
+    global workspace."""
+    return 8 * padded + 8 * FFT_BLOCK_THREADS // 32 <= FFT_SMEM_BYTES
+
+
+def fft_block_grid(padded: int, n_frames: int, sms: int) -> int:
+    """The block plan's persistent grid, never more blocks than frames. With
+    the frame's buffer in shared memory: as many blocks an SM as its
+    ``SM_SMEM_BYTES`` hold (each block reserving ``BLOCK_RESERVED_SMEM``),
+    at most the 2 the kernel's registers admit (``__launch_bounds__(256,
+    2)``): 2 at 8192 points, 1 at 16384. With a workspace: one block an SM,
+    each with its own slot (256 KB a slot at 32768 points, 33.8 MB over an
+    H100's 132 SMs, within its 50 MB L2)."""
+    if fft_block_in_shared(padded):
+        per_sm = min(2, SM_SMEM_BYTES // (8 * padded + 8 * FFT_BLOCK_THREADS // 32
+                                          + BLOCK_RESERVED_SMEM))
+    else:
+        per_sm = 1
+    return max(1, min(n_frames, per_sm * sms))
+
+
+def fft_block_workspace_bytes(padded: int, blocks: int) -> int:
+    """Bytes of the global workspace the block plan's wrapper allocates for a
+    grid of ``blocks``: none where the buffer fits shared memory, else a
+    buffer a block."""
+    return 0 if fft_block_in_shared(padded) else blocks * 8 * padded
 
 
 def fft_warps(padded: int) -> int:
@@ -315,6 +367,18 @@ def _fft_tables(win: int, padded: int, num_mel_bins: int, sample_rate: int,
 
 
 @functools.lru_cache(maxsize=4)
+def _fft_block_tables(win: int, padded: int, num_mel_bins: int, sample_rate: int,
+                      device: torch.device):
+    """Block plan constants on the device: the split table, the window, the
+    bands int32 [n_mels, 4] (first bin, bins, first weight, 0) and their
+    float32 weights (``band_table``)."""
+    first, count, offset, weights = band_table(num_mel_bins, padded, float(sample_rate))
+    bands = np.stack([first, count, offset, np.zeros_like(first)], axis=1)
+    host = (fft_twiddles(padded)[1], povey_window(win), bands, weights)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host)
+
+
+@functools.lru_cache(maxsize=4)
 def _tables(win: int, padded: int, num_mel_bins: int, sample_rate: int, device: torch.device):
     """Kernel constants on the device: cos/sin [win, n_bins], window, mel."""
     n_bins = padded // 2 + 1
@@ -364,10 +428,13 @@ def fbank_dft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
 
 def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: float = 25.0,
               frame_shift: float = 10.0, sample_rate: int = 16000) -> torch.Tensor:
-    """Launch the FFT kernel (``csrc/fbank_fft.cu``) on a CUDA waveform;
-    raises a ``ValueError`` on a geometry ``route`` refuses. The waveform
-    may start at any 4-byte address: the kernel copies 16 bytes a thread
-    from a 16-byte-aligned one and 4 bytes a thread otherwise."""
+    """Launch the FFT kernel of the geometry's plan on a CUDA waveform:
+    ``csrc/fbank_fft.cu`` up to 4096 padded points, ``csrc/fbank_fft_block.cu``
+    above (with a workspace from ``torch.empty`` past 16384 points); raises
+    a ``ValueError`` on a geometry ``route`` refuses. The waveform may start
+    at any 4-byte address: the warp plans copy 16 bytes a thread from a
+    16-byte-aligned one and 4 bytes a thread otherwise, the block plan reads
+    4 bytes a thread."""
     route(num_mel_bins, frame_length, frame_shift, sample_rate)
     _check_waveform(waveform)
     win, shift, padded = _geometry(sample_rate, frame_length, frame_shift)
@@ -375,15 +442,34 @@ def fbank_fft(waveform: torch.Tensor, num_mel_bins: int = 80, frame_length: floa
     out = torch.empty((n, num_mel_bins), dtype=torch.float32, device=waveform.device)
     if n == 0:
         return out
+    lib = kernels.library()
+    stream = torch.cuda.current_stream(waveform.device).cuda_stream
+    if padded > MAX_WARP_PLAN_POINTS:
+        split, window, bands, weights = _fft_block_tables(win, padded, num_mel_bins,
+                                                          sample_rate, waveform.device)
+        blocks = fft_block_grid(padded, n, torch.cuda.get_device_properties(
+            waveform.device).multi_processor_count)
+        workspace = None
+        if not fft_block_in_shared(padded):
+            workspace = torch.empty(fft_block_workspace_bytes(padded, blocks) // 8,
+                                    dtype=torch.float64, device=waveform.device)
+        with torch.cuda.device(waveform.device):
+            err = lib.cf_fbank_fft_block(
+                waveform.data_ptr(), split.data_ptr(), window.data_ptr(), bands.data_ptr(),
+                weights.data_ptr(), out.data_ptr(),
+                None if workspace is None else workspace.data_ptr(), n, win, shift, padded,
+                num_mel_bins, blocks, stream)
+        kernels.check(err, "fbank_fft_block")
+        fbank.fft_block_launches += 1
+        return out
     twiddle, split, window, mel = _fft_tables(win, padded, num_mel_bins, sample_rate,
                                               waveform.device)
-    lib = kernels.library()
     with torch.cuda.device(waveform.device):
         err = lib.cf_fbank_fft(waveform.data_ptr(), twiddle.data_ptr(), split.data_ptr(),
                                window.data_ptr(), mel.data_ptr(), out.data_ptr(), n, win,
                                shift, fft_points(padded), num_mel_bins, mel.shape[0],
                                fft_tile_frames(padded, win, shift, num_mel_bins, mel.shape[0]),
-                               torch.cuda.current_stream(waveform.device).cuda_stream)
+                               stream)
     kernels.check(err, "fbank_fft")
     fbank.fft_launches += 1
     return out
@@ -419,4 +505,5 @@ def fbank_batch(waveforms: torch.Tensor, lengths: torch.Tensor, num_mel_bins: in
 
 
 fbank.launches = 0      # DFT kernel launches (csrc/fbank.cu) since the last reset
-fbank.fft_launches = 0  # FFT kernel launches (csrc/fbank_fft.cu) since the last reset
+fbank.fft_launches = 0  # warp-plan FFT kernel launches (csrc/fbank_fft.cu) since the last reset
+fbank.fft_block_launches = 0  # block-plan FFT kernel launches (csrc/fbank_fft_block.cu)

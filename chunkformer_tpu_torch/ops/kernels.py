@@ -113,6 +113,8 @@ def library() -> ctypes.CDLL:
     lib.cf_fbank.restype = _I
     lib.cf_fbank_fft.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.cf_fbank_fft.restype = _I
+    lib.cf_fbank_fft_block.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.cf_fbank_fft_block.restype = _I
     lib.cf_chunk_train_attn_fwd.argtypes = ([_I] + [_P] * 9 + [_I] * 7 + [_U, _U, _F, _I, _I, _I]
                                             + [_L] * 8 + [_P])
     lib.cf_chunk_train_attn_fwd.restype = _I
@@ -139,7 +141,8 @@ def _counters() -> dict:
     """{name: (wrapper, attribute)} of every kernel wrapper's launch count:
     the decode attention (``chunk_attention``, ``chunk_attention_tc``), the
     training attention (``train_fwd``, ``train_bwd``, ``train_fwd_tc``,
-    ``train_bwd_tc``) and the fbank (``fbank``, ``fbank_fft``)."""
+    ``train_bwd_tc``) and the fbank (``fbank``, ``fbank_fft``,
+    ``fbank_fft_block``)."""
     from .chunk_attention import chunk_attention
     from .chunk_attention_train import chunk_train_attention as train
     from .fbank import fbank
@@ -149,7 +152,8 @@ def _counters() -> dict:
             "train_fwd": (train, "fwd_launches"), "train_bwd": (train, "bwd_launches"),
             "train_fwd_tc": (train, "fwd_tc_launches"),
             "train_bwd_tc": (train, "bwd_tc_launches"),
-            "fbank": (fbank, "launches"), "fbank_fft": (fbank, "fft_launches")}
+            "fbank": (fbank, "launches"), "fbank_fft": (fbank, "fft_launches"),
+            "fbank_fft_block": (fbank, "fft_block_launches")}
 
 
 def launch_counts() -> dict:

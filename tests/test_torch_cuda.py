@@ -349,23 +349,74 @@ def test_fbank_fft_and_dft_kernels_agree(cuda_device):
 
 def test_fbank_route_counters(cuda_device):
     """fbank() launches the FFT kernel at 8 and 16 kHz (25 ms windows), at a
-    40 ms shift (640 samples, more than the padded 512) and at 160 mel bins
-    (no route reaches the DFT kernel); the FFT counter moves once per launch
-    and the DFT counter never; past 4096 points the FFT entry raises a
-    ValueError before any launch."""
+    40 ms shift (640 samples, more than the padded 512), at 160 mel bins (no
+    route reaches the DFT kernel) and at 50 ms / 96 kHz (8192 points, the
+    block plan); the counter of the geometry's plan (warp plan, block plan)
+    moves once per launch and the DFT counter never."""
     wave = _wave(16000 * 3, cuda_device)
-    cases = [({}, "fft"), ({"sample_rate": 8000}, "fft"), ({"frame_shift": 40.0}, "fft"),
-             ({"num_mel_bins": 160}, "fft")]
+    cases = [({}, (0, 1, 0)), ({"sample_rate": 8000}, (0, 1, 0)),
+             ({"frame_shift": 40.0}, (0, 1, 0)), ({"num_mel_bins": 160}, (0, 1, 0)),
+             ({"sample_rate": 96000, "frame_length": 50.0}, (0, 0, 1))]
     for kwargs, want in cases:
-        assert fbank_route(**kwargs) == want
-        before = (fbank.launches, fbank.fft_launches)
+        assert fbank_route(**kwargs) == "fft"
+        before = (fbank.launches, fbank.fft_launches, fbank.fft_block_launches)
         got = fbank(wave, **kwargs)
         torch.cuda.synchronize()
-        moved = (fbank.launches - before[0], fbank.fft_launches - before[1])
-        assert moved == ((0, 1) if want == "fft" else (1, 0)), (kwargs, moved)
+        moved = (fbank.launches - before[0], fbank.fft_launches - before[1],
+                 fbank.fft_block_launches - before[2])
+        assert moved == want, (kwargs, moved)
         torch.testing.assert_close(got, fbank_plain(wave, **kwargs), atol=2e-3, rtol=1e-3)
-    with pytest.raises(ValueError, match="4096"):
-        fbank_fft(wave, sample_rate=96000, frame_length=50.0)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sample_rate=96000, frame_length=50.0),                       # 8192, shared memory
+    dict(sample_rate=48000, frame_length=100.0, frame_shift=10.0625),  # 8192, odd shift
+    dict(sample_rate=48000, frame_length=100.0, frame_shift=120.0),   # shift past the window
+    dict(sample_rate=96000, frame_length=100.0),                      # 16384, shared memory
+    dict(sample_rate=96000, frame_length=100.0, num_mel_bins=160),
+    dict(sample_rate=192000, frame_length=100.0),                     # 32768, workspace
+    dict(sample_rate=192000, frame_length=200.0)])                    # 65536, workspace
+@pytest.mark.parametrize("frames", [1, 3, 140, 700])
+def test_fbank_fft_block_plan_matches_plain(cuda_device, kwargs, frames):
+    """The block plan (``csrc/fbank_fft_block.cu``, padded windows above 4096
+    points; its buffer in shared memory up to 16384 points, in a workspace
+    slot beyond, more frames than slots at 700): one frame, a few, more
+    frames than SMs; the block plan's counter moves once, the warp plan's
+    and the DFT counter never; against the plain version at atol 2e-3 +
+    rtol 1e-3."""
+    sr = kwargs["sample_rate"]
+    win, shift = int(sr * kwargs["frame_length"] * 0.001), int(
+        sr * kwargs.get("frame_shift", 10.0) * 0.001)
+    n_samples = (frames - 1) * shift + win + 5
+    wave = _speech(n_samples / sr + 0.01, cuda_device, seed=frames, sr=sr)[:n_samples]
+    wave = wave.contiguous()
+    assert fbank_route(**kwargs) == "fft"
+    before = (fbank.launches, fbank.fft_launches, fbank.fft_block_launches)
+    got = fbank(wave, **kwargs)
+    torch.cuda.synchronize()
+    assert (fbank.launches - before[0], fbank.fft_launches - before[1],
+            fbank.fft_block_launches - before[2]) == (0, 0, 1)
+    want = fbank_plain(wave, **kwargs)
+    assert got.shape == want.shape == (frames, kwargs.get("num_mel_bins", 80))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-3)
+
+
+def test_fbank_fft_block_plan_is_deterministic_and_takes_unaligned_waveforms(cuda_device):
+    """Two runs of the block plan agree bit for bit (its sums run in a fixed
+    order), and a waveform that starts 1 float past a 16-byte boundary gives
+    the aligned copy's result bit for bit, at 8192 and 32768 points."""
+    for kw in (dict(sample_rate=96000, frame_length=50.0),
+               dict(sample_rate=192000, frame_length=100.0)):
+        base = _speech(3.0, cuda_device, seed=21, sr=kw["sample_rate"])
+        view = base[1:]
+        aligned = view.clone()
+        assert view.data_ptr() % 16 != 0 and aligned.data_ptr() % 16 == 0
+        got = fbank_fft(view, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fbank_fft(aligned, **kw))
+        assert torch.equal(got, fbank_fft(view, **kw))
+        torch.testing.assert_close(got, fbank_plain(view, **kw), atol=2e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -559,7 +610,7 @@ def _tc_counts():
 # 199 subsampled frames) at p = 0 and 0.1; dk = 128; c = 128; (L, R) of
 # (64, 0) and (0, 64); ragged lens (full length, below L, below one chunk);
 # a length of 1; chunks that 64 does not divide (partial 64-row query
-# blocks and 64-frame key blocks): 96, 48 at dk 128, 72, 16, 8 and 130
+# blocks and 64-frame key blocks): 96, 48 at dk 128, 72, 16, 8, 130 and 1
 TC_CASES = [
     (3, 3, 96, 128, 128, 64, 0.1, [288, 200, 61]),
     (3, 4, 48, 128, 128, 128, 0.0, [192, 150, 40]),
@@ -575,6 +626,7 @@ TC_CASES = [
     (4, 4, 64, 0, 64, 64, 0.1, [256, 190, 70, 13]),
     (5, 4, 64, 128, 128, 64, 0.1, [256, 100, 40, 199, 130]),
     (3, 2, 64, 128, 128, 64, 0.0, [1, 128, 65]),
+    (3, 4, 1, 16, 8, 64, 0.0, [4, 3, 1]),
 ]
 
 
@@ -588,8 +640,10 @@ def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d
     relative, m and den rtol 1e-2, every gradient within 1e-2 relative L2
     (the kernels round the weights, dS and its band to bf16 for the tensor
     cores and sum in f32). f32 (3xTF32 split products): ctx atol 1e-5, m and
-    den rtol 1e-5, every gradient atol 1e-4 rtol 1e-5. Only the tensor-core
-    counters move."""
+    den atol 1e-5 + rtol 1e-5 (the single-op bar: a row max near 0 is O(1)
+    scores' rounding from the float64 value, as the plain version's own,
+    ``test_train_attention_tc_statistics_against_float64``), every gradient
+    atol 1e-4 rtol 1e-5. Only the tensor-core counters move."""
     bf16 = dtype == torch.bfloat16
     args = _train_attention_args(b, n, c, L, R, 8, d_k, dtype, cuda_device,
                                  seed=b + c + d_k, lens=lens)
@@ -602,8 +656,9 @@ def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d
     want_ctx, want_m, want_den = cat.forward_plain(*args, seed, c, L, R, drop)
     torch.testing.assert_close(ctx.float(), want_ctx.float(), atol=1e-2 if bf16 else 1e-5,
                                rtol=2.0 ** -7 if bf16 else 0.0)
-    torch.testing.assert_close(m, want_m, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
-    torch.testing.assert_close(den, want_den, atol=0.0, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(m, want_m, atol=0.0 if bf16 else 1e-5, rtol=1e-2 if bf16 else 1e-5)
+    torch.testing.assert_close(den, want_den, atol=0.0 if bf16 else 1e-5,
+                               rtol=1e-2 if bf16 else 1e-5)
 
     w = torch.randn(ctx.shape, device=cuda_device, generator=torch.Generator(
         device=cuda_device).manual_seed(5)).to(dtype)
@@ -629,6 +684,36 @@ def test_train_attention_tensor_core_matches_plain(cuda_device, b, n, c, L, R, d
     for i, ln in enumerate(lens):
         assert not bool(got[1][i, L + ln:L + n * c].any())
         assert not bool(got[0][i, ln:].any())
+
+
+@pytest.mark.parametrize("b,n,c,L,R,lens", [(3, 4, 1, 16, 8, [4, 3, 1]),
+                                            (8, 64, 1, 128, 128, None),
+                                            (4, 4, 64, 128, 128, None)])
+def test_train_attention_tc_statistics_against_float64(cuda_device, b, n, c, L, R, lens):
+    """C25: the f32 tensor-core forward's row max m and denominator den, and
+    the f32 plain version's, each against a float64 computation of the same
+    scores, on the rows with a valid key: the kernel (3xTF32 products, f32
+    sums) stays within the single-op bar of 1e-5 of the float64 m and within
+    1e-5 relative of its den, at c = 1 (one-row query blocks) and c = 64.
+    Prints both errors."""
+    args = _train_attention_args(b, n, c, L, R, 8, 64, torch.float32, cuda_device,
+                                 seed=b + c, lens=lens)
+    assert cat.route(*args[:3], c) == "tensor_core"
+    _, m, den = cat.forward_kernel(*args, 7, c, L, R, 0.0, path="tensor_core")
+    torch.cuda.synchronize()
+    _, m32, den32 = cat.forward_plain(*args, 7, c, L, R, 0.0)
+    _, m64, den64 = cat.forward_plain(*args, 7, c, L, R, 0.0, dtype=torch.float64)
+    live = m64 > -1e28                       # rows with a valid key (else m = -1e29)
+    errs = {}
+    for name, got in (("kernel", (m, den)), ("plain f32", (m32, den32))):
+        errs[name] = (float((got[0].double() - m64)[live].abs().max()),
+                      float(((got[1].double() - den64).abs() / den64)[live].max()))
+    near0 = int((m64[live].abs() < 0.05).sum())
+    print(f"c={c} B={b} n={n}: max |m - m64| kernel {errs['kernel'][0]:.3g}, plain f32 "
+          f"{errs['plain f32'][0]:.3g}; max |den - den64| / den64 kernel "
+          f"{errs['kernel'][1]:.3g}, plain f32 {errs['plain f32'][1]:.3g}; {near0} of "
+          f"{int(live.sum())} live row maxima within 0.05 of 0")
+    assert errs["kernel"][0] <= 1e-5 and errs["kernel"][1] <= 1e-5, errs
 
 
 def _head_slice(args, h0, h1):

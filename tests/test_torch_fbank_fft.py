@@ -11,7 +11,13 @@ rounded to float32, the sparse band table summed in ascending bin order, and
 the log. A window padded to 64 or 128 points runs the 256-point plan and its
 strided lane table; 4096 points run the in-place decimation-in-frequency
 plan (``_dif``) and the real split reads each Z[k] at its digit-reversed
-point.
+point. Above 4096 points the block plan (``csrc/fbank_fft_block.cu``, a
+block of 256 threads a frame) is emulated by ``fbank_block_emulated``: the
+block's frame mean, the same in-place plan at ``fft_block_radices``, the
+split of each pair (k, N - k), and float64 mel sums, a band a warp.
+
+The module's torch work runs on one thread, as the tile-walk files do: six
+test workers then do not oversubscribe the cores.
 """
 
 import jax.numpy as jnp
@@ -19,11 +25,20 @@ import numpy as np
 import pytest
 import torch
 
+from chunkformer_tpu.ops.fbank import fbank as jax_fbank
 from chunkformer_tpu.ops.pallas.fbank import fbank_pallas
 from chunkformer_tpu_torch.ops import fbank as fb
 
 F32, F64 = np.float32, np.float64
 SQRT_HALF = np.sqrt(0.5)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _cmul(a, w):
@@ -39,6 +54,10 @@ def _dft4(a):
     b0, b2 = a[0] + a[2], a[0] - a[2]
     b1, b3 = a[1] + a[3], _mul_neg_i(a[1] - a[3])
     return [b0 + b1, b2 + b3, b0 - b1, b2 - b3]
+
+
+def _dft2(a):
+    return [a[0] + a[1], a[0] - a[1]]
 
 
 def _dft8(a):
@@ -94,7 +113,7 @@ def _dif(z, radices, split):
         u = np.arange(n // radix)
         i, base = u % h, (u // h) * ls + u % h
         x = [z[:, base + j * h] for j in range(radix)]
-        x = _dft8(x) if radix == 8 else _dft4(x)
+        x = {8: _dft8, 4: _dft4, 2: _dft2}[radix](x)
         out = np.empty_like(z)
         for q in range(radix):
             w = x[q]
@@ -445,6 +464,217 @@ def test_twiddles_and_order_of_the_4096_point_plan():
     np.testing.assert_allclose(got[..., 0] + 1j * got[..., 1], want, rtol=0, atol=1e-9)
 
 
+THREADS = fb.FFT_BLOCK_THREADS
+
+
+def _xor_tree(lanes):
+    """A warp's shuffle sum (``__shfl_xor_sync`` at 16, 8, 4, 2, 1) over the
+    last axis of 32 lanes; lane 0's total."""
+    idx = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[..., idx ^ o]
+    return lanes[..., 0]
+
+
+def _strided_sums(vals, lanes):
+    """Each of ``lanes`` threads' sum of vals[..., lane + lanes t], t in
+    order: [..., lanes]."""
+    width = -(-vals.shape[-1] // lanes) * lanes
+    padded = np.zeros(vals.shape[:-1] + (width,), F64)
+    padded[..., :vals.shape[-1]] = vals
+    acc = np.zeros(vals.shape[:-1] + (lanes,), F64)
+    for t in range(width // lanes):
+        acc += padded[..., t * lanes:(t + 1) * lanes]
+    return acc
+
+
+def fbank_block_emulated(wave, num_mel_bins=80, frame_length=25.0, frame_shift=10.0,
+                         sample_rate=16000):
+    """The block plan's arithmetic in numpy, float64 from the float32 samples
+    and window to the log: the frame mean as the block sums it (each of 256
+    threads over its strided samples, each warp's shuffle tree, the 8 warp
+    sums in order), preemphasis and window, the in-place plan of radices
+    ``fft_block_radices`` with the split table's twiddles (the first stage
+    from the samples), the split of each pair (k, N - k) at the points
+    ``dif_positions`` gives, and each band summed by a warp (lane l takes its
+    bins l, l + 32, ..., then the shuffle tree); the log rounded to
+    float32."""
+    win, shift, padded = fb._geometry(sample_rate, frame_length, frame_shift)
+    n = fb.num_frames(wave.shape[0], sample_rate, frame_length, frame_shift)
+    if n == 0:
+        return np.zeros((0, num_mel_bins), F32)
+    half = padded // 2
+    split = fb.fft_twiddles(padded)[1]
+    x = wave.astype(F32)[np.arange(n)[:, None] * shift + np.arange(win)[None]].astype(F64)
+    warps = _xor_tree(_strided_sums(x, THREADS).reshape(n, THREADS // 32, 32))
+    total = np.zeros(n, F64)
+    for w in range(THREADS // 32):
+        total += warps[:, w]
+    mean = total * (1.0 / win)
+    xm = x - mean[:, None]
+    prev = np.concatenate([xm[:, :1], xm[:, :-1]], 1)
+    frames = np.zeros((n, padded), F64)
+    frames[:, :win] = (xm - F64(F32(0.97)) * prev) * fb.povey_window(win).astype(F64)
+    radices = fb.fft_block_radices(padded)
+    z = _dif(frames.reshape(n, half, 2), radices, split)
+    pos = dif_positions(radices)
+    k = np.arange(half)
+    zk, zm = z[:, pos[k]], z[:, pos[(half - k) % half]]
+    u = _cmul(np.stack([zk[..., 0] - zm[..., 0], zk[..., 1] + zm[..., 1]], -1), split[None])
+    re = 0.5 * (zk[..., 0] + zm[..., 0] + u[..., 1])
+    im = 0.5 * (zk[..., 1] - zm[..., 1] - u[..., 0])
+    power = re * re + im * im
+    first, count, offset, weights = fb.band_table(num_mel_bins, padded, float(sample_rate))
+    mel = np.zeros((n, num_mel_bins), F64)
+    for m in range(num_mel_bins):
+        w = weights[offset[m]:offset[m] + count[m]].astype(F64)
+        mel[:, m] = _xor_tree(_strided_sums(power[:, first[m]:first[m] + count[m]] * w, 32))
+    return np.log(np.maximum(mel, fb._EPSILON)).astype(F32)
+
+
+def test_block_plan_matches_pallas_at_8192_points():
+    """50 ms at 96 kHz (4800 samples, padded 8192) on 0.5 s of int16-scale
+    noise: the block plan's emulation within atol 2e-3 + rtol 1e-3 of the
+    JAX package's Pallas kernel in interpret mode (its [win, bins] DFT
+    tables make this about 6 s on a CPU) and of the plain version."""
+    kw = dict(sample_rate=96000, frame_length=50.0)
+    assert fb._geometry(96000, 50.0, 10.0)[2] == 8192 and fb.route(**kw) == "fft"
+    wave = (np.random.default_rng(19).normal(size=48000) * 8000).astype(F32)
+    got = fbank_block_emulated(wave, **kw)
+    wants = {"plain": fb.fbank_plain(torch.from_numpy(wave), **kw).numpy(),
+             "pallas": np.asarray(fbank_pallas(jnp.asarray(wave), interpret=True, **kw))}
+    for name, want in wants.items():
+        assert got.shape == want.shape == (fb.num_frames(48000, 96000, 50.0), 80), name
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(sample_rate=48000, frame_length=100.0),                      # 4800 of 8192
+    dict(sample_rate=48000, frame_length=100.0, frame_shift=10.0625),  # shift 483 (odd)
+    dict(sample_rate=48000, frame_length=100.0, frame_shift=120.0),   # shift 5760 > win
+    dict(sample_rate=96000, frame_length=100.0),                      # 9600 of 16384
+    dict(sample_rate=96000, frame_length=100.0, num_mel_bins=160),
+    dict(sample_rate=192000, frame_length=100.0),                     # 19200 of 32768
+])
+def test_block_plan_matches_jax_fbank(kwargs):
+    """8192, 16384 and 32768 points (odd and long shifts, 160 bins) on 0.5 s
+    of noise: the emulation within the fbank bar of the JAX package's plain
+    ``fbank`` (dither 0) and of the port's plain version. The Pallas kernel
+    is left out here: in interpret mode its [win, bins] DFT tables take 23 s
+    and more from 16384 points on a CPU."""
+    sr = kwargs["sample_rate"]
+    n_samples = sr // 2 + 37
+    wave = (np.random.default_rng(23).normal(size=n_samples) * 8000).astype(F32)
+    assert fb.route(**kwargs) == "fft"
+    got = fbank_block_emulated(wave, **kwargs)
+    wants = {"plain": fb.fbank_plain(torch.from_numpy(wave), **kwargs).numpy(),
+             "jax": np.asarray(jax_fbank(jnp.asarray(wave), dither=0.0, **kwargs))}
+    n = fb.num_frames(n_samples, sr, kwargs["frame_length"], kwargs.get("frame_shift", 10.0))
+    for name, want in wants.items():
+        assert got.shape == want.shape == (n, kwargs.get("num_mel_bins", 80)), name
+        np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-3, err_msg=name)
+
+
+def block_slot(c, log_n):
+    """``slot`` in ``csrc/fbank_fft_block.cu``: bits 3-5 and the top three
+    bits of point c folded into its low three."""
+    return c ^ (((c >> 3) ^ (c >> (log_n - 3))) & 7)
+
+
+def block_z_pos(k, log_n):
+    """``z_pos`` in ``csrc/fbank_fft_block.cu``."""
+    pos, s = np.zeros_like(k), log_n
+    while s >= 3:
+        pos |= (k & 7) << (s - 3)
+        k = k >> 3
+        s -= 3
+    return pos | k
+
+
+@pytest.mark.parametrize("padded", [8192, 16384, 32768, 262144])
+def test_block_plan_stages_positions_and_swizzle(padded):
+    """The block plan's radices combine padded / 2 points, radix 8 first and
+    one stage of 4 or 2 last; the emulated plan with the split table's
+    twiddles is numpy's FFT; the kernel's ``z_pos`` is the plan's
+    digit-reversed order; ``slot`` is a permutation, and every quarter-warp
+    (8 consecutive threads) reaches 8 different 16-byte bank groups in each
+    stage's loads and stores, the first stage's stores and the split's
+    loads of Z[k]."""
+    half = padded // 2
+    log_n = half.bit_length() - 1
+    radices = fb.fft_block_radices(padded)
+    assert np.prod(radices) == half and set(radices[:-1]) <= {8} and radices[0] == 8
+    assert fb.fft_block_radices(4096) == fb.FFT_DIF_RADICES[4096]
+    split = fb.fft_twiddles(padded)[1]
+    z = np.random.default_rng(5).normal(size=(1, half, 2))
+    got = _dif(z, radices, split)[:, dif_positions(radices)]
+    want = np.fft.fft(z[..., 0] + 1j * z[..., 1], axis=1)
+    np.testing.assert_allclose(got[..., 0] + 1j * got[..., 1], want, rtol=0,
+                               atol=1e-9 * np.sqrt(half))
+    k = np.arange(half)
+    assert np.array_equal(block_z_pos(k, log_n), dif_positions(radices))
+    slots = block_slot(k, log_n)
+    assert np.array_equal(np.sort(slots), k)
+
+    def distinct(points):            # [threads, ...] points, one row a thread
+        groups = block_slot(points, log_n).reshape(-1, 8, *points.shape[1:]) & 7
+        return all(len(set(g)) == 8 for g in np.moveaxis(groups, 1, -1).reshape(-1, 8))
+
+    t1 = half // 8
+    u = np.arange(t1)
+    assert distinct(u[:, None] + np.arange(8)[None] * t1)          # the first stage
+    ls = t1
+    for radix in radices[1:]:
+        h = ls // radix
+        u = np.arange(half // radix)
+        base = (u - (u & (h - 1))) * radix + (u & (h - 1))
+        assert distinct(base[:, None] + np.arange(radix)[None] * h), (radix, ls)
+        ls = h
+    assert distinct(block_z_pos(np.arange(half // 2 // 8 * 8), log_n))   # the split's Z[k]
+
+
+@pytest.mark.parametrize("padded,in_shared", [(8192, True), (16384, True), (32768, False),
+                                              (65536, False), (262144, False)])
+def test_block_plan_sizing(padded, in_shared):
+    """The frame's buffer (padded / 2 complex float64) and the warps' 64
+    bytes of partial sums fit the 227 KB a block may take up to 16384 points
+    (64 and 128 KB), two blocks an SM at 8192 points and one at 16384; from
+    32768 points the wrapper allocates a workspace of one buffer a block,
+    one block an SM: 256 KB a slot and 33.8 MB over an H100's 132 SMs at
+    32768 points, within its 50 MB L2; never more blocks than frames."""
+    assert fb.fft_block_in_shared(padded) == in_shared
+    grid = fb.fft_block_grid(padded, 12000, 132)
+    if in_shared:
+        assert 8 * padded + 64 <= fb.FFT_SMEM_BYTES
+        assert grid == {8192: 264, 16384: 132}[padded]
+        assert grid // 132 * (8 * padded + 64 + fb.BLOCK_RESERVED_SMEM) <= fb.SM_SMEM_BYTES
+        assert fb.fft_block_workspace_bytes(padded, grid) == 0
+    else:
+        assert grid == 132
+        assert fb.fft_block_workspace_bytes(padded, grid) == 132 * padded // 2 * 16
+    assert fb.fft_block_grid(padded, 3, 132) == 3
+    assert fb.fft_block_workspace_bytes(32768, 132) == 34603008 < 50 * 2 ** 20
+
+
+def test_block_plan_band_table_at_262144_points():
+    """1 s windows at 192 kHz (192000 samples, padded 262144): the block
+    plan's int32 band table (first bin, bins, first weight) holds bins past
+    the warp plans' 16-bit field (65535) and rebuilds ``mel_banks`` bit for
+    bit; no band reaches the Nyquist bin."""
+    assert fb._geometry(192000, 1000.0, 10.0)[2] == 262144
+    _, _, bands, weights = fb._fft_block_tables(192000, 262144, 80, 192000,
+                                                torch.device("cpu"))
+    bands, weights = bands.numpy(), weights.numpy()
+    assert bands.dtype == np.int32 and bands.shape == (80, 4) and not bands[:, 3].any()
+    first, count, offset = bands[:, 0], bands[:, 1], bands[:, 2]
+    assert int((first + count).max()) > 0xFFFF and int((first + count).max()) <= 131072
+    want = fb.mel_banks(80, 262144, 192000.0)
+    rebuilt = np.zeros_like(want)
+    for m in range(80):
+        rebuilt[first[m]:first[m] + count[m], m] = weights[offset[m]:offset[m] + count[m]]
+    assert np.array_equal(rebuilt.view(np.uint32), want.view(np.uint32))
+
+
 @pytest.mark.parametrize("kwargs,want", [
     ({}, "fft"),
     ({"sample_rate": 8000}, "fft"),
@@ -467,28 +697,28 @@ def test_twiddles_and_order_of_the_4096_point_plan():
     ({"sample_rate": 96000}, "fft"),                    # 2400 samples, padded 4096
     ({"sample_rate": 96000, "frame_length": 42.6}, "fft"),  # 4089 samples, padded 4096
     ({"num_mel_bins": 1000}, "fft"),
+    ({"sample_rate": 96000, "frame_length": 50.0}, "fft"),  # 4800 samples, padded 8192
+    ({"sample_rate": 48000, "frame_length": 100.0}, "fft"),  # 4800 samples, padded 8192
+    ({"sample_rate": 96000, "frame_length": 100.0}, "fft"),  # 9600 samples, padded 16384
+    ({"sample_rate": 192000, "frame_length": 100.0}, "fft"),  # 19200, padded 32768
 ])
 def test_route_picks_the_fft_kernel_for_its_geometries(kwargs, want):
-    """Every padded window of 64 to 4096 points, any shift and any bin count
-    goes to the FFT kernel: no route reaches the DFT kernel (C22, C23)."""
+    """Every padded window from 64 points up, any shift and any bin count
+    goes to an FFT kernel (the block plan above 4096 points, C24): no route
+    reaches the DFT kernel (C22, C23)."""
     assert fb.route(**kwargs) == want
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(sample_rate=96000, frame_length=50.0),          # 4800 samples, padded 8192
-    dict(sample_rate=48000, frame_length=100.0),         # 4800 samples, padded 8192
     dict(frame_shift=0.01),                              # a shift of 0 samples
     dict(num_mel_bins=0)])
 def test_route_refuses_what_no_kernel_takes(kwargs):
-    """Past 4096 points (and at a shift of 0 or no mel bins) ``route`` and
-    the routed entry raise a ``ValueError`` that names the limit, in
-    Python, never a CUDA error; the plain version still computes them on
-    the CPU."""
-    with pytest.raises(ValueError, match="4096|shift|mel bins"):
+    """At a shift of 0 or no mel bins ``route`` and the FFT entry raise a
+    ``ValueError`` that names the limit, in Python, never a CUDA error."""
+    with pytest.raises(ValueError, match="shift|mel bins"):
         fb.route(**kwargs)
-    if kwargs.get("frame_length", 25.0) > 40.0:
-        with pytest.raises(ValueError, match="4096"):
-            fb.fbank_fft(torch.zeros(10000, dtype=torch.float32), **kwargs)
+    with pytest.raises(ValueError, match="shift|mel bins"):
+        fb.fbank_fft(torch.zeros(10000, dtype=torch.float32), **kwargs)
 
 
 def test_dft_kernel_refuses_windows_past_its_shared_memory():
@@ -502,11 +732,14 @@ def test_dft_kernel_refuses_windows_past_its_shared_memory():
 
 def test_kernel_entries_refuse_cpu_tensors():
     """fbank_fft and fbank_dft launch kernels only; on the CPU the routed
-    entry runs the plain version and launches nothing."""
-    wave = torch.zeros(4000)
-    for entry in (fb.fbank_fft, fb.fbank_dft):
+    entry runs the plain version and launches nothing, at 16 kHz and at
+    8192 points (the block plan's geometry)."""
+    wave = torch.zeros(10000)
+    block = dict(sample_rate=96000, frame_length=50.0)
+    for entry, kw in ((fb.fbank_fft, {}), (fb.fbank_dft, {}), (fb.fbank_fft, block)):
         with pytest.raises(ValueError):
-            entry(wave)
-    before = (fb.fbank.launches, fb.fbank.fft_launches)
-    assert torch.equal(fb.fbank(wave), fb.fbank_plain(wave))
-    assert (fb.fbank.launches, fb.fbank.fft_launches) == before
+            entry(wave, **kw)
+    before = (fb.fbank.launches, fb.fbank.fft_launches, fb.fbank.fft_block_launches)
+    for kw in ({}, block):
+        assert torch.equal(fb.fbank(wave, **kw), fb.fbank_plain(wave, **kw))
+    assert (fb.fbank.launches, fb.fbank.fft_launches, fb.fbank.fft_block_launches) == before

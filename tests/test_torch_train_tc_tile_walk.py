@@ -310,10 +310,11 @@ def bwd_walk(q, kv, p, u, v, lens, ctx, m, den, dctx, seed, c, left, right, drop
 
 # (c, L, R, lens): n = 3 chunks; c = 96 (a full block and one of 32 rows; n c =
 # 288, four key blocks and one of 32), 72 (64 + 8 rows; 216 = 3 x 64 + 24), 48
-# and 16 (one partial block at r0 = 0; 144 and 48 frames); ragged lens with a
-# length of 1
+# and 16 (one partial block at r0 = 0; 144 and 48 frames), 1 (a block of one
+# row; 3 frames, one key block of 3); ragged lens with a length of 1
 CASES = [(96, 32, 16, [288, 251, 101, 1]), (72, 64, 0, [216, 150, 73, 1]),
-         (48, 64, 32, [144, 100, 49, 1]), (16, 64, 64, [48, 31, 17, 1])]
+         (48, 64, 32, [144, 100, 49, 1]), (16, 64, 64, [48, 31, 17, 1]),
+         (1, 16, 8, [3, 2, 1])]
 HEADS, D_K = 2, 64
 
 

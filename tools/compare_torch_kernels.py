@@ -3,9 +3,11 @@
 cores), the CUDA-core training attention kernels (forward and backward), the
 tensor-core training attention kernels (B4 and B5, f32 and bf16) and both
 fbank kernels at the main paths' shapes (the FFT kernel also at a 50 ms
-window, 1024 points), and the routed training kernels at c = 96 (B = 8, 4
-chunks, H = 8, dk = 64, p = 0.1; the route each checkout picks is printed),
-so that two checkouts can be compared on one card in one call.
+window, 1024 points, and on 120 s at the warp plans' other geometries: an
+odd shift, a 40 ms shift, 160 bins, 2048, 4096 and 128 points), and the
+routed training kernels at c = 96 (B = 8, 4 chunks, H = 8, dk = 64, p = 0.1;
+the route each checkout picks is printed), so that two checkouts can be
+compared on one card in one call.
 
     cd <checkout> && python3 <this repo>/tools/compare_torch_kernels.py <tag> <out_dir>
     python3 tools/compare_torch_kernels.py --compare <out_dir>/ab_<a>.pt <out_dir>/ab_<b>.pt
@@ -117,6 +119,19 @@ def fingerprint(tag, out_dir):
             outs["fft 50 ms"] = fbank_fft(wave, frame_length=50.0)
             times["fft 50 ms"] = [cs.cuda_ms(lambda: fbank_fft(wave, frame_length=50.0),
                                              iters=10) for _ in range(3)]
+    # the warp plans' other geometries (csrc/fbank_fft.cu, up to 4096 points)
+    for name, kw in (("50 ms / 161", dict(frame_length=50.0, frame_shift=10.0625)),
+                     ("40 ms shift", dict(frame_shift=40.0)),
+                     ("160 bins", dict(num_mel_bins=160)),
+                     ("2048 points", dict(sample_rate=44100)),
+                     ("4096 points", dict(sample_rate=96000)),
+                     ("128 points", dict(sample_rate=8000, frame_length=15.0))):
+        sr = kw.get("sample_rate", 16000)
+        wave = torch.from_numpy(cs.speechlike(np.random.default_rng(1), 120.0, sr)
+                                .astype(np.float32)).to(dev)
+        outs[f"fft {name}"] = fbank_fft(wave, **kw)
+        times[f"fft {name}"] = [cs.cuda_ms(lambda: fbank_fft(wave, **kw), iters=10)
+                                for _ in range(3)]
     torch.cuda.synchronize()
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: v.cpu() for k, v in outs.items()}, os.path.join(out_dir, f"ab_{tag}.pt"))
